@@ -8,3 +8,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 import jax  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (the port's Hopper "
+        "kernels); skips elsewhere")
