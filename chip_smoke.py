@@ -22,9 +22,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    hopper requests under ``torch.profiler`` prints the device's busy share
    and top kernels.
 
-Each kernel is held to its plain version within one bf16 ulp of the
-output's largest magnitude: both take fp32 scores and sums of the same bf16
-operands, in another order.  Times are CUDA-event medians with the 50 MB L2
+Each kernel is held to its plain version within one bf16 ulp of each output
+element, never below 2^-14: both take fp32 scores and sums of the same bf16
+operands, in another order, and near 0 an ulp is far below the ~1e-6 by
+which such sums differ.  Times are CUDA-event medians with the 50 MB L2
 flushed before every launch (in serving, the other 23 layers' weights and
 pages pass through L2 between two calls of one layer).  ``bound_ms`` is the
 larger of the bytes the function must move over 3.35 TB/s and its
@@ -40,7 +41,6 @@ no result.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import os
@@ -57,17 +57,17 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense, NVIDIA data sheet
 L2_FLUSH_BYTES = 64 << 20      # > the H100's 50 MB L2
 LOGIT_TOL = 0.25               # dual-gate bound on max |dlogit|
-N_LAYERS = 24
+ULP_FLOOR = 2.0 ** -14         # least kernel-vs-plain bound (ulp at ~0.01)
+
+# the main path's workload: 8 requests of 128..1024 prompt tokens sharing a
+# 64-token prefix, 16-token pages, 256-token prefill chunks, 32 new tokens
+N_REQUESTS, PREFIX, PROMPT_LO, PROMPT_HI = 8, 64, 128, 1024
+PAGE, CHUNK, GEN_TOKENS = 16, 256, 32
 
 
 def fail(msg: str) -> None:
     print(f"[smoke] FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def bf16_ulp(x: float) -> float:
-    """One bf16 ulp at magnitude ``x`` (8 significant bits)."""
-    return 2.0 ** (math.floor(math.log2(max(x, 1e-30))) - 7)
 
 
 class Timer:
@@ -123,15 +123,21 @@ def paged_pool(torch, rng, lengths, K, D, ps, width):
 
 
 def check_kernel(torch, name, got, want):
-    err = (got.float() - want.float()).abs().max().item()
-    tol = bf16_ulp(want.float().abs().max().item())
-    ok = bool(torch.isfinite(got.float()).all().item()) and err <= tol
-    print(f"[smoke] {name}: max|kernel - plain| = {err:.6g} "
-          f"(bound: one bf16 ulp of max|plain| = {tol:.6g}) "
-          f"-> {'OK' if ok else 'FAIL'}", flush=True)
+    """Hold ``got`` to ``want`` element by element: |got - want| within one
+    bf16 ulp of |want| (8 significant bits), never below ``ULP_FLOOR``.
+    Returns (max |got - want|, worst ratio of error to bound)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    tol = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    ratio = (diff / tol.clamp_min(ULP_FLOOR)).max().item()
+    err = diff.max().item()
+    ok = bool(torch.isfinite(g).all().item()) and ratio <= 1.0
+    print(f"[smoke] {name}: max|kernel - plain| = {err:.6g}, worst "
+          f"|kernel - plain| / (one bf16 ulp of |plain|, >= 2^-14) = "
+          f"{ratio:.4g} -> {'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version")
-    return err
+    return err, ratio
 
 
 def phase_decode(torch, rng, timer):
@@ -152,7 +158,7 @@ def phase_decode(torch, rng, timer):
     got = paged_decode(q, k, v, tables, pos_t, scale=scale)
     want = paged_decode_plain(q, k, v, tables, pos_t, scale=scale)
     torch.cuda.synchronize()
-    err = check_kernel(torch, "K1 paged_decode", got, want)
+    err, ratio = check_kernel(torch, "K1 paged_decode", got, want)
     ms = timer(lambda: paged_decode(q, k, v, tables, pos_t, scale=scale))
     plain_ms = timer(lambda: paged_decode_plain(q, k, v, tables, pos_t,
                                                 scale=scale))
@@ -171,8 +177,9 @@ def phase_decode(torch, rng, timer):
     print(f"[smoke] K1 paged_decode: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
           f" ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
           f"{nbytes / 1e6:.2f} MB of pages, q, out, tables)", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+    return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
 
 
 def phase_prefill(torch, rng, timer):
@@ -183,18 +190,20 @@ def phase_prefill(torch, rng, timer):
     from repro_torch.models.attention import gather_pages
     B, K, G, D, ps, T, width = 8, 2, 7, 64, 16, 256, 128
     H = K * G
+    scale = 1.0 / math.sqrt(D)
     starts = [256 * i for i in range(B)]
     k, v, tables = paged_pool(torch, rng, [s + T for s in starts], K, D, ps,
                               width)
     gen = torch.Generator(device="cuda").manual_seed(3)
     q = torch.randn((B, T, H, D), generator=gen, device="cuda").bfloat16()
     st = torch.tensor(starts, dtype=torch.int32, device="cuda")
-    got = ragged_prefill(q, k, v, tables, st)
-    want = ragged_prefill_plain(q, k, v, tables, st)
+    got = ragged_prefill(q, k, v, tables, st, scale=scale)
+    want = ragged_prefill_plain(q, k, v, tables, st, scale=scale)
     torch.cuda.synchronize()
-    err = check_kernel(torch, "K2 ragged_prefill", got, want)
-    ms = timer(lambda: ragged_prefill(q, k, v, tables, st))
-    plain_ms = timer(lambda: ragged_prefill_plain(q, k, v, tables, st))
+    err, ratio = check_kernel(torch, "K2 ragged_prefill", got, want)
+    ms = timer(lambda: ragged_prefill(q, k, v, tables, st, scale=scale))
+    plain_ms = timer(lambda: ragged_prefill_plain(q, k, v, tables, st,
+                                                  scale=scale))
     kg = gather_pages(k, tables).transpose(1, 2).repeat_interleave(G, 1)
     vg = gather_pages(v, tables).transpose(1, 2).repeat_interleave(G, 1)
     qpos = st[:, None] + torch.arange(T, device="cuda")[None, :]
@@ -202,7 +211,7 @@ def phase_prefill(torch, rng, timer):
             <= qpos[:, :, None])[:, None]
     qh = q.transpose(1, 2)
     library_ms = timer(lambda: F.scaled_dot_product_attention(
-        qh, kg, vg, attn_mask=mask))
+        qh, kg, vg, attn_mask=mask, scale=scale))
     keys = sum(s + T for s in starts)
     pairs = sum(T * s + T * (T + 1) // 2 for s in starts)   # causal (q, k)
     nbytes = keys * K * D * 2 * 2 + 2 * q.numel() * 2 \
@@ -212,21 +221,21 @@ def phase_prefill(torch, rng, timer):
           f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
           f"({by}: {pairs * H * D * 4 / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB)", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+    return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
 
 
-def serving_workload(rng, vocab, n_requests=8, prefix=64, lo=128, hi=1024):
-    shared = rng.randint(1, vocab, size=prefix).tolist()
-    lens = [int(x) for x in np.linspace(lo, hi, n_requests)]
-    return [shared + rng.randint(1, vocab, size=n - prefix).tolist()
+def serving_workload(rng, vocab):
+    shared = rng.randint(1, vocab, size=PREFIX).tolist()
+    lens = [int(x) for x in np.linspace(PROMPT_LO, PROMPT_HI, N_REQUESTS)]
+    return [shared + rng.randint(1, vocab, size=n - PREFIX).tolist()
             for n in lens]
 
 
-def phase_serve(torch, cfg, seed, device, backend="hopper", gen_tokens=32,
-                n_requests=8, prefix=64, lo=128, hi=1024, chunk=256):
-    """Serve ``cfg`` on ``backend``, then on the reference backend, and hold
-    them to each other.  Returns (launch counts of the ``backend`` run,
+def phase_serve(torch, cfg, seed):
+    """Serve ``cfg`` on the hopper backend, then on the reference backend,
+    and hold them to each other.  Returns (launch counts of the hopper run,
     dual-gate report)."""
     from repro_torch.configs import ServeConfig
     from repro_torch.kernels.paged_attention import paged_decode
@@ -235,28 +244,28 @@ def phase_serve(torch, cfg, seed, device, backend="hopper", gen_tokens=32,
     from repro_torch.models.registry import init_params
     from repro_torch.serving import Engine, dual_gate, replay_logits
     rng = np.random.RandomState(seed)
-    prompts = serving_workload(rng, cfg.vocab, n_requests, prefix, lo, hi)
-    ps = 16
-    scfg = ServeConfig(page_size=ps, max_slots=n_requests,
-                       max_len=-(-(hi + gen_tokens) // ps) * ps,
-                       prefix_cache=True, prefill_chunk_tokens=chunk,
-                       attn_backend=backend)
-    ref_scfg = dataclasses.replace(scfg, attn_backend="reference")
+    prompts = serving_workload(rng, cfg.vocab)
+    kw = dict(page_size=PAGE, max_slots=N_REQUESTS,
+              max_len=-(-(PROMPT_HI + GEN_TOKENS) // PAGE) * PAGE,
+              prefix_cache=True, prefill_chunk_tokens=CHUNK)
+    scfg = ServeConfig(attn_backend="hopper", **kw)
+    ref_scfg = ServeConfig(attn_backend="reference", **kw)
+    device = "cuda"
     with torch.no_grad():
         t0 = time.perf_counter()
         params = init_params(cfg, seed, device)
-        sync(torch, device)
+        torch.cuda.synchronize()
         n_params = sum(leaf.numel() for _, leaf in tree_leaves(params))
         print(f"[smoke] {cfg.name}: {n_params / 1e6:.1f} M parameters drawn "
               f"on {device} in {time.perf_counter() - t0:.1f} s", flush=True)
         eng = Engine(cfg, scfg, params, seed=seed, device=device)
         paged_decode.launches = 0
         ragged_prefill.launches = 0
-        results, m = eng.run_offline(prompts, gen_tokens)
-        sync(torch, device)
+        results, m = eng.run_offline(prompts, GEN_TOKENS)
+        torch.cuda.synchronize()
         counts = {"K1": paged_decode.launches, "K2": ragged_prefill.launches}
         tokens = [r.tokens for r in results]
-        print(f"[smoke] {backend} serve: {m['n_requests']} requests, "
+        print(f"[smoke] hopper serve: {m['n_requests']} requests, "
               f"{m['new_tokens']} tokens in {m['wall_s']:.3f} s = "
               f"{m['tokens_per_s']:.1f} tok/s, decode step p50 "
               f"{m['decode_step_ms_p50']:.3f} ms over {m['decode_steps']} "
@@ -264,25 +273,23 @@ def phase_serve(torch, cfg, seed, device, backend="hopper", gen_tokens=32,
               f"({m['chunked_prefill_steps']} continuation chunks), prefix "
               f"cache hit rate {m['cache_hit_rate']:.3f}, on {m['device']}",
               flush=True)
-        print(f"[smoke] launches in the {backend} run: K1 {counts['K1']}, "
+        print(f"[smoke] launches in the hopper run: K1 {counts['K1']}, "
               f"K2 {counts['K2']} ({cfg.n_layers} layers)", flush=True)
         if any(r.failed for r in results) \
-                or any(len(t) != gen_tokens for t in tokens) \
+                or any(len(t) != GEN_TOKENS for t in tokens) \
                 or not all(0 <= x < cfg.vocab_padded for t in tokens
                            for x in t):
-            fail(f"{backend} serve returned failed, short or out-of-range "
+            fail("hopper serve returned failed, short or out-of-range "
                  "requests")
-        if backend == "hopper":
-            if counts["K1"] != m["decode_steps"] * cfg.n_layers:
-                fail(f"K1 launches {counts['K1']} != decode steps "
-                     f"{m['decode_steps']} x {cfg.n_layers} layers")
-            if counts["K2"] != m["prefill_steps"] * cfg.n_layers:
-                fail(f"K2 launches {counts['K2']} != prefill steps "
-                     f"{m['prefill_steps']} x {cfg.n_layers} layers")
-        if backend == "hopper":
-            profile_rerun(torch, eng, prompts)
+        if counts["K1"] != m["decode_steps"] * cfg.n_layers:
+            fail(f"K1 launches {counts['K1']} != decode steps "
+                 f"{m['decode_steps']} x {cfg.n_layers} layers")
+        if counts["K2"] != m["prefill_steps"] * cfg.n_layers:
+            fail(f"K2 launches {counts['K2']} != prefill steps "
+                 f"{m['prefill_steps']} x {cfg.n_layers} layers")
+        profile_rerun(torch, eng, prompts)
         ref = Engine(cfg, ref_scfg, params, seed=seed, device=device)
-        ref_results, rm = ref.run_offline(prompts, gen_tokens)
+        ref_results, rm = ref.run_offline(prompts, GEN_TOKENS)
         ref_tokens = [r.tokens for r in ref_results]
         print(f"[smoke] reference serve: {rm['tokens_per_s']:.1f} tok/s, "
               f"decode step p50 {rm['decode_step_ms_p50']:.3f} ms",
@@ -295,7 +302,7 @@ def phase_serve(torch, cfg, seed, device, backend="hopper", gen_tokens=32,
                                     attn_backend="reference")
                       for p, t in zip(prompts, tokens)]
         test_logits = [replay_logits(cfg, scfg, params, p, t,
-                                     attn_backend=backend)
+                                     attn_backend="hopper")
                        for p, t in zip(prompts, tokens)]
         report = dual_gate(ref_logits, test_logits, tokens, tol=LOGIT_TOL)
         report.update(engine_tokens_equal=same, engine_tokens=total,
@@ -304,10 +311,10 @@ def phase_serve(torch, cfg, seed, device, backend="hopper", gen_tokens=32,
                       decode_step_ms_p50=m["decode_step_ms_p50"],
                       ref_tokens_per_s=rm["tokens_per_s"],
                       ref_decode_step_ms_p50=rm["decode_step_ms_p50"])
-        print(f"[smoke] {backend} vs reference engines: {same}/{total} "
+        print(f"[smoke] hopper vs reference engines: {same}/{total} "
               f"tokens equal, {identical}/{len(tokens)} requests identical",
               flush=True)
-        print(f"[smoke] dual gate along the {backend} tokens: max |dlogit| "
+        print(f"[smoke] dual gate along the hopper tokens: max |dlogit| "
               f"{report['max_logit_err']:.5f} (tol {LOGIT_TOL}), "
               f"{report['greedy_equal_tokens']}/{report['n_tokens']} tokens "
               f"equal the reference replay's greedy token, "
@@ -315,27 +322,32 @@ def phase_serve(torch, cfg, seed, device, backend="hopper", gen_tokens=32,
               f"{report['high_margin_tokens']} high-margin tokens -> "
               f"{'OK' if report['ok'] else 'FAIL'}", flush=True)
         if not report["ok"]:
-            fail(f"{backend} serving failed the dual gate against reference")
+            fail("hopper serving failed the dual gate against reference")
     return counts, report
 
 
 def profile_rerun(torch, eng, prompts, n_new=8):
     """Where the time goes: rerun the requests (prefixes now cached) for
     ``n_new`` tokens under ``torch.profiler`` and print the device's busy
-    share of the wall time and its top kernels by self device time."""
+    share of the wall time and its top kernels by self device time.  Only
+    the profiler's own start may fail (tracing refused): that prints "not
+    measured"; a failure of the engine run propagates."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            _, m = eng.run_offline(prompts, n_new)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        rows = [(a.key, getattr(a, "self_device_time_total", 0.0), a.count)
-                for a in prof.key_averages()]
-    except RuntimeError as e:              # tracing refused in the sandbox
+        prof.__enter__()
+    except RuntimeError as e:
         print(f"[smoke] profile: not measured ({e})", flush=True)
         return
+    try:
+        t0 = time.perf_counter()
+        _, m = eng.run_offline(prompts, n_new)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        prof.__exit__(None, None, None)
+    rows = [(a.key, getattr(a, "self_device_time_total", 0.0), a.count)
+            for a in prof.key_averages()]
     busy = sum(t for _, t, _ in rows)
     if not busy:
         print("[smoke] profile: no device time recorded (not measured)",
@@ -348,11 +360,6 @@ def profile_rerun(torch, eng, prompts, n_new=8):
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:10]:
         print(f"[smoke]   {t / 1e3:9.3f} ms {n:6d} calls  {key[:90]}",
               flush=True)
-
-
-def sync(torch, device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
 
 
 def main() -> None:
@@ -388,8 +395,7 @@ def main() -> None:
     timer = Timer(torch)
     k1 = phase_decode(torch, rng, timer)
     k2 = phase_prefill(torch, rng, timer)
-    cfg = dataclasses.replace(get_arch("qwen2-0.5b"), n_layers=N_LAYERS)
-    counts, report = phase_serve(torch, cfg, args.seed, "cuda")
+    counts, report = phase_serve(torch, get_arch("qwen2-0.5b"), args.seed)
     for kid, c in counts.items():
         if c <= 0:
             fail(f"{kid} was never launched on the main path")

@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[str, Callable[..., int]] = {}
 
 
 def nvcc_path() -> str:
@@ -78,12 +78,16 @@ def build_all() -> Tuple[float, Dict[str, Path]]:
     return time.perf_counter() - t0, out
 
 
-def library(stem: str) -> ctypes.CDLL:
-    """The loaded shared library built from ``csrc/<stem>.cu``."""
-    if stem not in _LIBS:
+def entry(stem: str, argtypes) -> Callable[..., int]:
+    """The C entry point ``stem`` of the library built from
+    ``csrc/<stem>.cu``, loaded and given its signature (``argtypes``,
+    ``int`` result) once; later calls return the bound function."""
+    if stem not in _ENTRIES:
         _, paths = build_all()
-        _LIBS[stem] = ctypes.CDLL(str(paths[stem]))
-    return _LIBS[stem]
+        fn = getattr(ctypes.CDLL(str(paths[stem])), stem)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _ENTRIES[stem] = fn
+    return _ENTRIES[stem]
 
 
 def check_launch(rc: int, name: str) -> None:

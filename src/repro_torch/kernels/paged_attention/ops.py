@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from .. import check_launch, check_tensor, library, refuse_modes
+from .. import check_launch, check_tensor, entry, refuse_modes
 from ...models import attention
 
 
@@ -63,11 +63,8 @@ def paged_decode(q, k_pages, v_pages, tables, pos, *, scale: float,
             f"paged_decode: unsupported shapes q {tuple(q.shape)}, pages "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, tables "
             f"{tuple(tables.shape)}, pos {tuple(pos.shape)}")
-    lib = library("paged_decode")
-    fn = lib.paged_decode
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    rc = entry("paged_decode", _ARGTYPES)(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, K, H // K,
             D, ps, tables.shape[1], float(scale),
             torch.cuda.current_stream(dev).cuda_stream)

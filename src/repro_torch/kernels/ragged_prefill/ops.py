@@ -11,25 +11,25 @@ kernel's oracle on the card.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
-from .. import check_launch, check_tensor, library, refuse_modes
+from .. import check_launch, check_tensor, entry, refuse_modes
 from ...models import attention
 
 
 def ragged_prefill_plain(q, k_pages, v_pages, tables, start, *,
-                         q_block: int = 512):
+                         scale: float, q_block: int = 512):
     """q: [B, T, H, D] roped chunk queries, row b's first at absolute
     position ``start[b]``; k_pages/v_pages: [P, ps, K, D] *post-write* pool;
     tables: [B, n_pages].  Gathers each row's logical view and runs the
-    chunked causal attend (``k_abs <= start + t``): fp32 scores, one softmax
+    chunked causal attend (``k_abs <= start + t``): fp32 scores times
+    ``scale``, one softmax
     at the row's true max, probabilities cast to the value dtype, fp32 PV
     sum, one cast at the output.  Returns [B, T, H, D] in ``q``'s dtype."""
     kg = attention.gather_pages(k_pages, tables)
     vg = attention.gather_pages(v_pages, tables)
-    o = attention.chunked_attention(q, kg, vg, q_block=q_block,
+    o = attention.chunked_attention(q, kg, vg, scale=scale, q_block=q_block,
                                     q_offset=start)
     return o.to(q.dtype)
 
@@ -38,11 +38,11 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_void_p]
 
 
-def ragged_prefill(q, k_pages, v_pages, tables, start, *,
-                   q_block: int = 512, window: int = 0, softcap: float = 0.0,
-                   k_scale=None, v_scale=None):
-    """Ragged chunk prefill; arguments as ``ragged_prefill_plain``
-    (``q_block`` only bounds the plain version's score memory).  On a CUDA
+def ragged_prefill(q, k_pages, v_pages, tables, start, *, scale: float,
+                   window: int = 0, softcap: float = 0.0, k_scale=None,
+                   v_scale=None):
+    """Ragged chunk prefill; arguments as ``ragged_prefill_plain`` (the
+    kernel tiles its own queries, so it takes no ``q_block``).  On a CUDA
     device ``q`` and the pools are contiguous bf16, ``tables`` and ``start``
     contiguous int32, ``H % K == 0``, page size <= 32 and head dim 32 or
     64; anything else raises.  The TPU kernel's other modes (``window``,
@@ -51,7 +51,7 @@ def ragged_prefill(q, k_pages, v_pages, tables, start, *,
     refuse_modes("ragged_prefill", window, softcap, (k_scale, v_scale))
     if q.device.type == "cpu":
         return ragged_prefill_plain(q, k_pages, v_pages, tables, start,
-                                    q_block=q_block)
+                                    scale=scale)
     dev = q.device
     B, T, H, D = q.shape
     check_tensor(q, "q", torch.bfloat16, 4, dev)
@@ -67,14 +67,12 @@ def ragged_prefill(q, k_pages, v_pages, tables, start, *,
             f"ragged_prefill: unsupported shapes q {tuple(q.shape)}, pages "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, tables "
             f"{tuple(tables.shape)}, start {tuple(start.shape)}")
-    lib = library("ragged_prefill")
-    fn = lib.ragged_prefill
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), start.data_ptr(), out.data_ptr(), B, T, H, K,
-            D, ps, tables.shape[1], 1.0 / math.sqrt(D),
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = entry("ragged_prefill", _ARGTYPES)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        tables.data_ptr(), start.data_ptr(), out.data_ptr(), B, T, H, K, D,
+        ps, tables.shape[1], float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "ragged_prefill")
     ragged_prefill.launches += 1
     return out

@@ -68,16 +68,17 @@ def softmax(s: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------- chunked core attention
 
-def chunked_attention(q, k, v, *, q_block: int = 512, q_offset=0):
-    """Causal attention.  q: [B, Sq, H, D]; k, v: [B, Sk, K, D].  Query
-    blocks of ``q_block`` rows bound the live fp32 score tensor at
+def chunked_attention(q, k, v, *, scale: float, q_block: int = 512,
+                      q_offset=0):
+    """Causal attention, scores times ``scale``.  q: [B, Sq, H, D]; k, v:
+    [B, Sk, K, D].  Query blocks of ``q_block`` rows bound the live fp32
+    score tensor at
     [B, K, G, q_block, Sk].  ``q_offset`` is the absolute position of
     q[:, 0] relative to k[:, 0]: an int, or a [B] tensor of per-row offsets.
     Returns [B, Sq, H, D]."""
     B, Sq, H, D = q.shape
     K = k.shape[2]
     G = H // K
-    scale = 1.0 / math.sqrt(D)
     q_block = min(q_block, Sq)
     kf, vf = k.float(), v.float()
     kpos = torch.arange(k.shape[1], device=q.device)
@@ -103,7 +104,8 @@ def full_attention_block(cfg: ArchConfig, p, x, freqs, *, q_block=512):
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q = apply_rope(q, positions, freqs)
     k = apply_rope(k, positions, freqs)
-    o = chunked_attention(q, k, v, q_block=q_block)
+    o = chunked_attention(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim_),
+                          q_block=q_block)
     return out_proj(o, p["wo"])
 
 
@@ -209,6 +211,7 @@ def paged_prefill_attention_block(cfg: ArchConfig, p, x, cache, meta, freqs,
     cache["k"][wp, wo] = k.to(cache["k"].dtype)
     cache["v"][wp, wo] = v.to(cache["v"].dtype)
     o = backend.prefill_attend(q, cache["k"], cache["v"], tables, start,
+                               scale=1.0 / math.sqrt(cfg.head_dim_),
                                q_block=q_block)
     return out_proj(o, p["wo"]), cache
 

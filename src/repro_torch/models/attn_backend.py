@@ -152,10 +152,12 @@ class AttentionBackend:
         raise NotImplementedError
 
     def prefill_attend(self, q, k_pages, v_pages, tables, start, *,
-                       q_block: int = 512):
+                       scale: float, q_block: int = 512):
         """Ragged multi-token prefill attend against the *post-write* paged
         pool: q [B, T, H, D] roped chunk queries at per-row offsets
-        ``start``.  Returns [B, T, H, D]."""
+        ``start``, scores times ``scale``.  ``q_block`` bounds the plain
+        version's fp32 score memory; a kernel tiles its own queries and
+        ignores it.  Returns [B, T, H, D]."""
         raise NotImplementedError
 
 
@@ -172,9 +174,9 @@ class ReferenceBackend(AttentionBackend):
                                   scale=scale)
 
     def prefill_attend(self, q, k_pages, v_pages, tables, start, *,
-                       q_block: int = 512):
+                       scale: float, q_block: int = 512):
         return ragged_prefill_plain(q, k_pages, v_pages, tables, start,
-                                    q_block=q_block)
+                                    scale=scale, q_block=q_block)
 
 
 def _on_card(q: torch.Tensor) -> None:
@@ -197,6 +199,7 @@ class HopperBackend(AttentionBackend):
                             scale=scale)
 
     def prefill_attend(self, q, k_pages, v_pages, tables, start, *,
-                       q_block: int = 512):
+                       scale: float, q_block: int = 512):
         _on_card(q)
-        return ragged_prefill(q.contiguous(), k_pages, v_pages, tables, start)
+        return ragged_prefill(q.contiguous(), k_pages, v_pages, tables, start,
+                              scale=scale)

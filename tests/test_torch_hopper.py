@@ -7,13 +7,11 @@ file imports no jax, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda \\
         tests/test_torch_hopper.py
 
-Bounds: a kernel agrees with its plain version within one bf16 ulp of the
-output's largest magnitude (same bf16 operands, fp32 sums in another
-order); the hopper engine passes the dual gate against the reference
+Bounds: a kernel agrees with its plain version within one bf16 ulp of each
+output element, never below 2^-14 (same bf16 operands, fp32 sums in another
+order, which differ by ~1e-6 where an element is near 0); the hopper engine passes the dual gate against the reference
 engine (``serving.parity``, max |dlogit| <= 0.25).
 """
-import math
-
 import numpy as np
 import pytest
 
@@ -36,9 +34,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _one_ulp(t):
-    m = t.float().abs().max().item()
-    return 2.0 ** (math.floor(math.log2(max(m, 1e-30))) - 7)
+def _within_one_ulp(got, want):
+    """Every element of ``got`` within one bf16 ulp of ``want``'s."""
+    a = want.float().abs().clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7).clamp_min(2.0 ** -14)
+    return bool(((got.float() - want.float()).abs() <= ulp).all().item())
 
 
 def _pool(rng, lengths, ps, K, D, width, device):
@@ -69,15 +69,15 @@ def test_kernels_match_plain(cuda, G, D):
     got = paged_decode(q, k, v, t, pos, scale=D ** -0.5)
     want = paged_decode_plain(q, k, v, t, pos, scale=D ** -0.5)
     assert paged_decode.launches == n0 + 1
-    assert (got.float() - want.float()).abs().max().item() <= _one_ulp(want)
+    assert _within_one_ulp(got, want)
     qp = torch.from_numpy(rng.randn(4, 24, K * G, D).astype(np.float32)) \
         .bfloat16().to(cuda)
     st = torch.tensor([270, 0, 0, 40], dtype=torch.int32, device=cuda)
     m0 = ragged_prefill.launches
-    got = ragged_prefill(qp, k, v, t, st)
-    want = ragged_prefill_plain(qp, k, v, t, st)
+    got = ragged_prefill(qp, k, v, t, st, scale=D ** -0.5)
+    want = ragged_prefill_plain(qp, k, v, t, st, scale=D ** -0.5)
     assert ragged_prefill.launches == m0 + 1
-    assert (got.float() - want.float()).abs().max().item() <= _one_ulp(want)
+    assert _within_one_ulp(got, want)
 
 
 @pytest.mark.cuda
