@@ -22,10 +22,13 @@ Phases, each printing its own lines; any failed check exits non-zero:
    hopper requests under ``torch.profiler`` prints the device's busy share
    and top kernels.
 
-Each kernel is held to its plain version within one bf16 ulp of each output
-element, never below 2^-14: both take fp32 scores and sums of the same bf16
-operands, in another order, and near 0 an ulp is far below the ~1e-6 by
-which such sums differ.  Times are CUDA-event medians with the 50 MB L2
+Each kernel is held to its plain version, element by element, within one
+bf16 ulp of the largest magnitude in the element's row (one head of one
+token, head-dim values), never below 2^-14.  Both take fp32 scores and sums
+of the same bf16 operands in another order; where two such sums differ in
+their last bit, a probability can round to its other bf16 neighbour, which
+moves the whole row by up to an ulp of its larger terms, so an element that
+cancels to near 0 cannot be held to its own ulp.  Times are CUDA-event medians with the 50 MB L2
 flushed before every launch (in serving, the other 23 layers' weights and
 pages pass through L2 between two calls of one layer).  ``bound_ms`` is the
 larger of the bytes the function must move over 3.35 TB/s and its
@@ -124,17 +127,23 @@ def paged_pool(torch, rng, lengths, K, D, ps, width):
 
 def check_kernel(torch, name, got, want):
     """Hold ``got`` to ``want`` element by element: |got - want| within one
-    bf16 ulp of |want| (8 significant bits), never below ``ULP_FLOOR``.
-    Returns (max |got - want|, worst ratio of error to bound)."""
+    bf16 ulp (8 significant bits) of the largest |want| in the element's
+    row (the last axis), never below ``ULP_FLOOR``.  Returns (max
+    |got - want|, worst ratio of error to bound)."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    tol = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
-    ratio = (diff / tol.clamp_min(ULP_FLOOR)).max().item()
-    err = diff.max().item()
+    row = w.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    tol = torch.exp2(torch.floor(torch.log2(row)) - 7).clamp_min(ULP_FLOOR)
+    r = diff / tol
+    at = int(r.argmax().item())
+    ratio, err = r.flatten()[at].item(), diff.max().item()
     ok = bool(torch.isfinite(g).all().item()) and ratio <= 1.0
     print(f"[smoke] {name}: max|kernel - plain| = {err:.6g}, worst "
-          f"|kernel - plain| / (one bf16 ulp of |plain|, >= 2^-14) = "
-          f"{ratio:.4g} -> {'OK' if ok else 'FAIL'}", flush=True)
+          f"|kernel - plain| / (one bf16 ulp of the row's max |plain|, "
+          f">= 2^-14) = {ratio:.4g} (kernel {g.flatten()[at].item():.6g}, "
+          f"plain {w.flatten()[at].item():.6g}, row max "
+          f"{row.expand_as(w).flatten()[at].item():.6g}) "
+          f"-> {'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return err, ratio

@@ -7,9 +7,13 @@ file imports no jax, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda \\
         tests/test_torch_hopper.py
 
-Bounds: a kernel agrees with its plain version within one bf16 ulp of each
-output element, never below 2^-14 (same bf16 operands, fp32 sums in another
-order, which differ by ~1e-6 where an element is near 0); the hopper engine passes the dual gate against the reference
+Bounds: each element of a kernel's output agrees with its plain version
+within one bf16 ulp of the largest magnitude in its row (one head of one
+token), never below 2^-14.  Both take fp32 sums of the same bf16 operands
+in another order; where two sums differ in their last bit a probability can
+round to its other bf16 neighbour, moving the row by up to an ulp of its
+larger terms, so an element that cancels to near 0 is not held to its own
+ulp.  The hopper engine passes the dual gate against the reference
 engine (``serving.parity``, max |dlogit| <= 0.25).
 """
 import numpy as np
@@ -35,8 +39,9 @@ def cuda():
 
 
 def _within_one_ulp(got, want):
-    """Every element of ``got`` within one bf16 ulp of ``want``'s."""
-    a = want.float().abs().clamp_min(1e-30)
+    """Every element of ``got`` within one bf16 ulp of the largest |want|
+    in its row (the last axis), never below 2^-14."""
+    a = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
     ulp = torch.exp2(torch.floor(torch.log2(a)) - 7).clamp_min(2.0 ** -14)
     return bool(((got.float() - want.float()).abs() <= ulp).all().item())
 
