@@ -12,7 +12,13 @@ Phases, each printing its own lines; any failed check exits non-zero:
    16-token pages, ragged positions up to 2047 over shuffled page tables;
 3. K2 (ragged prefill) the same way: 256-token chunks starting at
    0, 256, ..., 1792;
-4. the port's main path: full-width qwen2-0.5b (24 layers, random weights
+4. K3 (speculative verify) the same way: B=8, Q=5 queries per row (four
+   drafts), positions up to 2043, ragged live-query counts 1..5 and idle
+   rows (pos 0, null table); and K3 with one live query per row against
+   K1 on the same inputs, bit for bit;
+5. the int8 modes of K1, K2 and K3 against their plain versions, on pools
+   quantized from the same bf16 data by the port's ``quantize_int8``;
+6. the port's main path: full-width qwen2-0.5b (24 layers, random weights
    from ``--seed``) served by the continuous-batching engine on the
    ``hopper`` backend — 8 requests of 128 to 1024 prompt tokens sharing a
    64-token prefix, prefix cache on, 256-token prefill chunks, 32 new
@@ -20,7 +26,16 @@ Phases, each printing its own lines; any failed check exits non-zero:
    alone; then the same requests on the ``reference`` backend, and both
    held to the dual gate along the hopper run's tokens.  A rerun of the
    hopper requests under ``torch.profiler`` prints the device's busy share
-   and top kernels.
+   and top kernels;
+7. speculative serving of the same requests (``speculate_tokens=4``,
+   hopper): (a) with the n-gram proposer users run, (b) with an oracle
+   proposer drafting the non-speculative run's own tokens, so that rows
+   of up to five live queries and accepted drafts really run; each held
+   to the dual gate, each with K3 launched 24 times a verify step and K1
+   never;
+8. int8 pages (``kv_dtype="int8"``, hopper) without and with speculation,
+   each held to the dual gate against the int8 reference replay, with the
+   quantization error against the bf16 reference replay printed.
 
 Each kernel is held to its plain version, element by element, within one
 bf16 ulp of the largest magnitude in the element's row (one head of one
@@ -34,7 +49,8 @@ pages pass through L2 between two calls of one layer).  ``bound_ms`` is the
 larger of the bytes the function must move over 3.35 TB/s and its
 operations over 989 TFLOP/s (H100 SXM bf16 dense), counted for this run's
 inputs.  ``library_ms`` times ``scaled_dot_product_attention`` on the
-gathered K/V as a yardstick; the port never calls it.
+gathered K/V (dequantized to bf16 for int8 pools; with the verify mask
+for K3) as a yardstick; the port never calls it.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -149,90 +165,199 @@ def check_kernel(torch, name, got, want):
     return err, ratio
 
 
-def phase_decode(torch, rng, timer):
-    """K1 against its plain version at full-width qwen2 decode shapes."""
+def sdpa_ms(torch, timer, q4, kg, vg, mask, scale, G):
+    """Time one ``scaled_dot_product_attention`` call on gathered K/V
+    (``[B, S, K, D]``, head-repeated to the query heads) — the yardstick of
+    a paged attend; the port never calls it."""
     import torch.nn.functional as F
+    kh = kg.transpose(1, 2).repeat_interleave(G, 1)
+    vh = vg.transpose(1, 2).repeat_interleave(G, 1)
+    return timer(lambda: F.scaled_dot_product_attention(
+        q4, kh, vh, attn_mask=mask, scale=scale))
+
+
+def quantized(torch, k, v):
+    """(k8, v8, k_scale, v_scale) quantized by the port's own contract."""
+    from repro_torch.models.attention import quantize_int8
+    (k8, ks), (v8, vs) = quantize_int8(k), quantize_int8(v)
+    return k8, v8, ks, vs
+
+
+def kv_bytes(tokens: int, K: int, D: int, int8: bool) -> int:
+    """Bytes of K and V that ``tokens`` token slots hold: bf16 values, or
+    int8 values plus one bf16 scale per token and head."""
+    return tokens * K * 2 * (D + 2 if int8 else 2 * D)
+
+
+def phase_decode(torch, rng, timer, int8=False):
+    """K1 against its plain version at full-width qwen2 decode shapes;
+    ``int8``: its int8 mode, on the pool quantized by ``quantize_int8``."""
     from repro_torch.kernels.paged_attention import (paged_decode,
                                                      paged_decode_plain)
-    from repro_torch.models.attention import gather_pages
+    from repro_torch.models.attention import gather_kv
     B, K, G, D, ps, width = 8, 2, 7, 64, 16, 128
-    H = K * G
+    H, name = K * G, "K1-int8" if int8 else "K1"
     pos = [2047, 1500, 1023, 1024, 15, 0, 777, 1900]   # page edges, 0, last
     k, v, tables = paged_pool(torch, rng, [p + 1 for p in pos], K, D, ps,
                               width)
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    kw = dict(scale=1.0 / math.sqrt(D))
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
+    gen = torch.Generator(device="cuda").manual_seed(5 if int8 else 2)
     q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16()
     pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    scale = 1.0 / math.sqrt(D)
-    got = paged_decode(q, k, v, tables, pos_t, scale=scale)
-    want = paged_decode_plain(q, k, v, tables, pos_t, scale=scale)
+    got = paged_decode(q, k, v, tables, pos_t, **kw)
+    want = paged_decode_plain(q, k, v, tables, pos_t, **kw)
     torch.cuda.synchronize()
-    err, ratio = check_kernel(torch, "K1 paged_decode", got, want)
-    ms = timer(lambda: paged_decode(q, k, v, tables, pos_t, scale=scale))
+    err, ratio = check_kernel(torch, f"{name} paged_decode", got, want)
+    ms = timer(lambda: paged_decode(q, k, v, tables, pos_t, **kw))
     plain_ms = timer(lambda: paged_decode_plain(q, k, v, tables, pos_t,
-                                                scale=scale))
+                                                **kw))
     # yardstick: one SDPA call over the gathered, head-repeated K/V
-    kg = gather_pages(k, tables).transpose(1, 2).repeat_interleave(G, 1)
-    vg = gather_pages(v, tables).transpose(1, 2).repeat_interleave(G, 1)
+    kg, vg = gather_kv(k, v, tables, kw.get("k_scale"), kw.get("v_scale"))
     mask = (torch.arange(width * ps, device="cuda")[None, :]
             <= pos_t[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=mask, scale=scale))
+    library_ms = sdpa_ms(torch, timer, q[:, :, None, :], kg.bfloat16(),
+                         vg.bfloat16(), mask, kw["scale"], G)
     live = sum(p + 1 for p in pos)
-    nbytes = live * K * D * 2 * 2 + 2 * q.numel() * 2 \
+    nbytes = kv_bytes(live, K, D, int8) + 2 * q.numel() * 2 \
         + tables.numel() * 4 + B * 4
     bms, by = bound(nbytes, live * H * D * 4)
-    print(f"[smoke] K1 paged_decode: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-          f" ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
-          f"{nbytes / 1e6:.2f} MB of pages, q, out, tables)", flush=True)
+    print(f"[smoke] {name} paged_decode: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}: {nbytes / 1e6:.2f} MB of pages, q, out, tables)",
+          flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms}
 
 
-def phase_prefill(torch, rng, timer):
-    """K2 against its plain version at full-width qwen2 chunk shapes."""
-    import torch.nn.functional as F
+def phase_prefill(torch, rng, timer, int8=False):
+    """K2 against its plain version at full-width qwen2 chunk shapes;
+    ``int8``: its int8 mode, on the pool quantized by ``quantize_int8``."""
     from repro_torch.kernels.ragged_prefill import (ragged_prefill,
                                                     ragged_prefill_plain)
-    from repro_torch.models.attention import gather_pages
+    from repro_torch.models.attention import gather_kv
     B, K, G, D, ps, T, width = 8, 2, 7, 64, 16, 256, 128
-    H = K * G
-    scale = 1.0 / math.sqrt(D)
+    H, name = K * G, "K2-int8" if int8 else "K2"
+    kw = dict(scale=1.0 / math.sqrt(D))
     starts = [256 * i for i in range(B)]
     k, v, tables = paged_pool(torch, rng, [s + T for s in starts], K, D, ps,
                               width)
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
+    gen = torch.Generator(device="cuda").manual_seed(6 if int8 else 3)
     q = torch.randn((B, T, H, D), generator=gen, device="cuda").bfloat16()
     st = torch.tensor(starts, dtype=torch.int32, device="cuda")
-    got = ragged_prefill(q, k, v, tables, st, scale=scale)
-    want = ragged_prefill_plain(q, k, v, tables, st, scale=scale)
+    got = ragged_prefill(q, k, v, tables, st, **kw)
+    want = ragged_prefill_plain(q, k, v, tables, st, **kw)
     torch.cuda.synchronize()
-    err, ratio = check_kernel(torch, "K2 ragged_prefill", got, want)
-    ms = timer(lambda: ragged_prefill(q, k, v, tables, st, scale=scale))
+    err, ratio = check_kernel(torch, f"{name} ragged_prefill", got, want)
+    ms = timer(lambda: ragged_prefill(q, k, v, tables, st, **kw))
     plain_ms = timer(lambda: ragged_prefill_plain(q, k, v, tables, st,
-                                                  scale=scale))
-    kg = gather_pages(k, tables).transpose(1, 2).repeat_interleave(G, 1)
-    vg = gather_pages(v, tables).transpose(1, 2).repeat_interleave(G, 1)
+                                                  **kw))
+    kg, vg = gather_kv(k, v, tables, kw.get("k_scale"), kw.get("v_scale"))
     qpos = st[:, None] + torch.arange(T, device="cuda")[None, :]
     mask = (torch.arange(width * ps, device="cuda")[None, None, :]
             <= qpos[:, :, None])[:, None]
-    qh = q.transpose(1, 2)
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        qh, kg, vg, attn_mask=mask, scale=scale))
+    library_ms = sdpa_ms(torch, timer, q.transpose(1, 2), kg.bfloat16(),
+                         vg.bfloat16(), mask, kw["scale"], G)
     keys = sum(s + T for s in starts)
     pairs = sum(T * s + T * (T + 1) // 2 for s in starts)   # causal (q, k)
-    nbytes = keys * K * D * 2 * 2 + 2 * q.numel() * 2 \
+    nbytes = kv_bytes(keys, K, D, int8) + 2 * q.numel() * 2 \
         + tables.numel() * 4 + B * 4
     bms, by = bound(nbytes, pairs * H * D * 4)
-    print(f"[smoke] K2 ragged_prefill: kernel {ms:.4f} ms, plain "
+    print(f"[smoke] {name} ragged_prefill: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
           f"({by}: {pairs * H * D * 4 / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB)", flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms}
+
+
+def verify_inputs(torch, rng):
+    """K3's full-width qwen2 verify shapes: B=8 rows of Q=5 queries (the
+    last token and four drafts), 2 KV x 7 query heads of 64, 16-token
+    pages; ragged live counts 1..5 at positions up to 2043, a row at a page
+    edge, and two idle rows (pos 0, one query, null table)."""
+    B, K, G, D, ps, width, Q = 8, 2, 7, 64, 16, 128, 5
+    pos = [2043, 1500, 1023, 0, 15, 0, 777, 1900]
+    n_q = [5, 3, 1, 1, 5, 1, 2, 4]
+    lengths = [p + n for p, n in zip(pos, n_q)]
+    lengths[3] = lengths[5] = 0                    # idle rows
+    k, v, tables = paged_pool(torch, rng, lengths, K, D, ps, width)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn((B, Q, K * G, D), generator=gen, device="cuda").bfloat16()
+    return (q, k, v, tables,
+            torch.tensor(pos, dtype=torch.int32, device="cuda"),
+            torch.tensor(n_q, dtype=torch.int32, device="cuda"), G)
+
+
+def verify_mask(torch, pos, n_q, Q, S):
+    """[B, 1, Q, S] boolean verify mask for the SDPA yardstick; dead query
+    rows keep key 0 visible (SDPA returns NaN for an all-masked row), the
+    kernel returns zeros there."""
+    j = torch.arange(Q, device="cuda")
+    idx = torch.arange(S, device="cuda")
+    m = (idx[None, None, :] <= (pos[:, None] + j[None, :])[:, :, None]) \
+        & (j[None, :] < n_q[:, None])[:, :, None]
+    m[..., 0] = True
+    return m[:, None]
+
+
+def phase_verify(torch, rng, timer, int8=False):
+    """K3 against its plain version at full-width qwen2 verify shapes, and
+    with one live query per row against K1 bit for bit."""
+    from repro_torch.kernels.paged_attention import (paged_decode,
+                                                     paged_verify,
+                                                     paged_verify_plain)
+    from repro_torch.models.attention import gather_kv
+    q, k, v, tables, pos, n_q, G = verify_inputs(torch, rng)
+    B, Q, H, D = q.shape
+    K, scale, name = H // G, 1.0 / math.sqrt(D), "K3-int8" if int8 else "K3"
+    kw = {}
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
+    got = paged_verify(q, k, v, tables, pos, n_q, scale=scale, **kw)
+    want = paged_verify_plain(q, k, v, tables, pos, n_q, scale=scale, **kw)
+    torch.cuda.synchronize()
+    err, ratio = check_kernel(torch, f"{name} paged_verify", got, want)
+    dead = torch.arange(Q, device="cuda")[None, :] >= n_q[:, None]
+    if bool((got[dead] != 0).any().item()):
+        fail(f"{name}: dead query rows are not exact zeros")
+    ones = torch.ones_like(n_q)
+    one = paged_verify(q, k, v, tables, pos, ones, scale=scale, **kw)[:, 0]
+    dec = paged_decode(q[:, 0].contiguous(), k, v, tables, pos, scale=scale,
+                       **kw)
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(one, dec))
+    print(f"[smoke] {name} with one live query per row vs K1 on the same "
+          f"inputs: bit for bit {'equal -> OK' if bit_equal else 'DIFFER'}",
+          flush=True)
+    if not bit_equal:
+        fail(f"{name} at n_q = 1 differs from K1")
+    ms = timer(lambda: paged_verify(q, k, v, tables, pos, n_q, scale=scale,
+                                    **kw))
+    plain_ms = timer(lambda: paged_verify_plain(q, k, v, tables, pos, n_q,
+                                                scale=scale, **kw))
+    kg, vg = gather_kv(k, v, tables, kw.get("k_scale"), kw.get("v_scale"))
+    mask = verify_mask(torch, pos, n_q, Q, kg.shape[1])
+    library_ms = sdpa_ms(torch, timer, q.transpose(1, 2), kg.bfloat16(),
+                         vg.bfloat16(), mask.expand(B, H, Q, -1), scale, G)
+    live = [(int(p), int(n)) for p, n in zip(pos.tolist(), n_q.tolist())]
+    keys = sum(p + n for p, n in live)
+    pairs = sum(p + j + 1 for p, n in live for j in range(n))
+    nbytes = kv_bytes(keys, K, D, int8) + 2 * q.numel() * 2 \
+        + tables.numel() * 4 + 2 * B * 4
+    bms, by = bound(nbytes, pairs * H * D * 4)
+    print(f"[smoke] {name} paged_verify: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}: {nbytes / 1e6:.2f} MB of live pages, q, out, tables)",
+          flush=True)
+    return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "n_q1_bit_equal_k1": bit_equal}
 
 
 def serving_workload(rng, vocab):
@@ -242,10 +367,16 @@ def serving_workload(rng, vocab):
             for n in lens]
 
 
+def serve_kwargs():
+    return dict(page_size=PAGE, max_slots=N_REQUESTS,
+                max_len=-(-(PROMPT_HI + GEN_TOKENS) // PAGE) * PAGE,
+                prefix_cache=True, prefill_chunk_tokens=CHUNK)
+
+
 def phase_serve(torch, cfg, seed):
     """Serve ``cfg`` on the hopper backend, then on the reference backend,
     and hold them to each other.  Returns (launch counts of the hopper run,
-    dual-gate report)."""
+    dual-gate report, params, prompts, hopper tokens, replay cache)."""
     from repro_torch.configs import ServeConfig
     from repro_torch.kernels.paged_attention import paged_decode
     from repro_torch.kernels.ragged_prefill import ragged_prefill
@@ -254,9 +385,7 @@ def phase_serve(torch, cfg, seed):
     from repro_torch.serving import Engine, dual_gate, replay_logits
     rng = np.random.RandomState(seed)
     prompts = serving_workload(rng, cfg.vocab)
-    kw = dict(page_size=PAGE, max_slots=N_REQUESTS,
-              max_len=-(-(PROMPT_HI + GEN_TOKENS) // PAGE) * PAGE,
-              prefix_cache=True, prefill_chunk_tokens=CHUNK)
+    kw = serve_kwargs()
     scfg = ServeConfig(attn_backend="hopper", **kw)
     ref_scfg = ServeConfig(attn_backend="reference", **kw)
     device = "cuda"
@@ -332,7 +461,260 @@ def phase_serve(torch, cfg, seed):
               f"{'OK' if report['ok'] else 'FAIL'}", flush=True)
         if not report["ok"]:
             fail("hopper serving failed the dual gate against reference")
-    return counts, report
+    replays = {("reference", "bf16", i, tuple(t)): r
+               for i, (t, r) in enumerate(zip(tokens, ref_logits))}
+    replays.update({("hopper", "bf16", i, tuple(t)): r
+                    for i, (t, r) in enumerate(zip(tokens, test_logits))})
+    return counts, report, params, prompts, tokens, replays
+
+
+class Replays:
+    """Teacher-forced replays of token sequences, cached by (backend, pool
+    dtype, request, tokens): the speculative runs mostly repeat the
+    non-speculative run's tokens."""
+
+    def __init__(self, cfg, params, prompts, cache):
+        self.cfg, self.params, self.prompts = cfg, params, prompts
+        self.cache = cache
+
+    def __call__(self, backend, kv_dtype, tokens):
+        from repro_torch.configs import ServeConfig
+        from repro_torch.serving import replay_logits
+        scfg = ServeConfig(**serve_kwargs())
+        out = []
+        for i, t in enumerate(tokens):
+            key = (backend, kv_dtype, i, tuple(t))
+            if key not in self.cache:
+                self.cache[key] = replay_logits(
+                    self.cfg, scfg, self.params, self.prompts[i], t,
+                    attn_backend=backend, kv_dtype=kv_dtype)
+            out.append(self.cache[key])
+        return out
+
+
+def serve_run(torch, cfg, params, prompts, label, proposer=None, **kw):
+    """One hopper engine run of ``prompts`` with every launch count set to
+    0 just before and read just after.  Returns (tokens, metrics, counts,
+    engine)."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels.paged_attention import paged_decode, paged_verify
+    from repro_torch.kernels.ragged_prefill import ragged_prefill
+    from repro_torch.serving import Engine
+    eng = Engine(cfg, ServeConfig(attn_backend="hopper",
+                                  **{**serve_kwargs(), **kw}), params,
+                 device="cuda")
+    if proposer is not None:
+        eng.proposer = proposer
+    for fn in (paged_decode, ragged_prefill, paged_verify):
+        fn.launches = 0
+    results, m = eng.run_offline(prompts, GEN_TOKENS)
+    torch.cuda.synchronize()
+    counts = {"K1": paged_decode.launches, "K2": ragged_prefill.launches,
+              "K3": paged_verify.launches}
+    tokens = [r.tokens for r in results]
+    if any(r.failed for r in results) \
+            or any(len(t) != GEN_TOKENS for t in tokens) \
+            or not all(0 <= x < cfg.vocab_padded for t in tokens for x in t):
+        fail(f"{label}: failed, short or out-of-range requests")
+    return tokens, m, counts, eng
+
+
+def gate_line(label, rep):
+    print(f"[smoke] {label}: max |dlogit| {rep['max_logit_err']:.5f} (tol "
+          f"{rep['tol']}), {rep['greedy_equal_tokens']}/{rep['n_tokens']} "
+          f"tokens equal the reference replay's greedy token, "
+          f"{rep['high_margin_mismatches']} mismatches over "
+          f"{rep['high_margin_tokens']} high-margin tokens -> "
+          f"{'OK' if rep['ok'] else 'FAIL'}", flush=True)
+    if not rep["ok"]:
+        fail(f"{label} failed the dual gate")
+
+
+class Oracle:
+    """Drafts the non-speculative hopper run's own continuation of each
+    prompt, so verify steps run with up to ``k`` drafts that are accepted
+    wherever the verify argmax reproduces that run."""
+
+    def __init__(self, k, prompts, continuations):
+        self.k = k
+        self.plan = [(list(p), list(c))
+                     for p, c in zip(prompts, continuations)]
+
+    def propose(self, tokens):
+        toks = list(tokens)
+        for p, cont in self.plan:
+            if toks[:len(p)] == p:
+                g = len(toks) - len(p)
+                return cont[g:g + self.k]
+        return []
+
+
+def spec_report(label, m, counts, tokens, base_tokens, n_layers):
+    """Print a speculative run's numbers and check its launch counts: K3
+    once a layer per verify step, K1 never.  ``base_tokens`` are the
+    non-speculative run's on the same pool dtype."""
+    steps = m["decode_steps"]
+    emitted = m["new_tokens"] - m["n_requests"]    # first tokens: prefill
+    # each row of a verify step emits its accepted drafts plus one token
+    per_row = emitted / max(emitted - m["spec_accepted"], 1)
+    same = sum(a == b for t, u in zip(tokens, base_tokens)
+               for a, b in zip(t, u))
+    print(f"[smoke] {label}: {m['spec_proposed']} drafts proposed, "
+          f"{m['spec_accepted']} accepted (accept rate "
+          f"{m['spec_accept_rate']:.3f}), {per_row:.3f} tokens per row and "
+          f"{emitted / max(steps, 1):.3f} per step over {steps} verify "
+          f"steps, "
+          f"{m['tokens_per_s']:.1f} tok/s, step p50 "
+          f"{m['decode_step_ms_p50']:.3f} ms, {same}/{m['new_tokens']} tokens "
+          f"equal the non-speculative hopper run; launches K1 "
+          f"{counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}",
+          flush=True)
+    if counts["K3"] != steps * n_layers or counts["K1"] != 0:
+        fail(f"{label}: K3 launches {counts['K3']} != verify steps {steps} "
+             f"x {n_layers} layers, or K1 launched {counts['K1']} times")
+    return {"proposed": m["spec_proposed"], "accepted": m["spec_accepted"],
+            "accept_rate": m["spec_accept_rate"],
+            "tokens_per_row_step": per_row,
+            "tokens_per_verify_step": emitted / max(steps, 1),
+            "verify_steps": steps, "tokens_per_s": m["tokens_per_s"],
+            "step_ms_p50": m["decode_step_ms_p50"],
+            "tokens_equal_non_speculative": same}
+
+
+def verify_rows(torch, cfg, params, prompts, tokens, Q=5):
+    """Row j of a verify step against the decode step at pos + j, on the
+    hopper backend at full width: all requests prefilled into one pool,
+    one verify step over each request's first Q generated tokens, then Q
+    decode steps fed the same tokens.  Counted, not gated: the verify
+    GEMMs run at M = B*Q rows where decode runs M = B, and a library GEMM
+    may round a row differently at another M."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.models.attn_backend import (decode_meta, meta_to_device,
+                                                 prefill_meta, verify_meta)
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import PagedKVPool
+    model = build_model(cfg, "hopper")
+    pool = PagedKVPool(cfg, ServeConfig(**serve_kwargs()), device="cuda")
+    B = len(prompts)
+    tables = np.zeros((B, pool.table_width), np.int32)
+    for b, p in enumerate(prompts):
+        pages = pool.alloc(pool.pages_for(len(p) + Q))
+        tables[b, :len(pages)] = pages
+        T = len(p)
+        Tp = -(-T // PAGE) * PAGE
+        toks = np.zeros((1, Tp), np.int32)
+        toks[0, :T] = p
+        meta = meta_to_device(prefill_meta(
+            cfg, PAGE, tables[b:b + 1], np.zeros(1, np.int32),
+            np.zeros(1, np.int32), np.array([T], np.int32), Tp), "cuda")
+        model.prefill_paged(params, pool.kv, {}, meta,
+                            torch.as_tensor(toks, device="cuda"))
+    pos = np.array([len(p) for p in prompts], np.int32)
+    vt = np.array([t[:Q] for t in tokens], np.int32)
+    meta = meta_to_device(verify_meta(cfg, PAGE, tables, pos,
+                                      np.full(B, Q, np.int32), Q), "cuda")
+    vl = model.verify_paged(params, pool.kv, {}, meta,
+                            torch.as_tensor(vt, device="cuda"))[0].float()
+    err, equal_rows, same_argmax = 0.0, 0, 0
+    for j in range(Q):
+        meta = meta_to_device(decode_meta(cfg, PAGE, tables, pos + j), "cuda")
+        dl = model.decode_paged(params, pool.kv, {}, meta, torch.as_tensor(
+            vt[:, j], device="cuda"))[0].float()
+        err = max(err, (dl - vl[:, j]).abs().max().item())
+        equal_rows += int((dl == vl[:, j]).all(-1).sum().item())
+        same_argmax += int((dl.argmax(-1) == vl[:, j].argmax(-1)).sum()
+                           .item())
+    print(f"[smoke] verify rows vs decode steps at pos + j (hopper, "
+          f"{B} rows x Q={Q}): {equal_rows}/{B * Q} rows bit for bit equal, "
+          f"{same_argmax}/{B * Q} equal argmax, max |dlogit| {err:.5f}",
+          flush=True)
+    return {"rows": B * Q, "bit_equal_rows": equal_rows,
+            "equal_argmax": same_argmax, "max_logit_err": err}
+
+
+def phase_speculate(torch, cfg, params, prompts, base_tokens, base_m,
+                    replay):
+    """Speculative serving, bf16, K = 4: (a) the n-gram proposer, (b) an
+    oracle drafting the non-speculative run's tokens.  Each run is held to
+    the dual gate along its own tokens.  Returns (K3 launches of run (a),
+    report)."""
+    from repro_torch.serving import dual_gate
+    out = {"non_speculative": {"tokens_per_s": base_m["tokens_per_s"],
+                               "step_ms_p50": base_m["decode_step_ms_p50"]}}
+    k3 = 0
+    with torch.no_grad():
+        for label, proposer in (("ngram", None),
+                                ("oracle", Oracle(4, prompts, base_tokens))):
+            tokens, m, counts, _ = serve_run(
+                torch, cfg, params, prompts, f"speculative {label}",
+                proposer=proposer, speculate_tokens=4)
+            out[label] = spec_report(f"speculative serve ({label})", m,
+                                     counts, tokens, base_tokens,
+                                     cfg.n_layers)
+            rep = dual_gate(replay("reference", "bf16", tokens),
+                            replay("hopper", "bf16", tokens), tokens,
+                            tol=LOGIT_TOL)
+            gate_line(f"dual gate along the speculative ({label}) tokens",
+                      rep)
+            out[label]["max_logit_err"] = rep["max_logit_err"]
+            if label == "ngram":
+                k3 = counts["K3"]
+        out["verify_rows"] = verify_rows(torch, cfg, params, prompts,
+                                         base_tokens)
+    if out["oracle"]["accepted"] <= 0:
+        fail("the oracle run accepted no draft")
+    return k3, out
+
+
+def phase_int8_serve(torch, cfg, params, prompts, replay):
+    """int8 pages on hopper, without and with speculation (K = 4).  Each run
+    is held to the dual gate against the int8 reference replay along its
+    tokens; its quantization error is the bf16 reference replay's distance
+    from the int8 one.  Returns (launch counts {K1-int8, K2-int8,
+    K3-int8}, report)."""
+    from repro_torch.serving import dual_gate
+    counts, out, base = {"K2-int8": 0}, {}, None
+    with torch.no_grad():
+        for label, k in (("int8", 0), ("int8 speculative", 4)):
+            tokens, m, c, eng = serve_run(torch, cfg, params, prompts, label,
+                                          kv_dtype="int8", speculate_tokens=k)
+            bpt = eng.pool.kv_bytes_per_token
+            del eng
+            counts["K2-int8"] += c["K2"]
+            if k:
+                counts["K3-int8"] = c["K3"]
+                out[label] = spec_report(f"{label} serve", m, c, tokens,
+                                         base, cfg.n_layers)
+            else:
+                base = tokens
+                counts["K1-int8"] = c["K1"]
+                if c["K1"] != m["decode_steps"] * cfg.n_layers:
+                    fail(f"int8: K1 launches {c['K1']} != decode steps "
+                         f"{m['decode_steps']} x {cfg.n_layers} layers")
+                out[label] = {"tokens_per_s": m["tokens_per_s"],
+                              "step_ms_p50": m["decode_step_ms_p50"]}
+            ref8 = replay("reference", "int8", tokens)
+            rep = dual_gate(ref8, replay("hopper", "int8", tokens), tokens,
+                            tol=LOGIT_TOL)
+            quant = dual_gate(replay("reference", "bf16", tokens), ref8,
+                              tokens, tol=LOGIT_TOL)
+            print(f"[smoke] {label} serve: {m['new_tokens']} tokens, "
+                  f"{m['tokens_per_s']:.1f} tok/s, decode step p50 "
+                  f"{m['decode_step_ms_p50']:.3f} ms, pool {bpt:.0f} B per "
+                  f"token; launches K1 {c['K1']}, K2 {c['K2']}, K3 "
+                  f"{c['K3']}", flush=True)
+            gate_line(f"dual gate of the {label} run against the int8 "
+                      "reference replay", rep)
+            print(f"[smoke] {label} quantization error: int8 vs bf16 "
+                  f"reference replay along these tokens, max |dlogit| "
+                  f"{quant['max_logit_err']:.5f}, "
+                  f"{quant['greedy_equal_tokens']}/{quant['n_tokens']} "
+                  f"tokens equal the bf16 greedy token", flush=True)
+            out[label].update(max_logit_err=rep["max_logit_err"],
+                              quant_max_logit_err=quant["max_logit_err"],
+                              quant_greedy_equal=quant["greedy_equal_tokens"],
+                              kv_bytes_per_token=bpt)
+    return counts, out
 
 
 def profile_rerun(torch, eng, prompts, n_new=8):
@@ -402,22 +784,57 @@ def main() -> None:
 
     rng = np.random.RandomState(args.seed)
     timer = Timer(torch)
+    t0 = time.perf_counter()
     k1 = phase_decode(torch, rng, timer)
     k2 = phase_prefill(torch, rng, timer)
-    counts, report = phase_serve(torch, get_arch("qwen2-0.5b"), args.seed)
+    k3 = phase_verify(torch, rng, timer)
+    k1q = phase_decode(torch, rng, timer, int8=True)
+    k2q = phase_prefill(torch, rng, timer, int8=True)
+    k3q = phase_verify(torch, rng, timer, int8=True)
+    print(f"[smoke] kernel phases took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg = get_arch("qwen2-0.5b")
+    t0 = time.perf_counter()
+    counts, report, params, prompts, tokens, cache = phase_serve(
+        torch, cfg, args.seed)
+    print(f"[smoke] main path phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    replay = Replays(cfg, params, prompts, cache)
+    t0 = time.perf_counter()
+    counts["K3"], spec = phase_speculate(
+        torch, cfg, params, prompts, tokens,
+        {"tokens_per_s": report["tokens_per_s"],
+         "decode_step_ms_p50": report["decode_step_ms_p50"]}, replay)
+    print(f"[smoke] speculative phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    int8_counts, int8 = phase_int8_serve(torch, cfg, params, prompts, replay)
+    counts.update(int8_counts)
+    print(f"[smoke] int8 phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for kid, c in counts.items():
         if c <= 0:
-            fail(f"{kid} was never launched on the main path")
+            fail(f"{kid} was never launched on its serving path")
+
+    def entry(kid, name, source, replaces, numbers):
+        return {"id": kid, "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "launches": counts[kid], "check": "ok", **numbers}
 
     kernels = [
-        {"id": "K1", "name": "paged_decode", "route": "cuda",
-         "source": "src/repro_torch/csrc/paged_decode.cu",
-         "replaces": "src/repro/kernels/paged_attention/kernel.py:139",
-         "launches": counts["K1"], "check": "ok", **k1},
-        {"id": "K2", "name": "ragged_prefill", "route": "cuda",
-         "source": "src/repro_torch/csrc/ragged_prefill.cu",
-         "replaces": "src/repro/kernels/ragged_prefill/kernel.py:141",
-         "launches": counts["K2"], "check": "ok", **k2},
+        entry("K1", "paged_decode", "paged_decode.cu",
+              "paged_attention/kernel.py:139", k1),
+        entry("K1-int8", "paged_decode", "paged_decode.cu",
+              "paged_attention/kernel.py:139", k1q),
+        entry("K2", "ragged_prefill", "ragged_prefill.cu",
+              "ragged_prefill/kernel.py:141", k2),
+        entry("K2-int8", "ragged_prefill", "ragged_prefill.cu",
+              "ragged_prefill/kernel.py:141", k2q),
+        entry("K3", "paged_verify", "paged_verify.cu",
+              "paged_attention/kernel.py:241", k3),
+        entry("K3-int8", "paged_verify", "paged_verify.cu",
+              "paged_attention/kernel.py:241", k3q),
     ]
     print(json.dumps({"kernels": kernels, "serve": {
         k: report[k] for k in ("max_logit_err", "n_tokens",
@@ -426,7 +843,8 @@ def main() -> None:
                                "engine_tokens_equal", "engine_tokens",
                                "identical_requests", "tokens_per_s",
                                "decode_step_ms_p50", "ref_tokens_per_s",
-                               "ref_decode_step_ms_p50")}}), flush=True)
+                               "ref_decode_step_ms_p50")},
+        "speculative": spec, "int8": int8}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

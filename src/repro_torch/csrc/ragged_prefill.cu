@@ -4,8 +4,9 @@
 // chunk itself) through the page table with the causal rule k_abs <= q_abs.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ragged_prefill/kernel.py::
-// ragged_prefill_fwd (_ragged_prefill_kernel), bf16 mode.  Contract:
-// repro/kernels/README.md "The ragged-prefill contract".
+// ragged_prefill_fwd (_ragged_prefill_kernel), bf16 pages or int8 pages with
+// bf16 per-token-per-head scales.  Contract: repro/kernels/README.md "The
+// ragged-prefill contract" and "Scale-operand layout".
 //
 // What bounds it: the TPU body banks a [q_blk * G, n_pages * ps] fp32 score
 // matrix in VMEM (kernel.py:189) -- 128 * 7 * 2048 * 4 bytes = 7.3 MB at
@@ -25,7 +26,12 @@
 //   pass 1: the row's true max m over all keys;
 //   pass 2: l = sum(exp(s - m));
 //   pass 3: p = exp(s - m) / l, rounded to bf16 and back (the reference's
-//           a.astype(v.dtype)), acc += p * v in fp32.
+//           a.astype(v.dtype)), acc += p * v in fp32.  With int8 pages the
+//           values are dequantized to fp32, so p stays fp32 (the Pallas
+//           body's v_dtype=float32, kernel.py:156-161).
+// int8 pages are dequantized to f32(q) * f32(s) as each page is staged in
+// shared memory, before the dot and before PV, as the Pallas body and the
+// plain gather do.
 // This is the single softmax at the row's true max that keeps the kernel
 // exact against the reference (kernel.py:30-36) -- it must not become an
 // online softmax.  Masked keys take the finite -1e30 of the reference
@@ -57,21 +63,34 @@ __device__ __forceinline__ float score(const float (&qr)[D],
   return s * scale;
 }
 
-template <int D>
+// Stage token rows of one page for one KV head in shared memory as fp32:
+// bf16 values as they are, int8 values as f32(q) * f32(s) with the token's
+// scale.  ``page`` is the physical page id, ``kh`` the KV head.
+template <int D, bool kInt8>
 __device__ __forceinline__ void load_page(float (*dst)[D],
-                                          const __nv_bfloat16* __restrict__ src,
-                                          int ps, int row_stride) {
+                                          const void* __restrict__ pages,
+                                          const __nv_bfloat16* __restrict__ scales,
+                                          int page, int kh, int ps, int K) {
+  const size_t base = ((size_t)page * ps * K + kh) * D;
   for (int e = threadIdx.x; e < ps * D; e += blockDim.x) {
     const int t = e / D, d = e % D;
-    dst[t][d] = __bfloat162float(src[(size_t)t * row_stride + d]);
+    const size_t at = base + (size_t)t * K * D + d;
+    if constexpr (kInt8) {
+      const float s = __bfloat162float(scales[((size_t)page * ps + t) * K + kh]);
+      dst[t][d] = __fmul_rn((float)static_cast<const int8_t*>(pages)[at], s);
+    } else {
+      dst[t][d] = __bfloat162float(static_cast<const __nv_bfloat16*>(pages)[at]);
+    }
   }
 }
 
-template <int D>
+template <int D, bool kInt8>
 __global__ void __launch_bounds__(kThreads)
 ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D]
-                      const __nv_bfloat16* __restrict__ k_pages,  // [P, ps, K, D]
-                      const __nv_bfloat16* __restrict__ v_pages,  // [P, ps, K, D]
+                      const void* __restrict__ k_pages,           // [P, ps, K, D]
+                      const void* __restrict__ v_pages,           // [P, ps, K, D]
+                      const __nv_bfloat16* __restrict__ k_scale,  // [P, ps, K]
+                      const __nv_bfloat16* __restrict__ v_scale,  // [P, ps, K]
                       const int32_t* __restrict__ tables,         // [B, n_pages]
                       const int32_t* __restrict__ start,          // [B]
                       __nv_bfloat16* __restrict__ out,            // [B, T, H, D]
@@ -90,7 +109,6 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
   const int t_last = min(tile * qt + qt, T) - 1;
   int n_live = (st + t_last) / ps + 1;           // pages with i*ps <= last q
   if (n_live > n_pages) n_live = n_pages;
-  const int row_stride = K * D;                  // token stride inside a page
   const int32_t* tb = tables + (size_t)b * n_pages;
 
   float qr[D];
@@ -103,8 +121,7 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
   float m = kMaskValue;
   for (int i = 0; i < n_live; ++i) {
     __syncthreads();
-    load_page<D>(kv_s, k_pages + ((size_t)tb[i] * ps * K + kh) * D, ps,
-                 row_stride);
+    load_page<D, kInt8>(kv_s, k_pages, k_scale, tb[i], kh, ps, K);
     __syncthreads();
     for (int j = 0; j < ps; ++j)
       if (i * ps + j <= q_abs) m = fmaxf(m, score<D>(qr, kv_s[j], scale));
@@ -113,8 +130,7 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
   float l = 0.f;
   for (int i = 0; i < n_live; ++i) {
     __syncthreads();
-    load_page<D>(kv_s, k_pages + ((size_t)tb[i] * ps * K + kh) * D, ps,
-                 row_stride);
+    load_page<D, kInt8>(kv_s, k_pages, k_scale, tb[i], kh, ps, K);
     __syncthreads();
     for (int j = 0; j < ps; ++j)
       if (i * ps + j <= q_abs) l += expf(score<D>(qr, kv_s[j], scale) - m);
@@ -125,15 +141,14 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
   for (int i = 0; i < n_live; ++i) {
     __syncthreads();
-    const size_t page = ((size_t)tb[i] * ps * K + kh) * D;
-    load_page<D>(kv_s, k_pages + page, ps, row_stride);
-    load_page<D>(v_s, v_pages + page, ps, row_stride);
+    load_page<D, kInt8>(kv_s, k_pages, k_scale, tb[i], kh, ps, K);
+    load_page<D, kInt8>(v_s, v_pages, v_scale, tb[i], kh, ps, K);
     __syncthreads();
     for (int j = 0; j < ps; ++j) {
       float p = 0.f;
       if (i * ps + j <= q_abs) {
         p = expf(score<D>(qr, kv_s[j], scale) - m) / l;
-        p = __bfloat162float(__float2bfloat16(p));
+        if (!kInt8) p = __bfloat162float(__float2bfloat16(p));
       }
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(p, v_s[j][d], acc[d]);
@@ -148,14 +163,19 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
 
 }  // namespace
 
-// Returns 0 on success, else the cudaError_t of the refused or failed launch.
+// q/out [B, T, H, D] bf16; k_pages/v_pages [P, ps, K, D] bf16, or int8
+// with k_scale/v_scale [P, ps, K] bf16 (both null for bf16 pages); tables
+// [B, n_pages] and start [B] int32.  Returns 0 on success, else the
+// cudaError_t of the refused or failed launch.
 extern "C" int ragged_prefill(const void* q, const void* k_pages,
-                              const void* v_pages, const void* tables,
+                              const void* v_pages, const void* k_scale,
+                              const void* v_scale, const void* tables,
                               const void* start, void* out, int B, int T,
                               int H, int K, int D, int ps, int n_pages,
                               float scale, void* stream) {
   if (B < 1 || T < 1 || K < 1 || H % K != 0 || H / K > kThreads || ps < 1 ||
-      ps > kMaxPs || n_pages < 1)
+      ps > kMaxPs || n_pages < 1 ||
+      (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int G = H / K;
   const int qt = kThreads / G;                   // query tokens per block
@@ -163,22 +183,21 @@ extern "C" int ragged_prefill(const void* q, const void* k_pages,
   const dim3 block(kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k_pages);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v_pages);
+  const auto* ksp = static_cast<const __nv_bfloat16*>(k_scale);
+  const auto* vsp = static_cast<const __nv_bfloat16*>(v_scale);
   const auto* tp = static_cast<const int32_t*>(tables);
   const auto* sp = static_cast<const int32_t*>(start);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  switch (D) {
-    case 32:
-      ragged_prefill_kernel<32><<<grid, block, 0, st>>>(
-          qp, kp, vp, tp, sp, op, T, H, K, ps, n_pages, qt, scale);
-      break;
-    case 64:
-      ragged_prefill_kernel<64><<<grid, block, 0, st>>>(
-          qp, kp, vp, tp, sp, op, T, H, K, ps, n_pages, qt, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define PREFILL_LAUNCH(DIM, INT8)                                           \
+  ragged_prefill_kernel<DIM, INT8><<<grid, block, 0, st>>>(                 \
+      qp, k_pages, v_pages, ksp, vsp, tp, sp, op, T, H, K, ps, n_pages, qt, \
+      scale)
+  const bool int8 = k_scale != nullptr;
+  if (D == 32 && !int8) PREFILL_LAUNCH(32, false);
+  else if (D == 32) PREFILL_LAUNCH(32, true);
+  else if (D == 64 && !int8) PREFILL_LAUNCH(64, false);
+  else if (D == 64) PREFILL_LAUNCH(64, true);
+  else return (int)cudaErrorInvalidValue;
+#undef PREFILL_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,9 @@ the kernel or raises.
 
 The build happens at the first CUDA launch (or ``build_all()``): one
 ``nvcc`` per source, all started together, each output keyed by a hash of
-its source and the flags, written under ``build/repro_torch/`` at the root
-of the checkout.  Nothing is imported or compiled when this module loads.
+its source, the shared headers (``*.cuh``) and the flags, written under
+``build/repro_torch/`` at the root of the checkout.  Nothing is imported or
+compiled when this module loads.
 """
 from __future__ import annotations
 
@@ -46,7 +47,11 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
+    """The library built from ``src``, keyed by the source, every shared
+    header of ``csrc/`` and the flags."""
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -98,8 +103,8 @@ def check_launch(rc: int, name: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
-def refuse_modes(name: str, window: int, softcap: float, scales) -> None:
-    """The TPU kernels' modes this slice does not port raise, naming the
+def refuse_modes(name: str, window: int, softcap: float) -> None:
+    """The TPU kernels' modes the port does not have yet raise, naming the
     ROADMAP item that brings each."""
     if window:
         raise NotImplementedError(
@@ -109,9 +114,6 @@ def refuse_modes(name: str, window: int, softcap: float, scales) -> None:
         raise NotImplementedError(
             f"{name}: the logit-softcap mode is not ported (no registered "
             "arch sets attn_logit_softcap)")
-    if any(x is not None for x in scales):
-        raise NotImplementedError(
-            f"{name}: int8 scale operands arrive with ROADMAP queue 1 item 8")
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -122,3 +124,34 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
             f"{name}: expected a contiguous {ndim}-d {dtype} tensor on "
             f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+
+
+def check_pool(name, dev, k_pages, v_pages, tables, k_scale, v_scale):
+    """Device, dtype, layout and shape checks of a paged pool, its scale
+    pages and its tables (shared by K1, K2 and K3); returns (P, ps, K, D)
+    of the pool."""
+    payload = torch.bfloat16 if k_scale is None else torch.int8
+    check_tensor(k_pages, "k_pages", payload, 4, dev)
+    check_tensor(v_pages, "v_pages", payload, 4, dev)
+    check_tensor(tables, "tables", torch.int32, 2, dev)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: k_scale and v_scale come together")
+    if k_scale is not None:
+        check_tensor(k_scale, "k_scale", torch.bfloat16, 3, dev)
+        check_tensor(v_scale, "v_scale", torch.bfloat16, 3, dev)
+        if k_scale.shape != k_pages.shape[:3] \
+                or v_scale.shape != k_pages.shape[:3]:
+            raise ValueError(
+                f"{name}: scale pages {tuple(k_scale.shape)}/"
+                f"{tuple(v_scale.shape)} do not match the payload "
+                f"{tuple(k_pages.shape)}")
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"{name}: k_pages {tuple(k_pages.shape)} and "
+                         f"v_pages {tuple(v_pages.shape)} differ")
+    return k_pages.shape
+
+
+def ptr(t):
+    """A tensor's device address for a C entry point; None (NULL) for an
+    absent optional operand."""
+    return None if t is None else t.data_ptr()

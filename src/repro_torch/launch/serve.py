@@ -11,13 +11,22 @@
       --prompt-len 64 --prefix-cache --shared-prefix 2 \\
       --prefill-chunk-tokens 32 --verify
 
+  # speculative decoding (n-gram drafts, small-q verify) and int8 pages
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --speculate-tokens 4 --prefix-cache --prefill-chunk-tokens 32 --verify
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --kv-dtype int8 --verify
+
 The flags are those of ``repro.launch.serve`` for what the port supports,
 plus ``--device`` (``cuda`` by default: without a card the run raises
 instead of moving to the CPU).  ``--attn-backend`` takes
 ``auto|reference|hopper``; ``auto`` is ``hopper`` on ``cuda``.  Weights are
 random, drawn from ``--seed`` on the chosen device.  ``--verify`` replays
 every request through the static single-request baseline and checks the
-greedy tokens agree per request.
+greedy tokens agree per request (speculation included: accepted drafts
+leave the greedy stream unchanged); with ``--kv-dtype int8`` it runs the
+dual gate of ``serving.parity.dual_gate_verify`` instead, since quantized
+pages are not token-exact against bf16.
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ import torch
 from .. import resolve_device
 from ..configs import ServeConfig, get_arch, reduced as make_reduced
 from ..models.registry import init_params
-from ..serving import Engine, Tracer, generate_static
+from ..serving import (Engine, Tracer, dual_gate_verify, format_report,
+                       generate_static)
 
 
 def make_prompts(args, vocab: int):
@@ -93,6 +103,18 @@ def main(argv=None):
                          "reference = plain torch gather+attend, hopper = "
                          "the hand-written CUDA kernels; auto picks hopper "
                          "on cuda")
+    ap.add_argument("--kv-dtype", choices=("bf16", "int8"), default="bf16",
+                    help="paged-KV storage dtype: int8 stores absmax-"
+                         "quantized pages + per-token scale pages and "
+                         "dequantizes inside the attend; --verify then "
+                         "checks the bounded-error + high-margin dual gate "
+                         "instead of exact token match")
+    ap.add_argument("--speculate-tokens", type=int, default=0, metavar="K",
+                    help="speculative decoding: draft up to K tokens per "
+                         "slot from the request's own history (n-gram "
+                         "prompt lookup) and verify them in one small-q "
+                         "step; greedy accept keeps tokens identical to "
+                         "non-speculative decode (0 = off)")
     ap.add_argument("--prefill-chunk-tokens", type=int, default=0,
                     help="per-step prefill token budget: long prompts split "
                          "into page-aligned chunks that interleave with "
@@ -131,13 +153,19 @@ def main(argv=None):
                        prefix_cache=args.prefix_cache,
                        cache_eviction=args.cache_eviction,
                        attn_backend=args.attn_backend,
-                       prefill_chunk_tokens=args.prefill_chunk_tokens)
+                       prefill_chunk_tokens=args.prefill_chunk_tokens,
+                       kv_dtype=args.kv_dtype,
+                       speculate_tokens=args.speculate_tokens)
     prompts, budgets = make_prompts(args, cfg.vocab)
     engine = "continuous" if args.engine == "auto" else args.engine
     if engine == "static" and (args.prefix_cache or args.trace
-                               or args.attn_backend != "auto"):
-        print("[serve] WARNING: --prefix-cache/--trace/--attn-backend only "
-              "apply to the continuous engine")
+                               or args.attn_backend != "auto"
+                               or args.kv_dtype != "bf16"
+                               or args.speculate_tokens):
+        print("[serve] WARNING: --prefix-cache/--trace/--attn-backend/"
+              "--kv-dtype/--speculate-tokens only apply to the continuous "
+              "engine; the static path decodes one token a step over bf16 "
+              "contiguous caches")
 
     eng = None
     with torch.no_grad():
@@ -149,8 +177,14 @@ def main(argv=None):
             results, metrics = eng.run_offline(prompts, budgets)
             tokens = [r.tokens for r in results]
             print(f"[serve] device {metrics['device']}, attention backend "
-                  f"{metrics['attn_backend']} (decode step p50 "
-                  f"{metrics['decode_step_ms_p50']:.1f} ms)")
+                  f"{metrics['attn_backend']}, {args.kv_dtype} pages "
+                  f"({eng.pool.kv_bytes_per_token:.0f} B per token), decode "
+                  f"step p50 {metrics['decode_step_ms_p50']:.1f} ms")
+            if eng.spec_k:
+                print(f"[serve] speculation: K={eng.spec_k}, "
+                      f"{metrics['spec_proposed']} drafted, "
+                      f"{metrics['spec_accepted']} accepted (accept rate "
+                      f"{metrics['spec_accept_rate']:.2f})")
             if args.prefill_chunk_tokens:
                 print(f"[serve] chunked prefill: budget {scfg.chunk_tokens} "
                       f"tokens, {metrics['chunked_prefill_steps']} "
@@ -187,7 +221,24 @@ def main(argv=None):
                 json.dump(out, f, indent=2, sort_keys=True)
             print(f"[serve] metrics -> {args.metrics_json}")
 
-        if args.verify:
+        if args.verify and args.kv_dtype == "int8" \
+                and engine == "continuous":
+            # quantized pages are not token-exact against the bf16 static
+            # baseline; the contract is the bounded-error + high-margin gate
+            report = dual_gate_verify(cfg, scfg, params, prompts, tokens,
+                                      attn_backend=eng.attn_backend)
+            print(format_report(report))
+            if not report["ok"]:
+                raise SystemExit(
+                    "[serve] QUANT VERIFY FAILED: max logit err "
+                    f"{report['max_logit_err']:.4f} (tol "
+                    f"{report['tol']:.4f}), "
+                    f"{report['high_margin_mismatches']} high-margin "
+                    f"mismatches, {report['replay_failures']} replay "
+                    "failures")
+            print(f"[serve] verify OK: dual gate passed for {len(tokens)} "
+                  "requests")
+        elif args.verify:
             ref, _ = generate_static(cfg, params, prompts, budgets, scfg,
                                      batch_size=1)
             bad = [i for i, (a, b) in enumerate(zip(tokens, ref)) if a != b]

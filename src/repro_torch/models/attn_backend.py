@@ -8,15 +8,18 @@ that read happens is a *backend* choice:
   materializes the logical view, then dense masked attention): the plain
   versions of the kernels, and the parity oracle on every device.
 * ``hopper`` — the kernels written by hand for Hopper:
-  ``kernels.paged_attention`` (K1) for decode and ``kernels.ragged_prefill``
-  (K2) for chunk prefill.  Both walk the page table inside the kernel, so
-  the gather never materializes.
+  ``kernels.paged_attention`` K1 for decode and K3 for speculative verify,
+  ``kernels.ragged_prefill`` (K2) for chunk prefill.  All walk the page
+  table inside the kernel, so the gather never materializes.
 
-A backend implements the two *attend cores* of the dense decoder
-(``decode_attend``, ``prefill_attend``); the family framing (QKV
-projection, RoPE, page-table scatter, output projection) is shared code in
-``models.attention``.  Model code routes through ``backend.paged_prefill``
-/ ``backend.paged_decode``.
+A backend implements the three *attend cores* of the dense decoder
+(``decode_attend``, ``prefill_attend``, ``verify_attend``), each taking
+optional int8 scale pools (``k_scale``/``v_scale`` [P, ps, K] bf16:
+``None`` means bf16 payload pages, non-None int8 pages dequantized
+``f32(q) * f32(s)`` before use).  The family framing (QKV projection,
+RoPE, page-table scatter with write-side quantization, output projection)
+is shared code in ``models.attention``.  Model code routes through
+``backend.paged_prefill`` / ``paged_decode`` / ``paged_verify``.
 
 Selection follows ``ServeConfig.attn_backend`` (``auto`` | ``reference`` |
 ``hopper``).  ``auto`` resolves by the device the tensors live on: ``cuda``
@@ -30,7 +33,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..kernels.paged_attention import paged_decode, paged_decode_plain
+from ..kernels.paged_attention import (paged_decode, paged_decode_plain,
+                                      paged_verify, paged_verify_plain)
 from ..kernels.ragged_prefill import ragged_prefill, ragged_prefill_plain
 from . import attention
 
@@ -112,6 +116,31 @@ def prefill_meta(cfg: ArchConfig, page_size: int, tables: np.ndarray,
             "write_off": (positions % page_size).astype(np.int32)}
 
 
+# ---------------------------------------------------- flat verify metadata
+
+def verify_meta(cfg: ArchConfig, page_size: int, tables: np.ndarray,
+                pos: np.ndarray, n_q: np.ndarray, Q: int):
+    """Flat metadata for a small-q speculative *verify* step.
+
+    Row ``b`` carries ``n_q[b]`` live queries (the last emitted token plus
+    its draft) at absolute positions ``pos[b] .. pos[b] + n_q[b] - 1``; the
+    step is padded to the fixed width ``Q = speculate_tokens + 1``.  Dead
+    query rows (``j >= n_q[b]``) write to the reserved null page so their
+    K/V never lands in an owned page.  numpy in, numpy out."""
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: verify over a sliding-window page ring arrives "
+            "with ROADMAP queue 1 item 11")
+    B = tables.shape[0]
+    positions = pos[:, None] + np.arange(Q)[None, :]             # [B, Q]
+    live = np.arange(Q)[None, :] < n_q[:, None]
+    col = np.minimum(positions // page_size, tables.shape[1] - 1)
+    page = tables[np.arange(B)[:, None], col]
+    return {"tables": tables, "pos": pos, "n_q": n_q,
+            "write_page": np.where(live, page, 0),
+            "write_off": positions % page_size}
+
+
 def meta_to_device(meta, device) -> Dict[str, torch.Tensor]:
     """Move a host-built meta dict to the model's device as int32 tensors."""
     return {k: torch.as_tensor(np.ascontiguousarray(v, np.int32),
@@ -143,21 +172,39 @@ class AttentionBackend:
         return attention.paged_decode_attention_block(cfg, p, x, cache, meta,
                                                       freqs, backend=self)
 
+    def paged_verify(self, cfg: ArchConfig, p, x, cache, meta, freqs):
+        """Small-q speculative verify against the paged pool: ``x`` is
+        [B, Q, d] (last emitted token + draft, padded to Q), ``meta`` the
+        flat metadata from ``verify_meta``.  All Q tokens' K/V scatter into
+        their pages first, then every query attends the post-write pool
+        under its own causal mask.  Returns (out [B, Q, d], cache)."""
+        return attention.paged_verify_attention_block(cfg, p, x, cache, meta,
+                                                      freqs, backend=self)
+
     # -------- attend cores (override to fuse)
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
-                      scale: float):
+                      scale: float, k_scale=None, v_scale=None):
         """q: [B, H, D]; pools [P, ps, K, D]; tables [B, n]; pos [B].
         Returns [B, H, D]."""
         raise NotImplementedError
 
     def prefill_attend(self, q, k_pages, v_pages, tables, start, *,
-                       scale: float, q_block: int = 512):
+                       scale: float, q_block: int = 512, k_scale=None,
+                       v_scale=None):
         """Ragged multi-token prefill attend against the *post-write* paged
         pool: q [B, T, H, D] roped chunk queries at per-row offsets
         ``start``, scores times ``scale``.  ``q_block`` bounds the plain
         version's fp32 score memory; a kernel tiles its own queries and
         ignores it.  Returns [B, T, H, D]."""
+        raise NotImplementedError
+
+    def verify_attend(self, q, k_pages, v_pages, tables, pos, n_q, *,
+                      scale: float, k_scale=None, v_scale=None):
+        """Small-q verify attend: q [B, Q, H, D] (query j of row b at
+        absolute position ``pos[b] + j``) against the *post-write* pool,
+        masked ``token_pos <= pos + j`` and ``j < n_q[b]``; dead query
+        rows return exact zeros on every backend.  Returns [B, Q, H, D]."""
         raise NotImplementedError
 
 
@@ -169,14 +216,23 @@ class ReferenceBackend(AttentionBackend):
     name = "reference"
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
-                      scale: float):
+                      scale: float, k_scale=None, v_scale=None):
         return paged_decode_plain(q, k_pages, v_pages, tables, pos,
-                                  scale=scale)
+                                  scale=scale, k_scale=k_scale,
+                                  v_scale=v_scale)
 
     def prefill_attend(self, q, k_pages, v_pages, tables, start, *,
-                       scale: float, q_block: int = 512):
+                       scale: float, q_block: int = 512, k_scale=None,
+                       v_scale=None):
         return ragged_prefill_plain(q, k_pages, v_pages, tables, start,
-                                    scale=scale, q_block=q_block)
+                                    scale=scale, q_block=q_block,
+                                    k_scale=k_scale, v_scale=v_scale)
+
+    def verify_attend(self, q, k_pages, v_pages, tables, pos, n_q, *,
+                      scale: float, k_scale=None, v_scale=None):
+        return paged_verify_plain(q, k_pages, v_pages, tables, pos, n_q,
+                                  scale=scale, k_scale=k_scale,
+                                  v_scale=v_scale)
 
 
 def _on_card(q: torch.Tensor) -> None:
@@ -187,19 +243,28 @@ def _on_card(q: torch.Tensor) -> None:
 
 @register_backend
 class HopperBackend(AttentionBackend):
-    """The hand-written Hopper kernels: K1 (``paged_decode``) for decode and
-    K2 (``ragged_prefill``) for chunk prefill."""
+    """The hand-written Hopper kernels: K1 (``paged_decode``) for decode,
+    K2 (``ragged_prefill``) for chunk prefill and K3 (``paged_verify``) for
+    speculative verify, each in its bf16 or int8 mode."""
 
     name = "hopper"
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
-                      scale: float):
+                      scale: float, k_scale=None, v_scale=None):
         _on_card(q)
         return paged_decode(q.contiguous(), k_pages, v_pages, tables, pos,
-                            scale=scale)
+                            scale=scale, k_scale=k_scale, v_scale=v_scale)
 
     def prefill_attend(self, q, k_pages, v_pages, tables, start, *,
-                       scale: float, q_block: int = 512):
+                       scale: float, q_block: int = 512, k_scale=None,
+                       v_scale=None):
         _on_card(q)
         return ragged_prefill(q.contiguous(), k_pages, v_pages, tables, start,
-                              scale=scale)
+                              scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+    def verify_attend(self, q, k_pages, v_pages, tables, pos, n_q, *,
+                      scale: float, k_scale=None, v_scale=None):
+        _on_card(q)
+        return paged_verify(q.contiguous(), k_pages, v_pages, tables, pos,
+                            n_q, scale=scale, k_scale=k_scale,
+                            v_scale=v_scale)

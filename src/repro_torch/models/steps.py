@@ -23,6 +23,12 @@ def make_serve_step(cfg: ArchConfig, kind: str,
          metadata from ``attn_backend.decode_meta``.  ``ok`` is a per-row
          bool: True iff every logit in that row is finite — the engine's
          NaN/inf quarantine guard.
+       kind='verify_paged': step(params, kv, state, meta, tokens)
+         -> (next_tokens [B, Q], ok [B], kv, state) — small-q speculative
+         verify: ``tokens`` is [B, Q] (last emitted token + draft per slot),
+         ``meta`` from ``attn_backend.verify_meta``; row j of the output is
+         the greedy next token after position pos + j.  ``ok`` reduces
+         finiteness over both the Q and vocab axes.
        kind='prefill_paged': step(params, kv, state, meta, tokens, extras)
          -> (logits, kv, state) — batched chunk prefill straight into the
          pool; ``meta`` from ``attn_backend.prefill_meta``.
@@ -41,6 +47,14 @@ def make_serve_step(cfg: ArchConfig, kind: str,
                                                    tokens)
             nxt = logits.argmax(-1).to(torch.int32)
             ok = torch.isfinite(logits).all(-1)
+            return nxt, ok, kv, state
+        return step
+    if kind == "verify_paged":
+        def step(params, kv, state, meta, tokens):
+            logits, kv, state = model.verify_paged(params, kv, state, meta,
+                                                   tokens)
+            nxt = logits.argmax(-1).to(torch.int32)
+            ok = torch.isfinite(logits).all(-1).all(-1)
             return nxt, ok, kv, state
         return step
     if kind == "prefill_paged":

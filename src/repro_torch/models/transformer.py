@@ -183,3 +183,31 @@ class DecoderLM:
         x = apply_norm(cfg, params["final_norm"], x)
         last = x[torch.arange(B, device=x.device), meta["n_live"].long() - 1]
         return lm_logits(cfg, params["embed"], last), kv, state
+
+    def verify_paged(self, params, kv, state, meta, tokens):
+        """Small-q speculative verify step: ``decode_paged`` over
+        ``Q = 1 + speculate_tokens`` candidate tokens per slot.
+
+        tokens: [B, Q] int — per slot the last emitted token followed by
+        its draft, zero-padded to Q; meta: flat metadata from
+        ``attn_backend.verify_meta`` on the model's device (per-row base
+        positions and live query counts).  Every per-token op (embed, norms,
+        attention framing, MLP, logits) is the per-row computation of the
+        decode step, so row ``j`` of the logits is the decode step's logits
+        at position ``pos + j`` wherever the GEMMs round a row the same way
+        at ``M = B * Q`` as at ``M = B`` (they do at reduced widths on the
+        CPU; at full width a library GEMM may pick another kernel, so the
+        card holds the speculative stream to the dual gate).  The MoE step
+        of the JAX package (``cap=Q``) arrives with its family (ROADMAP
+        queue 1 item 12; ``build_model`` refuses MoE configs).  Returns
+        (logits [B, Q, V], kv, state)."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens)              # [B, Q, d]
+        freqs = self._freqs(x.device)
+        for i in range(cfg.n_layers):
+            c = layer(kv, i)
+            x = self._block(
+                layer(params["blocks"], i), x,
+                lambda p, h: self.attn_backend.paged_verify(
+                    cfg, p, h, c, meta, freqs)[0])
+        return self._logits(params, x), kv, state

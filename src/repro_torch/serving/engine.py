@@ -16,21 +16,25 @@ at a bucketed length, several same-bucket queued requests admitted in one
 batched call; with ``ServeConfig.prefill_chunk_tokens > 0`` long prompts
 prefill in page-aligned chunks that interleave with decode steps (see
 ``scheduler``), publishing completed pages to the radix cache after every
-chunk.  Decode runs one fixed-shape ``[max_slots]`` step.  The paged attends
-route through the backend registry (``ServeConfig.attn_backend``:
-``auto|reference|hopper``, see ``models.attn_backend``), and each step gets
-flat host-built metadata (``decode_meta`` / ``prefill_meta``) — page-table
-rows, positions, physical write targets — derived once per step.
+chunk.  Decode runs one fixed-shape ``[max_slots]`` step; with
+``ServeConfig.speculate_tokens = K`` every decode-ready step runs instead
+as a small-q verify step over the last token plus up to K n-gram drafts
+(``speculate``), accepting the longest draft prefix the verify argmax
+reproduces.  ``ServeConfig.kv_dtype = "int8"`` stores the pool as int8
+pages with bf16 scale pages.  The paged attends route through the backend
+registry (``ServeConfig.attn_backend``: ``auto|reference|hopper``, see
+``models.attn_backend``), and each step gets flat host-built metadata
+(``decode_meta`` / ``prefill_meta`` / ``verify_meta``) — page-table rows,
+positions, physical write targets — derived once per step.
 
 The pool lives on the engine's device and the model steps write it in
 place (the JAX engine donated its buffers to jitted steps instead); the COW
 page fork and the quarantine scrub are in-place copies too.  The engine
 runs on ``cuda`` unless constructed with ``device="cpu"``.
 
-Not in this slice, each raising ``NotImplementedError`` naming its ROADMAP
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 queue 1 item: the overlapped ``pump()`` pipeline, fault injection and
-deadline-aware admission control (item 9), speculative decoding (item 7)
-and int8 pages (item 8).
+deadline-aware admission control (item 9).
 
 ``generate_static`` is the static-batching baseline kept for verification:
 contiguous per-request KV caches, the whole batch padded together and
@@ -53,7 +57,7 @@ import torch
 from .. import resolve_device
 from ..configs.base import ArchConfig, ServeConfig
 from ..models.attn_backend import (decode_meta, meta_to_device, prefill_meta,
-                                   resolve_backend)
+                                   resolve_backend, verify_meta)
 from ..models.params import tree_leaves
 from ..models.registry import build_model, init_cache, init_params
 from ..models.steps import make_serve_step
@@ -61,6 +65,7 @@ from .admission import HealthState
 from .kv_pool import NULL_PAGE, PagedKVPool
 from .radix_cache import RadixCache
 from .scheduler import Admission, Request, Scheduler
+from .speculate import NgramProposer, accept_length, speculation_k
 from .telemetry import MetricsRegistry, Tracer, shared_metrics
 
 
@@ -93,7 +98,7 @@ class _Pending:
     """One launched-but-not-collected engine step: on a CUDA device the
     kernels may still be running; ``_finish_step`` blocks on ``out_dev``
     and runs the host-side bookkeeping."""
-    kind: str       # prefill | prefill_chunk | decode
+    kind: str       # prefill | prefill_chunk | decode | verify
     payload: Any                      # scheduler action payload
     rows: Any                         # prefill row tuples / decode active list
     out_dev: Any                      # device logits / next-token tensors
@@ -117,9 +122,11 @@ def _zero_pages(kv, pages: List[int]) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _paged_steps(cfg: ArchConfig, attn_backend: str):
-    """(prefill_paged, decode_paged) step functions per (config, backend)."""
+    """(prefill_paged, decode_paged, verify_paged) step functions per
+    (config, backend)."""
     return (make_serve_step(cfg, "prefill_paged", attn_backend),
-            make_serve_step(cfg, "decode_paged", attn_backend))
+            make_serve_step(cfg, "decode_paged", attn_backend),
+            make_serve_step(cfg, "verify_paged", attn_backend))
 
 
 def _pow2_pad(n: int, cap: int) -> int:
@@ -149,10 +156,6 @@ class Engine:
         if self.scfg.admission_control or self.scfg.default_deadline_s \
                 or self.scfg.default_ttft_deadline_s:
             raise _not_in_slice("deadline-aware admission control", "9")
-        if self.scfg.speculate_tokens:
-            raise _not_in_slice("speculative decoding", "7")
-        if self.scfg.kv_dtype != "bf16":
-            raise _not_in_slice(f"kv_dtype={self.scfg.kv_dtype!r}", "8")
         self.device = resolve_device(device)
         self.model = build_model(cfg)
         self.spec = self.model.cache_spec()
@@ -181,7 +184,12 @@ class Engine:
         self._next_rid = 0
         self.attn_backend = resolve_backend(self.scfg.attn_backend,
                                             self.device)
-        self._prefill, self._decode = _paged_steps(cfg, self.attn_backend)
+        self._prefill, self._decode, self._verify = _paged_steps(
+            cfg, self.attn_backend)
+        # speculative decoding: draft length after the family gate and the
+        # weight-free prompt-lookup proposer (replaceable, e.g. by tests)
+        self.spec_k = speculation_k(cfg, self.spec, self.scfg)
+        self.proposer = NgramProposer(self.spec_k) if self.spec_k else None
         self.health = HealthState(self.metrics)
         self._m_prefill_steps = self.metrics.counter(
             "engine.prefill_steps", "prefill calls (admissions + chunks)")
@@ -200,6 +208,18 @@ class Engine:
             "engine.prefill_actual_tokens", "real prompt tokens prefilled")
         self._h_decode_step = self.metrics.histogram(
             "engine.decode_step_s", "fixed-shape decode step wall time")
+        # speculative-decoding accounting: drafts proposed vs accepted, plus
+        # the per-step acceptance-rate distribution (accepted / proposed for
+        # each slot-step with a non-empty draft)
+        self._m_spec_proposed = self.metrics.counter(
+            "engine.spec_proposed", "draft tokens proposed by the n-gram "
+            "speculator")
+        self._m_spec_accepted = self.metrics.counter(
+            "engine.spec_accepted", "draft tokens accepted by the verify "
+            "step (emitted without their own decode launch)")
+        self._h_accept = self.metrics.histogram(
+            "engine.spec_accept_rate", "per slot-step draft acceptance rate "
+            "(accepted / proposed, non-empty drafts only)")
         # decode-stall bookkeeping: wall time decode-ready slots spend parked
         # behind non-decode steps (the head-of-line cost chunking bounds)
         self._h_stall = self.metrics.histogram(
@@ -355,6 +375,13 @@ class Engine:
         metrics["multi_admit_prefills"] = self._m_multi_admit.value
         metrics["chunked_prefill_steps"] = self._m_chunk_steps.value
         metrics["attn_backend"] = self.attn_backend
+        if self.spec_k:
+            metrics["spec_tokens"] = self.spec_k
+            metrics["spec_proposed"] = self._m_spec_proposed.value
+            metrics["spec_accepted"] = self._m_spec_accepted.value
+            metrics["spec_accept_rate"] = (
+                self._m_spec_accepted.value
+                / max(self._m_spec_proposed.value, 1))
         metrics["device"] = (torch.cuda.get_device_name(self.device)
                              if self.device.type == "cuda" else "cpu")
         if self.radix is not None:
@@ -386,6 +413,11 @@ class Engine:
             rows, out = self._launch_prefill(payload, t0)
         elif kind == "prefill_chunk":
             rows, out = self._launch_chunks(payload)
+        elif kind == "decode" and self.spec_k:
+            # speculation on: every decode-ready step runs as a small-q
+            # verify step (with an empty draft it degenerates to decode)
+            kind = "verify"
+            rows, out = payload, self._launch_verify(payload)
         elif kind == "decode":
             rows, out = payload, self._launch_decode(payload)
         else:
@@ -398,13 +430,16 @@ class Engine:
         bookkeeping: token appends, retirement, step span, stall account."""
         if pending.kind == "decode":
             self._collect_decode(pending)
+        elif pending.kind == "verify":
+            self._collect_verify(pending)
         else:
             self._collect_prefill(pending)
         t1 = time.perf_counter()
         self.tracer.step_span(pending.kind, pending.t0, t1,
                               rows=len(pending.payload),
                               decode_waiting=pending.waiting)
-        if pending.kind == "decode":
+        if pending.kind in ("decode", "verify"):
+            # verify steps *serve* decode-ready slots: both flush the stall
             self._h_stall.observe(self._stall_accum)
             self._stall_accum = 0.0
         elif pending.waiting:
@@ -610,6 +645,101 @@ class Engine:
             self._emit_token(slot.req.rid, len(slot.req.generated) - 1,
                              tok, now)
             self._maybe_retire(i, now)
+
+    # ------------------------------------------------------------- speculate
+
+    def _verify_plan(self, active: List[int],
+                     drafts: Dict[int, List[int]]) -> Dict[str, torch.Tensor]:
+        """Fixed-shape verify-step metadata: like ``_decode_plan`` but with
+        per-row live query counts (1 + draft length) and per-query write
+        targets for all Q = spec_k + 1 positions.  Idle rows keep pos=0,
+        n_q=1 and a NULL_PAGE table, so their single query writes to the
+        reserved sink page exactly as an idle decode row does."""
+        B = self.scfg.max_slots
+        pos = np.zeros((B,), np.int32)
+        n_q = np.ones((B,), np.int32)
+        tables = np.full((B, max(self.pool.table_width, 1)), NULL_PAGE,
+                         np.int32)
+        for i in active:
+            slot = self.sched.slots[i]
+            pos[i] = slot.pos
+            n_q[i] = 1 + len(drafts[i])
+            tables[i] = slot.table
+        return meta_to_device(
+            verify_meta(self.cfg, self.scfg.page_size, tables, pos, n_q,
+                        self.spec_k + 1), self.device)
+
+    def _launch_verify(self, active: List[int]):
+        """Launch one fixed-shape speculative verify step: draft up to
+        ``spec_k`` tokens per row from the request's own history (prompt +
+        generation), then run draft + carried token through the small-q
+        verify step in one device call.  Rows whose proposer finds nothing
+        run with an empty draft — the step degenerates to a decode step for
+        them.  Drafts are clamped so the furthest K/V write (pos + draft
+        len) stays inside both the token budget and the page horizon.
+        Returns (device [B, Q] next tokens, device finite flags, launch
+        time, drafts) without waiting."""
+        tokens = np.zeros((self.scfg.max_slots, self.spec_k + 1), np.int32)
+        drafts: Dict[int, List[int]] = {}
+        prefix = self.pool.spec.prefix_tokens
+        for i in active:
+            req = self.sched.slots[i].req
+            # a draft token beyond the remaining budget could never be
+            # emitted (the bonus token fills the last budget slot), and its
+            # K/V write must stay under the max_len page horizon
+            kmax = min(self.spec_k,
+                       req.max_new - len(req.generated) - 1,
+                       prefix + self.scfg.max_len - 1
+                       - self.sched.slots[i].pos)
+            draft = self.proposer.propose(
+                req.prompt + req.generated)[:max(kmax, 0)]
+            drafts[i] = draft
+            tokens[i, 0] = req.generated[-1]
+            tokens[i, 1:1 + len(draft)] = draft
+            if draft:
+                self._m_spec_proposed.inc(len(draft))
+        meta = self._verify_plan(active, drafts)
+        t_launch = time.perf_counter()
+        with self.tracer.annotate("verify_step"):
+            nxt, ok, self.pool.kv, _ = self._verify(
+                self.params, self.pool.kv, {}, meta,
+                torch.as_tensor(tokens, device=self.device))
+        return nxt, ok, t_launch, drafts
+
+    def _collect_verify(self, pending: _Pending) -> None:
+        """Collect half of a verify step: copy the [B, Q] greedy tokens to
+        the host (waits for the device), accept each row's longest draft
+        prefix the argmax reproduced, and emit accepted + bonus tokens — the
+        stream a sequence of one-token decode steps would have produced.
+        EOS or budget reached mid-emit stops the emission there.  A rejected
+        draft's K/V stays in its page past the new position, masked from
+        every later query until the next step's write overwrites it."""
+        nxt_dev, ok_dev, t_launch, drafts = pending.out_dev
+        nxt = nxt_dev.cpu().numpy()
+        ok = ok_dev.cpu().numpy()
+        now = time.perf_counter()
+        self._h_decode_step.observe(now - t_launch)
+        for i in pending.rows:
+            slot = self.sched.slots[i]
+            if slot is None:
+                continue              # quarantined earlier in this collect
+            if not ok[i]:
+                self._quarantine_slot(i, "nan_logits", now)
+                continue
+            req = slot.req
+            draft = drafts[i]
+            a = accept_length(draft, nxt[i, :len(draft)]) if draft else 0
+            if draft:
+                self._m_spec_accepted.inc(a)
+                self._h_accept.observe(a / len(draft))
+            for j in range(a + 1):
+                tok = int(nxt[i, j])
+                slot.pos += 1
+                req.generated.append(tok)
+                self._emit_token(req.rid, len(req.generated) - 1, tok, now)
+                self._maybe_retire(i, now)
+                if self.sched.slots[i] is not slot:
+                    break             # EOS or budget: the rest is dropped
 
     def _emit_token(self, rid: int, index: int, tok: int, now: float) -> None:
         if self.on_token is not None:

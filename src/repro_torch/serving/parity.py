@@ -15,14 +15,20 @@ The gate is the dual gate of ``repro.serving.quant_verify``:
    test must equal the reference's greedy token: an error that small
    cannot flip such a position, so a mismatch there is a real fault.
 
+The same gate is the int8 pool's contract (``dual_gate_verify``, the
+port of ``quant_verify.dual_gate_verify``): quantized pages are not
+token-exact against bf16, so an int8 run's tokens are held to a bf16
+replay of the same tokens, with ``logit_tol`` as the bound, plus replay
+fidelity (the int8 replay's greedy tokens are the engine's own).
+
 ``replay_logits`` is the port's replay (the counterpart of
-``quant_verify.replay_logits`` with a bf16 pool); ``dual_gate`` is pure
+``quant_verify.replay_logits``, bf16 or int8 pool); ``dual_gate`` is pure
 numpy, so it also takes logits replayed by the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,19 +38,33 @@ from ..models.attn_backend import decode_meta, meta_to_device, prefill_meta
 from ..models.registry import build_model
 from .kv_pool import PagedKVPool
 
+# per-arch max-abs-logit-error bounds of the int8 gate (the JAX package's
+# ``quant_verify.LOGIT_TOL``); MLA's wider bound arrives with its family
+LOGIT_TOL: Dict[str, float] = {
+    "deepseek-v2-236b": 0.5,
+}
+DEFAULT_LOGIT_TOL = 0.25
+
+
+def logit_tol(cfg: ArchConfig) -> float:
+    return LOGIT_TOL.get(cfg.name, DEFAULT_LOGIT_TOL)
+
 
 @torch.no_grad()
 def replay_logits(cfg: ArchConfig, scfg: ServeConfig, params,
                   prompt: Sequence[int], gen: Sequence[int], *,
-                  attn_backend: str = "reference") -> np.ndarray:
+                  attn_backend: str = "reference",
+                  kv_dtype: Optional[str] = None) -> np.ndarray:
     """Teacher-force one request through single-request paged steps on the
-    params' device: prefill ``prompt`` into a fresh one-request pool, then
-    decode feeding ``gen[:-1]``, collecting the logits that predicted each
-    ``gen[i]``.  Returns fp32 [len(gen), vocab_padded]."""
+    params' device: prefill ``prompt`` into a fresh one-request pool of
+    ``kv_dtype`` pages (``scfg.kv_dtype`` by default), then decode feeding
+    ``gen[:-1]``, collecting the logits that predicted each ``gen[i]``.
+    Returns fp32 [len(gen), vocab_padded]."""
     if not gen:
         return np.zeros((0, cfg.vocab_padded), np.float32)
     device = params["embed"]["tok"].device
-    sub = dataclasses.replace(scfg, max_slots=1, num_pages=0)
+    sub = dataclasses.replace(scfg, max_slots=1, num_pages=0,
+                              kv_dtype=kv_dtype or scfg.kv_dtype)
     model = build_model(cfg, attn_backend)
     pool = PagedKVPool(cfg, sub, device=device)
     pages = pool.alloc(pool.pages_for(len(prompt) + len(gen)))
@@ -107,3 +127,51 @@ def dual_gate(ref_logits: Sequence[np.ndarray],
             "high_margin_mismatches": n_mismatch,
             "per_request": per_request,
             "ok": max_err <= tol and n_mismatch == 0}
+
+
+def dual_gate_verify(cfg: ArchConfig, scfg: ServeConfig, params,
+                     prompts: Sequence[Sequence[int]],
+                     engine_tokens: Sequence[Sequence[int]], *,
+                     attn_backend: str = "reference",
+                     tol: Optional[float] = None) -> Dict:
+    """The int8 gate over every request of an int8 engine run: replay the
+    engine's tokens through an int8 and a bf16 pool (same params, same
+    backend) and hold them to each other.  ``report["ok"]`` is replay
+    fidelity (the int8 replay's greedy tokens are the engine's), bounded
+    error (``max |int8 - bf16| <= tol``, ``logit_tol`` by default) and no
+    mismatch against the bf16 greedy token where its margin exceeds twice
+    that error."""
+    tol = logit_tol(cfg) if tol is None else tol
+    li = [replay_logits(cfg, scfg, params, p, g, attn_backend=attn_backend,
+                        kv_dtype="int8")
+          for p, g in zip(prompts, engine_tokens)]
+    lb = [replay_logits(cfg, scfg, params, p, g, attn_backend=attn_backend,
+                        kv_dtype="bf16")
+          for p, g in zip(prompts, engine_tokens)]
+    report = dual_gate(lb, li, engine_tokens, tol=tol)
+    replay_bad = sum(bool(len(g)) and not np.array_equal(
+        np.argmax(x, axis=-1), np.asarray(g))
+        for x, g in zip(li, engine_tokens))
+    report.update(arch=cfg.name, attn_backend=attn_backend,
+                  n_requests=len(li), replay_failures=replay_bad,
+                  ok=report["ok"] and replay_bad == 0)
+    return report
+
+
+def format_report(report: Dict) -> str:
+    """One human-readable line per gate, for ``serve --verify`` output."""
+    err_ok = report["max_logit_err"] <= report["tol"]
+    return "\n".join([
+        f"[quant-verify] {report['arch']} backend={report['attn_backend']}: "
+        f"{report['n_requests']} requests, {report['n_tokens']} tokens",
+        f"[quant-verify] gate 1 (bounded error): max |dlogit| = "
+        f"{report['max_logit_err']:.4f} vs tol {report['tol']:.4f} -> "
+        f"{'OK' if err_ok else 'FAIL'}",
+        f"[quant-verify] gate 2 (high-margin greedy): "
+        f"{report['high_margin_mismatches']} mismatches over "
+        f"{report['high_margin_tokens']} tokens with margin > 2x err -> "
+        f"{'OK' if report['high_margin_mismatches'] == 0 else 'FAIL'}",
+        f"[quant-verify] replay fidelity: "
+        f"{report['replay_failures']} requests diverged from the engine -> "
+        f"{'OK' if report['replay_failures'] == 0 else 'FAIL'}",
+    ])

@@ -158,8 +158,8 @@ def test_cuda_requested_without_a_card_raises():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(speculate_tokens=4), "item 7"),
-    (dict(kv_dtype="int8"), "item 8"),
+    (dict(default_deadline_s=1.0), "item 9"),
+    (dict(default_ttft_deadline_s=0.5), "item 9"),
     (dict(admission_control=True), "item 9"),
     (dict(attn_backend="hopper"), None),
 ])

@@ -13,8 +13,10 @@ token), never below 2^-14.  Both take fp32 sums of the same bf16 operands
 in another order; where two sums differ in their last bit a probability can
 round to its other bf16 neighbour, moving the row by up to an ulp of its
 larger terms, so an element that cancels to near 0 is not held to its own
-ulp.  The hopper engine passes the dual gate against the reference
-engine (``serving.parity``, max |dlogit| <= 0.25).
+ulp.  K3 (verify) with one live query per row equals K1 (decode) bit for
+bit, bf16 and int8.  The hopper engine passes the dual gate against the
+reference engine (``serving.parity``, max |dlogit| <= 0.25), with and
+without speculation and int8 pages.
 """
 import numpy as np
 import pytest
@@ -23,9 +25,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import ServeConfig, get_arch, reduced  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_decode, paged_decode_plain)
+    paged_decode, paged_decode_plain, paged_verify, paged_verify_plain)
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
     ragged_prefill, ragged_prefill_plain)
+from repro_torch.models.attention import quantize_int8  # noqa: E402
 from repro_torch.models.registry import init_params  # noqa: E402
 from repro_torch.serving import Engine, dual_gate, replay_logits  # noqa: E402
 
@@ -115,6 +118,125 @@ def test_hopper_engine_passes_the_dual_gate(cuda):
                      device=cuda).run_offline(prompts, 8)[0]
         assert paged_decode.launches > n0
         tokens = [r.tokens for r in hop]
+        ref = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
+                             attn_backend="reference")
+               for p, tk in zip(prompts, tokens)]
+        test = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
+                              attn_backend="hopper")
+                for p, tk in zip(prompts, tokens)]
+    rep = dual_gate(ref, test, tokens, tol=0.25)
+    assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}
+
+
+def _int8(k, v):
+    """(k8, v8, k_scale, v_scale): the pools quantized by the port's
+    ``quantize_int8``."""
+    (k8, ks), (v8, vs) = quantize_int8(k), quantize_int8(v)
+    return k8, v8, ks, vs
+
+
+def _verify_inputs(rng, Q, G, D, device):
+    ps, K = 16, 2
+    pos = np.array([299, 16, 0, 60, 47], np.int32)
+    n_q = np.array([Q, max(Q - 2, 1), 1, Q, 2 if Q > 1 else 1], np.int32)
+    k, v, t = _pool(rng, pos + Q, ps, K, D, 20, device)
+    q = torch.from_numpy(rng.randn(len(pos), Q, K * G, D)
+                         .astype(np.float32)).bfloat16().to(device)
+    return (q, k, v, t, torch.from_numpy(pos).to(device),
+            torch.from_numpy(n_q).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,G,D", [(5, 7, 64), (3, 2, 32), (1, 7, 64)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_verify_kernel_matches_plain(cuda, Q, G, D, int8):
+    rng = np.random.RandomState(Q * 10 + G)
+    q, k, v, t, pos, n_q = _verify_inputs(rng, Q, G, D, cuda)
+    kw = dict(scale=D ** -0.5)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+    n0 = paged_verify.launches
+    got = paged_verify(q, k, v, t, pos, n_q, **kw)
+    want = paged_verify_plain(q, k, v, t, pos, n_q, **kw)
+    assert paged_verify.launches == n0 + 1
+    assert _within_one_ulp(got, want)
+    dead = torch.arange(Q, device=cuda)[None, :] >= n_q[:, None]
+    assert (got[dead] == 0).all() and (want[dead] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_verify_with_one_live_query_is_decode_bit_for_bit(cuda, int8):
+    rng = np.random.RandomState(5)
+    q, k, v, t, pos, _ = _verify_inputs(rng, 5, 7, 64, cuda)
+    kw = dict(scale=0.125)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+    ones = torch.ones_like(pos)
+    got = paged_verify(q, k, v, t, pos, ones, **kw)
+    dec = paged_decode(q[:, 0].contiguous(), k, v, t, pos, **kw)
+    assert torch.equal(got[:, 0], dec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D", [(7, 64), (2, 32)])
+def test_int8_kernels_match_plain(cuda, G, D):
+    rng = np.random.RandomState(G + 1)
+    ps, K = 16, 2
+    k, v, t = _pool(rng, [300, 17, 1, 64], ps, K, D, 19, cuda)
+    k8, v8, ks, vs = _int8(k, v)
+    kw = dict(scale=D ** -0.5, k_scale=ks, v_scale=vs)
+    q = torch.from_numpy(rng.randn(4, K * G, D).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    pos = torch.tensor([299, 16, 0, 63], dtype=torch.int32, device=cuda)
+    assert _within_one_ulp(paged_decode(q, k8, v8, t, pos, **kw),
+                           paged_decode_plain(q, k8, v8, t, pos, **kw))
+    qp = torch.from_numpy(rng.randn(4, 24, K * G, D).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    st = torch.tensor([270, 0, 0, 40], dtype=torch.int32, device=cuda)
+    assert _within_one_ulp(ragged_prefill(qp, k8, v8, t, st, **kw),
+                           ragged_prefill_plain(qp, k8, v8, t, st, **kw))
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_a_wrong_scale_operand(cuda):
+    rng = np.random.RandomState(9)
+    q, k, v, t, pos, n_q = _verify_inputs(rng, 2, 7, 64, cuda)
+    k8, v8, ks, vs = _int8(k, v)
+    for bad in (ks.float(), ks[..., :1].contiguous()):
+        with pytest.raises(ValueError, match="k_scale|scale pages"):
+            paged_verify(q, k8, v8, t, pos, n_q, scale=0.125, k_scale=bad,
+                         v_scale=vs)
+        with pytest.raises(ValueError, match="k_scale|scale pages"):
+            paged_decode(q[:, 0].contiguous(), k8, v8, t, pos, scale=0.125,
+                         k_scale=bad, v_scale=vs)
+        with pytest.raises(ValueError, match="k_scale|scale pages"):
+            ragged_prefill(q, k8, v8, t, pos, scale=0.125, k_scale=bad,
+                           v_scale=vs)
+    with pytest.raises(ValueError, match="k_pages"):     # bf16 payload
+        paged_verify(q, k, v, t, pos, n_q, scale=0.125, k_scale=ks,
+                     v_scale=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_speculative_hopper_engine_passes_the_dual_gate(cuda, kv_dtype):
+    cfg = reduced(get_arch("qwen2-0.5b"), n_heads=14, n_kv_heads=2,
+                  head_dim=64, d_model=896)
+    params = init_params(cfg, 0, cuda)
+    rng = np.random.RandomState(1)
+    motif = rng.randint(1, cfg.vocab, size=6).tolist()
+    prompts = [(motif * 8)[:40], rng.randint(1, cfg.vocab, size=30).tolist()]
+    kw = dict(page_size=16, max_slots=2, max_len=96, kv_dtype=kv_dtype)
+    with torch.no_grad():
+        n0, d0 = paged_verify.launches, paged_decode.launches
+        eng = Engine(cfg, ServeConfig(attn_backend="hopper",
+                                      speculate_tokens=4, **kw), params,
+                     device=cuda)
+        res, m = eng.run_offline(prompts, 16)
+        assert paged_verify.launches > n0 and paged_decode.launches == d0
+        assert m["spec_proposed"] > 0
+        tokens = [r.tokens for r in res]
         ref = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
                              attn_backend="reference")
                for p, tk in zip(prompts, tokens)]

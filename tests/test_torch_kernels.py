@@ -23,7 +23,7 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.kernels.paged_attention.kernel import paged_decode_fwd  # noqa: E402
 from repro.kernels.ragged_prefill.kernel import ragged_prefill_fwd  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_decode, paged_decode_plain)
+    paged_decode, paged_decode_plain, paged_verify)
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
     ragged_prefill, ragged_prefill_plain)
 
@@ -142,17 +142,20 @@ def test_wrappers_run_the_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("mode,item", [
-    (dict(window=32), "item 11"), (dict(softcap=30.0), "softcap"),
-    (dict(k_scale=0, v_scale=0), "item 8")])
+    (dict(window=32), "item 11"), (dict(softcap=30.0), "softcap")])
 def test_unported_kernel_modes_refuse(mode, item):
     rng = np.random.RandomState(8)
     (_, kt), (_, vt), tables = _pool_and_tables(rng, [20], 8, 2, 32, 3)
     t = torch.from_numpy(tables)
     q = _bf16(rng.randn(1, 4, 32))[1]
+    pos = torch.tensor([19], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match=item):
-        paged_decode(q, kt, vt, t, torch.tensor([19], dtype=torch.int32),
-                     scale=0.2, **mode)
+        paged_decode(q, kt, vt, t, pos, scale=0.2, **mode)
     with pytest.raises(NotImplementedError, match=item):
         ragged_prefill(_bf16(rng.randn(1, 4, 4, 32))[1], kt, vt, t,
                        torch.tensor([0], dtype=torch.int32), scale=0.2,
                        **mode)
+    with pytest.raises(NotImplementedError, match=item):
+        paged_verify(_bf16(rng.randn(1, 3, 4, 32))[1], kt, vt, t, pos - 2,
+                     torch.tensor([3], dtype=torch.int32), scale=0.2,
+                     **mode)
