@@ -35,7 +35,22 @@ Phases, each printing its own lines; any failed check exits non-zero:
    never;
 8. int8 pages (``kv_dtype="int8"``, hopper) without and with speculation,
    each held to the dual gate against the int8 reference replay, with the
-   quantization error against the bf16 reference replay printed.
+   quantization error against the bf16 reference replay printed;
+9. at full-width starcoder2-7b shapes (4 KV x 9 query heads of 128,
+   16-token pages, a 4096-token window: 257-page rings, 258 with the
+   speculation slack page), bf16 and int8: K4 (sliding-window prefill) on
+   4 chunks of 256 at starts 0, 3840, 4352 and 5888 (one with 200 live
+   tokens); K1 in ring mode at positions up to 6100; K3 in ring mode with
+   Q=5 and live queries 1..5, and at one live query against K1-ring bit
+   for bit;
+10. the slice's main path: full-width, full-depth starcoder2-7b (32 layers,
+   random weights from ``--seed``) on the hopper backend, 4 requests of
+   1024, 3072, 4608 and 6144 prompt tokens, 256-token chunks, 32 new
+   tokens, prefix cache requested (and refused: a page ring is not
+   cacheable): bf16 (K4 and K1-ring, counted), K = 4 n-gram speculation
+   (K3-ring), int8 pages and int8 with speculation, each held to the
+   reference replay along its own tokens by the dual gate and counted
+   against the bf16 run.
 
 Each kernel is held to its plain version, element by element, within one
 bf16 ulp of the largest magnitude in the element's row (one head of one
@@ -360,6 +375,176 @@ def phase_verify(torch, rng, timer, int8=False):
             "library_ms": library_ms, "n_q1_bit_equal_k1": bit_equal}
 
 
+# starcoder2-7b's attention at full width: 4 KV heads x 9 query heads of
+# 128, a 4096-token window over 16-token pages: a ring of window_pages(4096,
+# 16) = 257 pages, 258 with speculation's slack page
+SC_K, SC_G, SC_D, SC_WINDOW = 4, 9, 128, 4096
+
+
+def ring_pool(torch, rng, B, n_ring, K, D, ps):
+    """Random bf16 pages and B disjoint rings of ``n_ring`` shuffled pages
+    (the null page 0 in none).  Returns (k_pages, v_pages, tables [B,
+    n_ring] int32)."""
+    P = B * n_ring + 1
+    tables = torch.as_tensor((rng.permutation(P - 1) + 1)
+                             .reshape(B, n_ring).astype(np.int32))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    k = torch.randn((P, ps, K, D), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((P, ps, K, D), generator=gen, device="cuda").bfloat16()
+    return k, v, tables.cuda()
+
+
+def phase_windowed_prefill(torch, rng, timer, int8=False):
+    """K4 against its plain version at full-width starcoder2-7b chunk
+    shapes: B=4 chunks of 256 at starts 0, 3840, 4352 and 5888 (the last
+    one with 200 live tokens) over 257-page pre-write rings: one chunk
+    starts on an empty ring, two read a wrapped ring, and those two cross
+    the window; ``int8``: int8 ring pages, the fresh K/V bf16."""
+    from repro_torch.kernels.ragged_prefill import (windowed_prefill,
+                                                    windowed_prefill_plain)
+    from repro_torch.models.attention import gather_kv, ring_chunk_mask
+    from repro_torch.models.cache_spec import window_pages
+    B, K, G, D, ps, T, window = 4, SC_K, SC_G, SC_D, PAGE, 256, SC_WINDOW
+    H, name = K * G, "K4-int8" if int8 else "K4"
+    n_ring = window_pages(window, ps)
+    k, v, tables = ring_pool(torch, rng, B, n_ring, K, D, ps)
+    kw = dict(scale=1.0 / math.sqrt(D), window=window)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
+    gen = torch.Generator(device="cuda").manual_seed(9 if int8 else 8)
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda").bfloat16()
+    kn = torch.randn((B, T, K, D), generator=gen, device="cuda").bfloat16()
+    vn = torch.randn((B, T, K, D), generator=gen, device="cuda").bfloat16()
+    st = torch.tensor([0, 3840, 4352, 5888], dtype=torch.int32,
+                      device="cuda")
+    nl = torch.tensor([T, T, T, 200], dtype=torch.int32, device="cuda")
+    args = (q, kn, vn, k, v, tables, st, nl)
+    got = windowed_prefill(*args, **kw)
+    want = windowed_prefill_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, ratio = check_kernel(torch, f"{name} windowed_prefill", got, want)
+    if bool((got[3, 200:] != 0).any().item()):
+        fail(f"{name}: padding rows are not exact zeros")
+    ms = timer(lambda: windowed_prefill(*args, **kw))
+    plain_ms = timer(lambda: windowed_prefill_plain(*args, **kw))
+    n = n_ring * ps
+    seen = ring_chunk_mask(st, nl, n, T, window)
+    live = torch.arange(T, device="cuda")[None, :] < nl[:, None]
+    kr, vr = gather_kv(k, v, tables, kw.get("k_scale"), kw.get("v_scale"))
+    kc = torch.cat([kr.bfloat16(), kn], 1)
+    vc = torch.cat([vr.bfloat16(), vn], 1)
+    library_ms = sdpa_ms(torch, timer, q.transpose(1, 2), kc, vc,
+                         seen[:, None], kw["scale"], G)
+    pairs = int((seen & live[:, :, None]).sum().item())     # (row, key)
+    used = int(seen.any(1).sum().item())        # key slots some row sees
+    nbytes = kv_bytes(used, K, D, int8) \
+        + 2 * (q.numel() + kn.numel() + vn.numel()) * 2 \
+        + tables.numel() * 4 + 2 * B * 4
+    bms, by = bound(nbytes, pairs * H * D * 4)
+    print(f"[smoke] {name} windowed_prefill: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}: {pairs * H * D * 4 / 1e9:.2f} GFLOP over {pairs} "
+          f"(query, key) pairs, {nbytes / 1e6:.2f} MB)", flush=True)
+    return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def phase_ring(torch, rng, timer, int8=False):
+    """K1 and K3 in ring mode against their plain versions at full-width
+    starcoder2-7b shapes.  K1: B=4 over 257-page rings at positions 15
+    (ring not yet full), 4111 (its last slot), 4600 and 6100 (wrapped).
+    K3: B=5 over 258-page rings (the slack page), Q=5, live queries 1..5
+    at positions up to 6100; and K3 with one live query per row against K1
+    on the same ring bit for bit.  Returns (K1-ring numbers, K3-ring
+    numbers)."""
+    from repro_torch.kernels.paged_attention import (paged_decode,
+                                                     paged_decode_plain,
+                                                     paged_verify,
+                                                     paged_verify_plain)
+    from repro_torch.models.attention import (decode_valid_mask, gather_kv,
+                                              verify_valid_mask)
+    from repro_torch.models.cache_spec import window_pages
+    K, G, D, ps, window = SC_K, SC_G, SC_D, PAGE, SC_WINDOW
+    H, sfx = K * G, "-int8" if int8 else ""
+    scale = 1.0 / math.sqrt(D)
+    out = {}
+    for kid, B, slack, pos in (
+            ("K1-ring", 4, 0, [15, 4111, 4600, 6100]),
+            ("K3-ring", 5, 1, [6100, 15, 4120, 4600, 5000])):
+        name = kid + sfx
+        n_ring = window_pages(window, ps) + slack
+        n = n_ring * ps
+        k, v, tables = ring_pool(torch, rng, B, n_ring, K, D, ps)
+        kw = dict(scale=scale, window=window)
+        if int8:
+            k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
+        gen = torch.Generator(device="cuda").manual_seed(11 + B + int8)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        kg, vg = gather_kv(k, v, tables, kw.get("k_scale"),
+                           kw.get("v_scale"))
+        if kid == "K1-ring":
+            q = torch.randn((B, H, D), generator=gen,
+                            device="cuda").bfloat16()
+            args = (q, k, v, tables, pos_t)
+            fn, plain = paged_decode, paged_decode_plain
+            seen = decode_valid_mask(pos_t, n, window=window)[:, None]
+            q4 = q[:, :, None, :]
+            mask = seen[:, None]
+            pairs = int(seen.sum().item())
+            used = pairs
+        else:
+            Q = 5
+            q = torch.randn((B, Q, H, D), generator=gen,
+                            device="cuda").bfloat16()
+            n_q = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+            args = (q, k, v, tables, pos_t, n_q)
+            fn, plain = paged_verify, paged_verify_plain
+            seen = verify_valid_mask(pos_t, n_q, Q, n, window=window)
+            q4 = q.transpose(1, 2)
+            mask = seen.clone()
+            mask[..., 0] |= ~seen.any(-1)      # SDPA: no all-masked row
+            mask = mask[:, None].expand(B, H, Q, n)
+            pairs = int(seen.sum().item())
+            used = int(seen.any(1).sum().item())
+        got = fn(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, ratio = check_kernel(torch, f"{name} {fn.__name__}", got, want)
+        res = {"max_abs_err": err, "err_over_ulp": ratio}
+        if kid == "K3-ring":
+            dead = torch.arange(Q, device="cuda")[None, :] >= n_q[:, None]
+            if bool((got[dead] != 0).any().item()):
+                fail(f"{name}: dead query rows are not exact zeros")
+            one = paged_verify(q, k, v, tables, pos_t, torch.ones_like(n_q),
+                               **kw)[:, 0]
+            dec = paged_decode(q[:, 0].contiguous(), k, v, tables, pos_t,
+                               **kw)
+            torch.cuda.synchronize()
+            res["n_q1_bit_equal_k1"] = bool(torch.equal(one, dec))
+            print(f"[smoke] {name} with one live query per row vs "
+                  f"K1-ring{sfx} on the same ring: bit for bit "
+                  f"{'equal -> OK' if res['n_q1_bit_equal_k1'] else 'DIFFER'}",
+                  flush=True)
+            if not res["n_q1_bit_equal_k1"]:
+                fail(f"{name} at n_q = 1 differs from K1-ring{sfx}")
+        ms = timer(lambda: fn(*args, **kw))
+        plain_ms = timer(lambda: plain(*args, **kw))
+        library_ms = sdpa_ms(torch, timer, q4, kg.bfloat16(), vg.bfloat16(),
+                             mask, scale, G)
+        nbytes = kv_bytes(used, K, D, int8) + 2 * q.numel() * 2 \
+            + tables.numel() * 4 + 2 * B * 4
+        bms, by = bound(nbytes, pairs * H * D * 4)
+        print(f"[smoke] {name} {fn.__name__}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB of ring K/V seen, "
+              f"q, out, tables)", flush=True)
+        res.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=library_ms)
+        out[kid] = res
+    return out["K1-ring"], out["K3-ring"]
+
+
 def serving_workload(rng, vocab):
     shared = rng.randint(1, vocab, size=PREFIX).tolist()
     lens = [int(x) for x in np.linspace(PROMPT_LO, PROMPT_HI, N_REQUESTS)]
@@ -473,14 +658,15 @@ class Replays:
     dtype, request, tokens): the speculative runs mostly repeat the
     non-speculative run's tokens."""
 
-    def __init__(self, cfg, params, prompts, cache):
+    def __init__(self, cfg, params, prompts, cache, base=None):
         self.cfg, self.params, self.prompts = cfg, params, prompts
         self.cache = cache
+        self.base = base or serve_kwargs()
 
     def __call__(self, backend, kv_dtype, tokens):
         from repro_torch.configs import ServeConfig
         from repro_torch.serving import replay_logits
-        scfg = ServeConfig(**serve_kwargs())
+        scfg = ServeConfig(**self.base)
         out = []
         for i, t in enumerate(tokens):
             key = (backend, kv_dtype, i, tuple(t))
@@ -492,25 +678,28 @@ class Replays:
         return out
 
 
-def serve_run(torch, cfg, params, prompts, label, proposer=None, **kw):
-    """One hopper engine run of ``prompts`` with every launch count set to
-    0 just before and read just after.  Returns (tokens, metrics, counts,
-    engine)."""
+def serve_run(torch, cfg, params, prompts, label, proposer=None, base=None,
+              **kw):
+    """One hopper engine run of ``prompts`` (``GEN_TOKENS`` new tokens
+    each, serve settings ``base`` updated by ``kw``) with every launch count
+    set to 0 just before and read just after.  Returns (tokens, metrics,
+    counts, engine)."""
     from repro_torch.configs import ServeConfig
     from repro_torch.kernels.paged_attention import paged_decode, paged_verify
-    from repro_torch.kernels.ragged_prefill import ragged_prefill
+    from repro_torch.kernels.ragged_prefill import (ragged_prefill,
+                                                    windowed_prefill)
     from repro_torch.serving import Engine
     eng = Engine(cfg, ServeConfig(attn_backend="hopper",
-                                  **{**serve_kwargs(), **kw}), params,
-                 device="cuda")
+                                  **{**(base or serve_kwargs()), **kw}),
+                 params, device="cuda")
     if proposer is not None:
         eng.proposer = proposer
-    for fn in (paged_decode, ragged_prefill, paged_verify):
+    for fn in (paged_decode, ragged_prefill, paged_verify, windowed_prefill):
         fn.launches = 0
     results, m = eng.run_offline(prompts, GEN_TOKENS)
     torch.cuda.synchronize()
     counts = {"K1": paged_decode.launches, "K2": ragged_prefill.launches,
-              "K3": paged_verify.launches}
+              "K3": paged_verify.launches, "K4": windowed_prefill.launches}
     tokens = [r.tokens for r in results]
     if any(r.failed for r in results) \
             or any(len(t) != GEN_TOKENS for t in tokens) \
@@ -567,7 +756,8 @@ def spec_report(label, m, counts, tokens, base_tokens, n_layers):
           f"{m['tokens_per_s']:.1f} tok/s, step p50 "
           f"{m['decode_step_ms_p50']:.3f} ms, {same}/{m['new_tokens']} tokens "
           f"equal the non-speculative hopper run; launches K1 "
-          f"{counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}",
+          f"{counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}, K4 "
+          f"{counts['K4']}",
           flush=True)
     if counts["K3"] != steps * n_layers or counts["K1"] != 0:
         fail(f"{label}: K3 launches {counts['K3']} != verify steps {steps} "
@@ -581,7 +771,7 @@ def spec_report(label, m, counts, tokens, base_tokens, n_layers):
             "tokens_equal_non_speculative": same}
 
 
-def verify_rows(torch, cfg, params, prompts, tokens, Q=5):
+def verify_rows(torch, cfg, params, prompts, tokens, Q=5, base=None):
     """Row j of a verify step against the decode step at pos + j, on the
     hopper backend at full width: all requests prefilled into one pool,
     one verify step over each request's first Q generated tokens, then Q
@@ -594,7 +784,8 @@ def verify_rows(torch, cfg, params, prompts, tokens, Q=5):
     from repro_torch.models.registry import build_model
     from repro_torch.serving import PagedKVPool
     model = build_model(cfg, "hopper")
-    pool = PagedKVPool(cfg, ServeConfig(**serve_kwargs()), device="cuda")
+    pool = PagedKVPool(cfg, ServeConfig(**(base or serve_kwargs())),
+                       device="cuda")
     B = len(prompts)
     tables = np.zeros((B, pool.table_width), np.int32)
     for b, p in enumerate(prompts):
@@ -624,8 +815,9 @@ def verify_rows(torch, cfg, params, prompts, tokens, Q=5):
         equal_rows += int((dl == vl[:, j]).all(-1).sum().item())
         same_argmax += int((dl.argmax(-1) == vl[:, j].argmax(-1)).sum()
                            .item())
-    print(f"[smoke] verify rows vs decode steps at pos + j (hopper, "
-          f"{B} rows x Q={Q}): {equal_rows}/{B * Q} rows bit for bit equal, "
+    print(f"[smoke] {cfg.name} verify rows vs decode steps at pos + j "
+          f"(hopper, {B} rows x Q={Q}): {equal_rows}/{B * Q} rows bit for "
+          f"bit equal, "
           f"{same_argmax}/{B * Q} equal argmax, max |dlogit| {err:.5f}",
           flush=True)
     return {"rows": B * Q, "bit_equal_rows": equal_rows,
@@ -717,6 +909,126 @@ def phase_int8_serve(torch, cfg, params, prompts, replay):
     return counts, out
 
 
+# starcoder2-7b's serving workload: 4 requests of 1024, 3072, 4608 and 6144
+# prompt tokens (the last two past the 4096-token window), 256-token
+# chunks, 32 new tokens each, 16-token pages, prefix cache requested
+SC_PROMPTS = (1024, 3072, 4608, 6144)
+
+
+def window_serve_kwargs():
+    return dict(page_size=PAGE, max_slots=len(SC_PROMPTS),
+                max_len=-(-(max(SC_PROMPTS) + GEN_TOKENS) // PAGE) * PAGE,
+                prefix_cache=True, prefill_chunk_tokens=CHUNK)
+
+
+def phase_window_serve(torch, seed):
+    """The slice's main path: full-width, full-depth starcoder2-7b (random
+    weights from ``seed``) served on the hopper backend, bf16 (K4 for every
+    prefill chunk, K1 in ring mode for every decode step), then with K = 4
+    n-gram speculation (K3 in ring mode), then int8 pages without and with
+    speculation.  Every run is held to the reference replay along its own
+    tokens by the dual gate, and counts its agreement with the bf16
+    non-speculative run (a speculative run also with the non-speculative
+    run of its pool dtype); then a verify step's rows are compared with
+    decode steps at ``pos + j``.  Returns (launch counts {K4, K1-ring, K3-ring,
+    K4-int8, K1-ring-int8, K3-ring-int8}, report)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import dual_gate
+    cfg = get_arch("starcoder2-7b")
+    L = cfg.n_layers
+    rng = np.random.RandomState(seed + 1)
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist() for n in SC_PROMPTS]
+    base = window_serve_kwargs()
+    counts, out = {}, {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed, "cuda")
+        torch.cuda.synchronize()
+        n_params = sum(leaf.numel() for _, leaf in tree_leaves(params))
+        print(f"[smoke] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
+              f"{L} layers, d_model {cfg.d_model}, {cfg.n_heads} query / "
+              f"{cfg.n_kv_heads} KV heads of {cfg.head_dim_}, window "
+              f"{cfg.sliding_window}, drawn on cuda in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        replay = Replays(cfg, params, prompts, {}, base=base)
+        base_tokens, plain_tokens = None, {}
+        for label, kv, k in (("bf16", "bf16", 0),
+                             ("bf16 speculative", "bf16", 4),
+                             ("int8", "int8", 0),
+                             ("int8 speculative", "int8", 4)):
+            t1 = time.perf_counter()
+            tokens, m, c, eng = serve_run(
+                torch, cfg, params, prompts, f"{cfg.name} {label}",
+                base=base, kv_dtype=kv, speculate_tokens=k)
+            bpt = eng.pool.kv_bytes_per_token
+            sfx = "-int8" if kv == "int8" else ""
+            if eng.radix is not None:
+                fail(f"{label}: the prefix cache serves a page ring")
+            if c["K4"] != m["prefill_steps"] * L or c["K2"]:
+                fail(f"{label}: K4 launches {c['K4']} != prefill steps "
+                     f"{m['prefill_steps']} x {L} layers, or K2 launched "
+                     f"{c['K2']} times")
+            if k:
+                res = spec_report(f"{cfg.name} {label} serve", m, c, tokens,
+                                  plain_tokens[kv], L)
+                counts["K3-ring" + sfx] = c["K3"]
+            else:
+                if c["K1"] != m["decode_steps"] * L or c["K3"]:
+                    fail(f"{label}: K1 launches {c['K1']} != decode steps "
+                         f"{m['decode_steps']} x {L} layers, or K3 "
+                         f"launched {c['K3']} times")
+                counts["K1-ring" + sfx] = c["K1"]
+                counts["K4" + sfx] = c["K4"]
+                res = {"tokens_per_s": m["tokens_per_s"],
+                       "step_ms_p50": m["decode_step_ms_p50"],
+                       "decode_steps": m["decode_steps"]}
+                plain_tokens[kv] = tokens
+            if base_tokens is None:
+                base_tokens = tokens
+                profile_rerun(torch, eng, prompts[:2])
+            del eng
+            same = sum(a == b for t, u in zip(tokens, base_tokens)
+                       for a, b in zip(t, u))
+            print(f"[smoke] {cfg.name} {label} serve: {m['new_tokens']} "
+                  f"tokens in {m['wall_s']:.3f} s = {m['tokens_per_s']:.1f} "
+                  f"tok/s, decode step p50 {m['decode_step_ms_p50']:.3f} ms "
+                  f"over {m['decode_steps']} steps, {m['prefill_steps']} "
+                  f"prefill steps, pool {bpt:.0f} B per token, prefix cache "
+                  f"off; launches K1 {c['K1']}, K2 {c['K2']}, K3 {c['K3']}, "
+                  f"K4 {c['K4']}; {same}/{m['new_tokens']} tokens equal the "
+                  f"bf16 non-speculative run", flush=True)
+            ref = replay("reference", kv, tokens)
+            rep = dual_gate(ref, replay("hopper", kv, tokens), tokens,
+                            tol=LOGIT_TOL)
+            gate_line(f"dual gate of the {cfg.name} {label} run against the "
+                      f"{kv} reference replay", rep)
+            res.update(max_logit_err=rep["max_logit_err"],
+                       greedy_equal_tokens=rep["greedy_equal_tokens"],
+                       high_margin_tokens=rep["high_margin_tokens"],
+                       tokens_equal_bf16_run=same, kv_bytes_per_token=bpt,
+                       prefill_steps=m["prefill_steps"],
+                       phase_s=time.perf_counter() - t1)
+            if kv == "int8":
+                quant = dual_gate(replay("reference", "bf16", tokens), ref,
+                                  tokens, tol=LOGIT_TOL)
+                print(f"[smoke] {cfg.name} {label} quantization error: int8 "
+                      f"vs bf16 reference replay, max |dlogit| "
+                      f"{quant['max_logit_err']:.5f}, "
+                      f"{quant['greedy_equal_tokens']}/{quant['n_tokens']} "
+                      f"tokens equal the bf16 greedy token", flush=True)
+                res["quant_max_logit_err"] = quant["max_logit_err"]
+            out[label] = res
+        # where the speculative stream parts from the plain one: a verify
+        # step's rows against decode steps at pos + j, on 2048-token
+        # prefixes of the prompts
+        out["verify_rows"] = verify_rows(
+            torch, cfg, params, [p[:2048] for p in prompts],
+            [t[:5] for t in base_tokens], base=base)
+    return counts, out
+
+
 def profile_rerun(torch, eng, prompts, n_new=8):
     """Where the time goes: rerun the requests (prefixes now cached) for
     ``n_new`` tokens under ``torch.profiler`` and print the device's busy
@@ -730,27 +1042,69 @@ def profile_rerun(torch, eng, prompts, n_new=8):
     except RuntimeError as e:
         print(f"[smoke] profile: not measured ({e})", flush=True)
         return
+    reg = eng.metrics
+    steps0 = (reg.value("engine.prefill_steps"),
+              reg.get("engine.decode_step_s").count)
     try:
         t0 = time.perf_counter()
-        _, m = eng.run_offline(prompts, n_new)
+        eng.run_offline(prompts, n_new)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     finally:
         prof.__exit__(None, None, None)
-    rows = [(a.key, getattr(a, "self_device_time_total", 0.0), a.count)
+    prefill_steps = reg.value("engine.prefill_steps") - steps0[0]
+    decode_steps = reg.get("engine.decode_step_s").count - steps0[1]
+    # kernels are the events on the device; an aten op's self device time
+    # repeats the time of the kernels it launched, so only the former count
+    rows = [(a.key, getattr(a, "self_device_time_total", 0.0), a.count,
+             getattr(a, "device_type", None)
+             == torch.autograd.DeviceType.CUDA)
             for a in prof.key_averages()]
-    busy = sum(t for _, t, _ in rows)
+    busy = sum(t for _, t, _, on_device in rows if on_device)
     if not busy:
         print("[smoke] profile: no device time recorded (not measured)",
               flush=True)
         return
-    print(f"[smoke] profile of a rerun ({m['decode_steps']} decode steps, "
-          f"{m['prefill_steps']} prefill steps, {wall_us / 1e3:.1f} ms wall):"
-          f" device busy {busy / 1e3:.1f} ms = {busy / wall_us:.3f} of wall",
-          flush=True)
-    for key, t, n in sorted(rows, key=lambda r: -r[1])[:10]:
+    print(f"[smoke] profile of a rerun of {len(prompts)} requests for "
+          f"{n_new} tokens ({decode_steps} decode steps, {prefill_steps} "
+          f"prefill steps, {wall_us / 1e3:.1f} ms wall): device busy "
+          f"{busy / 1e3:.1f} ms = {busy / wall_us:.3f} of wall (sum over "
+          f"kernels; over every event, kernels and the ops that launched "
+          f"them, {sum(r[1] for r in rows) / wall_us:.3f})", flush=True)
+    for key, t, n, _ in sorted(rows, key=lambda r: -r[1])[:10]:
         print(f"[smoke]   {t / 1e3:9.3f} ms {n:6d} calls  {key[:90]}",
               flush=True)
+
+
+def print_ptxas(stem, log_path) -> None:
+    """One line per kernel instantiation of a library: registers, spill
+    stores and static shared memory, as ``ptxas -v`` reported them when it
+    was built."""
+    import re
+    if not log_path.exists():
+        print(f"[smoke] ptxas {stem}: no build log (not measured)",
+              flush=True)
+        return
+    name = None
+    for line in log_path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)E",
+                          m.group(1))
+            args = [("false", "true")[int(v)] if t == "b" else v
+                    for t, v in re.findall(r"L([ib])(\d+)E", k.group(2))] \
+                if k else []
+            name = f"{k.group(1)}<{', '.join(args)}>" if k else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            print(f"[smoke] ptxas {stem}: {name}: {m.group(1)} registers, "
+                  f"{spill} B spill stores, {m.group(2) or 0} B static "
+                  f"shared memory", flush=True)
+            name = None
 
 
 def main() -> None:
@@ -781,6 +1135,8 @@ def main() -> None:
     print(f"[smoke] built {len(libs)} kernel libraries "
           f"({', '.join(sorted(libs))}) with nvcc for sm_90a in "
           f"{secs:.1f} s", flush=True)
+    for stem in sorted(libs):
+        print_ptxas(stem, libs[stem].with_suffix(".log"))
 
     rng = np.random.RandomState(args.seed)
     timer = Timer(torch)
@@ -791,6 +1147,10 @@ def main() -> None:
     k1q = phase_decode(torch, rng, timer, int8=True)
     k2q = phase_prefill(torch, rng, timer, int8=True)
     k3q = phase_verify(torch, rng, timer, int8=True)
+    k4 = phase_windowed_prefill(torch, rng, timer)
+    k4q = phase_windowed_prefill(torch, rng, timer, int8=True)
+    k1r, k3r = phase_ring(torch, rng, timer)
+    k1rq, k3rq = phase_ring(torch, rng, timer, int8=True)
     print(f"[smoke] kernel phases took {time.perf_counter() - t0:.1f} s",
           flush=True)
     cfg = get_arch("qwen2-0.5b")
@@ -812,6 +1172,13 @@ def main() -> None:
     counts.update(int8_counts)
     print(f"[smoke] int8 phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    del params, replay, cache
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    window_counts, window = phase_window_serve(torch, args.seed)
+    counts.update(window_counts)
+    print(f"[smoke] sliding-window serving phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for kid, c in counts.items():
         if c <= 0:
             fail(f"{kid} was never launched on its serving path")
@@ -835,6 +1202,18 @@ def main() -> None:
               "paged_attention/kernel.py:241", k3),
         entry("K3-int8", "paged_verify", "paged_verify.cu",
               "paged_attention/kernel.py:241", k3q),
+        entry("K1-ring", "paged_decode", "paged_decode.cu",
+              "paged_attention/kernel.py:139", k1r),
+        entry("K1-ring-int8", "paged_decode", "paged_decode.cu",
+              "paged_attention/kernel.py:139", k1rq),
+        entry("K3-ring", "paged_verify", "paged_verify.cu",
+              "paged_attention/kernel.py:241", k3r),
+        entry("K3-ring-int8", "paged_verify", "paged_verify.cu",
+              "paged_attention/kernel.py:241", k3rq),
+        entry("K4", "windowed_prefill", "windowed_ragged_prefill.cu",
+              "ragged_prefill/kernel.py:289", k4),
+        entry("K4-int8", "windowed_prefill", "windowed_ragged_prefill.cu",
+              "ragged_prefill/kernel.py:289", k4q),
     ]
     print(json.dumps({"kernels": kernels, "serve": {
         k: report[k] for k in ("max_logit_err", "n_tokens",
@@ -844,7 +1223,8 @@ def main() -> None:
                                "identical_requests", "tokens_per_s",
                                "decode_step_ms_p50", "ref_tokens_per_s",
                                "ref_decode_step_ms_p50")},
-        "speculative": spec, "int8": int8}), flush=True)
+        "speculative": spec, "int8": int8, "sliding_window": window}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,46 +1,63 @@
 // Paged attention for Hopper (sm_90a): Q query tokens per request (Q = 1 for
 // decode, Q = 1 + draft length for speculative verify), GQA, read straight
 // out of the paged KV pool through the page table, bf16 pages or int8 pages
-// with bf16 per-token-per-head scales.  One body, two entry points:
-// paged_decode.cu (kernel K1, Q = 1) and paged_verify.cu (kernel K3).
+// with bf16 per-token-per-head scales, full causal attention or a
+// sliding-window page ring.  One body, two entry points: paged_decode.cu
+// (kernel K1, Q = 1) and paged_verify.cu (kernel K3).
 //
 // Replaces the Pallas TPU kernels repro/kernels/paged_attention/kernel.py::
 // paged_decode_fwd (_paged_decode_kernel) and paged_verify_fwd
-// (_paged_verify_kernel), window = 0 and no softcap, bf16 or int8 pages.
-// Contract: repro/kernels/README.md "Inputs (decode cores)", "Page-table
-// layout" and "Scale-operand layout" -- page 0 is the null page, which may
-// be read but is always masked; query j of row b sits at absolute position
-// pos[b] + j and sees token t iff t <= pos[b] + j and j < n_q[b]; rows with
-// j >= n_q[b] finish as exact zeros.
+// (_paged_verify_kernel), window = 0 or > 0 and no softcap, bf16 or int8
+// pages.  Contract: repro/kernels/README.md "Inputs (decode cores)",
+// "Page-table layout" and "Scale-operand layout" -- page 0 is the null
+// page, which may be read but is always masked; query j of row b sits at
+// absolute position qp = pos[b] + j and, with window = 0, sees token t iff
+// t <= qp and j < n_q[b]; rows with j >= n_q[b] finish as exact zeros.
+// With window > 0 the table is a ring of ring = n_pages * ps token slots:
+// slot qp % ring holds qp, so slot i holds k_abs = qp - ((qp % ring - i)
+// mod ring), and i is seen iff 0 <= k_abs <= qp and k_abs > qp - window
+// (_page_mask, kernel.py:81-91).
 //
 // What bounds it: the bytes of K/V pages read.  One call reads every live
-// token's K and V of every KV head once, (pos + n_q) * K * D * 2 * 2 bytes
-// per request in bf16 (int8: 1 byte per value plus a 2-byte scale per token
-// and head), and does 4 * n_q * (pos + n_q) * H * D flops on them -- a few
-// flops per byte, far below the ~295 flops/byte at which the H100's bf16
-// tensor cores, not its memory, become the limit (989 TFLOP/s over
+// token's K and V of every KV head once, min(pos + n_q, ring) * K * D * 2 *
+// 2 bytes per request in bf16 (int8: 1 byte per value plus a 2-byte scale
+// per token and head), and does 4 * n_q * keys * H * D flops on them -- a
+// few flops per byte, far below the ~295 flops/byte at which the H100's
+// bf16 tensor cores, not its memory, become the limit (989 TFLOP/s over
 // 3.35 TB/s, NVIDIA's data sheet).
 //
 // Design.  The TPU grid (B, K, n_pages) carries (m, l, acc) in VMEM from one
 // grid step to the next; Hopper blocks run in no order, so one block owns a
 // (request, KV head) pair and loops over the request's live pages itself,
 // reading tables[b, i], pos[b] and n_q[b] on its own.  The block's rows are
-// the Q * G (query token, query head) pairs of the GQA group -- 35 at Q = 5,
-// G = 7 -- and all of them share every K/V page read.  The four warps split
+// the Q * G (query token, query head) pairs of the GQA group -- 45 at Q = 5,
+// G = 9 -- and all of them share every K/V page read.  The four warps split
 // the pages round-robin, each with its own fp32 online-softmax state per
 // row, updated exactly as _online_softmax_update (kernel.py:53): -inf
 // masking, the isfinite guards, the alpha rescale.  The four states merge
 // at the end in warp order, and the output is cast to bf16 once, after
-// acc / max(l, 1e-20) (kernel.py:70).  Pages past pos + n_q - 1 are never
-// read.  int8 pages are dequantized element by element to f32(q) * f32(s)
-// right before the dot and before PV, as the Pallas bodies and the plain
-// gather do (kernel.py:118-122).
+// acc / max(l, 1e-20) (kernel.py:70).  Pages past the last live query are
+// never read: page i holds no visible slot when i * ps > pos + n_q - 1,
+// in a ring too (before the ring wraps such slots hold no position yet;
+// once pos + n_q - 1 >= ring every page is swept, as the TPU kernel sweeps
+// every resident page, kernel.py:110-111).  int8 pages are dequantized
+// element by element to f32(q) * f32(s) right before the dot and before
+// PV, as the Pallas bodies and the plain gather do (kernel.py:118-122).
 //
-// Every row runs the same instruction sequence whatever Q, G and the row
-// count are (explicit fmaf, no fast math), so K3 with one live query per
-// row reproduces K1 bit for bit, as the Pallas twin does.  At B = 8 and
-// K = 2 that is 16 blocks on 132 SMs: the page sweep is not split across
-// blocks yet, so the kernel is latency-bound at long contexts (PERF.md).
+// Shared memory (queries, four warps' K and V pages, scores, softmax
+// states) is dynamic: at D = 128 and 48 rows it passes the 48 KB a block
+// gets without opting in.  Each lane owns D / 32 output dimensions of
+// every row; that accumulator lives in registers while rows * D / 32 <= 96
+// and in shared memory (one slice per warp) above that (48 rows at D =
+// 128 would be 192 registers a lane).  Where a value is stored does not
+// change its arithmetic.
+//
+// Every row runs the same instruction sequence whatever Q, G, the row count
+// and the accumulator's home are (explicit fmaf, no fast math), so K3 with
+// one live query per row reproduces K1 bit for bit, as the Pallas twin
+// does, ring mode included.  At B = 4 and K = 4 that is 16 blocks on 132
+// SMs: the page sweep is not split across blocks yet, so the kernel is
+// latency-bound at long contexts (PERF.md).
 //
 // Numerics: IEEE expf and division (build without --use_fast_math); scores
 // are fp32 dot products, scaled after the dot as in the reference.
@@ -109,6 +126,66 @@ struct PageTile<D, true> {
   }
 };
 
+// Whether query position qp sees slot idx of the row's logical view: the
+// causal rule (window = 0) or the ring rule over ``ring`` slots.
+__device__ __forceinline__ bool visible(int idx, int qp, int window,
+                                        int ring) {
+  if (window == 0) return idx <= qp;
+  int back = (qp % ring - idx) % ring;           // Python's non-negative mod
+  if (back < 0) back += ring;
+  const int k_abs = qp - back;
+  return k_abs >= 0 && k_abs > qp - window;      // k_abs <= qp by build
+}
+
+// Row accumulators: each lane owns dims lane + 32 * j (j < D / 32) of every
+// row, in registers or in the warp's slice of shared memory.
+template <int D, int kMaxRows, bool kInSmem>
+struct Acc;
+
+template <int D, int kMaxRows>
+struct Acc<D, kMaxRows, false> {
+  float v[kMaxRows][D / 32];
+  __device__ __forceinline__ void init(float* /*slice*/, int /*lane*/) {
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r)
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) v[r][j] = 0.f;
+  }
+  __device__ __forceinline__ float& at(int r, int j) { return v[r][j]; }
+};
+
+template <int D, int kMaxRows>
+struct Acc<D, kMaxRows, true> {
+  float* base;
+  __device__ __forceinline__ void init(float* slice, int lane) {
+    base = slice + lane;
+    for (int r = 0; r < kMaxRows; ++r)
+      for (int j = 0; j < D / 32; ++j) base[r * D + 32 * j] = 0.f;
+  }
+  __device__ __forceinline__ float& at(int r, int j) {
+    return base[r * D + 32 * j];
+  }
+};
+
+template <int D, int kMaxRows>
+__host__ __device__ constexpr bool acc_in_smem() {
+  return kMaxRows * (D / 32) > 96;
+}
+
+// The block's dynamic shared memory.
+template <int D, int kMaxRows, bool kInt8>
+struct Smem {
+  static constexpr int kAccWarps = acc_in_smem<D, kMaxRows>() ? kWarps : 0;
+  float q[kMaxRows][D];     // queries; after the sweep, the merged accumulator
+  PageTile<D, kInt8> k_t[kWarps];
+  PageTile<D, kInt8> v_t[kWarps];
+  float p[kWarps][kMaxRows][kMaxPs];
+  float alpha[kWarps][kMaxRows];
+  float m[kWarps][kMaxRows];
+  float l[kWarps][kMaxRows];
+  float acc[kAccWarps > 0 ? kAccWarps : 1][kAccWarps > 0 ? kMaxRows : 1][D];
+};
+
 template <int D, int kMaxRows, bool kInt8>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
@@ -120,30 +197,27 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
                     const int32_t* __restrict__ pos,        // [B]
                     const int32_t* __restrict__ n_q,        // [B] or null
                     __nv_bfloat16* __restrict__ out,        // [B, Q, H, D]
-                    int Q, int K, int G, int ps, int n_pages, float scale) {
+                    int Q, int K, int G, int ps, int n_pages, int window,
+                    float scale) {
   constexpr int kDpl = D / 32;          // output dims owned by each lane
-  __shared__ float q_s[kMaxRows][D];    // queries; after the sweep, the
-                                        // merged accumulator
-  __shared__ PageTile<D, kInt8> k_t[kWarps];
-  __shared__ PageTile<D, kInt8> v_t[kWarps];
-  __shared__ float p_s[kWarps][kMaxRows][kMaxPs];
-  __shared__ float alpha_s[kWarps][kMaxRows];
-  __shared__ float m_w[kWarps][kMaxRows];
-  __shared__ float l_w[kWarps][kMaxRows];
+  constexpr bool kAccSmem = acc_in_smem<D, kMaxRows>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<Smem<D, kMaxRows, kInt8>*>(smem_raw);
 
   const int b = blockIdx.x, kh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int H = K * G, rows = Q * G;
+  const int ring = n_pages * ps;
 
   for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
     const int r = e / D, d = e % D;
     const int j = r / G, g = r % G;
-    q_s[r][d] = __bfloat162float(
+    sm.q[r][d] = __bfloat162float(
         q[(((size_t)b * Q + j) * H + kh * G + g) * D + d]);
   }
   for (int r = lane; r < rows; r += 32) {
-    m_w[warp][r] = -INFINITY;
-    l_w[warp][r] = 0.f;
+    sm.m[warp][r] = -INFINITY;
+    sm.l[warp][r] = 0.f;
   }
   const int p_b = pos[b];
   const int nq_b = n_q ? n_q[b] : 1;
@@ -152,17 +226,14 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
   if (n_live > n_pages) n_live = n_pages;
   __syncthreads();
 
-  float acc[kMaxRows][kDpl];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r)
-#pragma unroll
-    for (int j = 0; j < kDpl; ++j) acc[r][j] = 0.f;
+  Acc<D, kMaxRows, kAccSmem> acc;
+  acc.init(&sm.acc[kAccSmem ? warp : 0][0][0], lane);
 
   for (int i = warp; i < n_live; i += kWarps) {
     const int page = tables[(size_t)b * n_pages + i];
     const size_t base = ((size_t)page * ps * K + kh) * D;
-    k_t[warp].load(k_pages, k_scale, base, ps, K, kh, page, lane);
-    v_t[warp].load(v_pages, v_scale, base, ps, K, kh, page, lane);
+    sm.k_t[warp].load(k_pages, k_scale, base, ps, K, kh, page, lane);
+    sm.v_t[warp].load(v_pages, v_scale, base, ps, K, kh, page, lane);
     __syncwarp();
     for (int e = lane; e < rows * ps; e += 32) {
       const int r = e / ps, t = e % ps;
@@ -170,42 +241,43 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
       float s = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d)
-        s = fmaf(q_s[r][d], k_t[warp].value(t, d), s);
+        s = fmaf(sm.q[r][d], sm.k_t[warp].value(t, d), s);
       s *= scale;
-      const bool valid = j < nq_b && i * ps + t <= p_b + j;
-      p_s[warp][r][t] = valid ? s : -INFINITY;
+      const bool valid = j < nq_b && visible(i * ps + t, p_b + j, window,
+                                             ring);
+      sm.p[warp][r][t] = valid ? s : -INFINITY;
     }
     __syncwarp();
     for (int r = lane; r < rows; r += 32) {      // online-softmax update
       float mx = -INFINITY;
-      for (int t = 0; t < ps; ++t) mx = fmaxf(mx, p_s[warp][r][t]);
-      const float m_old = m_w[warp][r];
+      for (int t = 0; t < ps; ++t) mx = fmaxf(mx, sm.p[warp][r][t]);
+      const float m_old = sm.m[warp][r];
       const float m_new = fmaxf(m_old, mx);
       const bool fin = isfinite(m_new);
       const float safe = fin ? m_new : 0.f;
       float sum = 0.f;
       for (int t = 0; t < ps; ++t) {
-        const float p = fin ? expf(p_s[warp][r][t] - safe) : 0.f;
-        p_s[warp][r][t] = p;
+        const float p = fin ? expf(sm.p[warp][r][t] - safe) : 0.f;
+        sm.p[warp][r][t] = p;
         sum += p;
       }
       const float alpha = isfinite(m_old) ? expf(m_old - safe) : 0.f;
-      l_w[warp][r] = fmaf(l_w[warp][r], alpha, sum);
-      alpha_s[warp][r] = alpha;
-      m_w[warp][r] = m_new;
+      sm.l[warp][r] = fmaf(sm.l[warp][r], alpha, sum);
+      sm.alpha[warp][r] = alpha;
+      sm.m[warp][r] = m_new;
     }
     __syncwarp();
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r) {
       if (r < rows) {
-        const float a = alpha_s[warp][r];
+        const float a = sm.alpha[warp][r];
 #pragma unroll
         for (int j = 0; j < kDpl; ++j) {
           const int d = lane + 32 * j;
           float pv = 0.f;
           for (int t = 0; t < ps; ++t)
-            pv = fmaf(p_s[warp][r][t], v_t[warp].value(t, d), pv);
-          acc[r][j] = fmaf(acc[r][j], a, pv);
+            pv = fmaf(sm.p[warp][r][t], sm.v_t[warp].value(t, d), pv);
+          acc.at(r, j) = fmaf(acc.at(r, j), a, pv);
         }
       }
     }
@@ -213,20 +285,20 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
   }
 
   // merge the warps' (m, l, acc) states in warp order; one bf16 cast at the
-  // end.  alpha_s now holds each warp's factor exp(m_w - m), l_w[0] the
-  // merged normalizer, q_s the merged accumulator.
+  // end.  alpha now holds each warp's factor exp(m_w - m), l[0] the merged
+  // normalizer, q the merged accumulator.
   __syncthreads();
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     float m = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, m_w[w][r]);
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, sm.m[w][r]);
     const float safe = isfinite(m) ? m : 0.f;
     float l = 0.f;
     for (int w = 0; w < kWarps; ++w) {
-      const float f = isfinite(m_w[w][r]) ? expf(m_w[w][r] - safe) : 0.f;
-      l = fmaf(l_w[w][r], f, l);
-      alpha_s[w][r] = f;
+      const float f = isfinite(sm.m[w][r]) ? expf(sm.m[w][r] - safe) : 0.f;
+      l = fmaf(sm.l[w][r], f, l);
+      sm.alpha[w][r] = f;
     }
-    l_w[0][r] = l;
+    sm.l[0][r] = l;
   }
   __syncthreads();
   for (int w = 0; w < kWarps; ++w) {
@@ -234,11 +306,11 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
         if (r < rows) {
-          const float f = alpha_s[w][r];
+          const float f = sm.alpha[w][r];
 #pragma unroll
           for (int j = 0; j < kDpl; ++j) {
             const int d = lane + 32 * j;
-            q_s[r][d] = fmaf(acc[r][j], f, w == 0 ? 0.f : q_s[r][d]);
+            sm.q[r][d] = fmaf(acc.at(r, j), f, w == 0 ? 0.f : sm.q[r][d]);
           }
         }
       }
@@ -249,8 +321,32 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
     const int r = e / D, d = e % D;
     const int j = r / G, g = r % G;
     out[(((size_t)b * Q + j) * H + kh * G + g) * D + d] =
-        __float2bfloat16(q_s[r][d] / fmaxf(l_w[0][r], 1e-20f));
+        __float2bfloat16(sm.q[r][d] / fmaxf(sm.l[0][r], 1e-20f));
   }
+}
+
+// Launch one instantiation with its dynamic shared memory (the opt-in above
+// 48 KB is set once per instantiation).
+template <int D, int kMaxRows, bool kInt8>
+int launch_one(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
+               const void* k_pages, const void* v_pages,
+               const __nv_bfloat16* k_scale, const __nv_bfloat16* v_scale,
+               const int32_t* tables, const int32_t* pos, const int32_t* n_q,
+               __nv_bfloat16* out, int Q, int K, int G, int ps, int n_pages,
+               int window, float scale) {
+  constexpr size_t kSmem = sizeof(Smem<D, kMaxRows, kInt8>);
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attend_kernel<D, kMaxRows, kInt8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  paged_attend_kernel<D, kMaxRows, kInt8><<<grid, kWarps * 32, kSmem, st>>>(
+      q, k_pages, v_pages, k_scale, v_scale, tables, pos, n_q, out, Q, K, G,
+      ps, n_pages, window, scale);
+  return (int)cudaGetLastError();
 }
 
 // Launch the kernel for kMaxRows query rows per block.  Returns 0 on
@@ -259,12 +355,13 @@ template <int kMaxRows>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scale, const void* v_scale, const void* tables,
            const void* pos, const void* n_q, void* out, int B, int Q, int K,
-           int G, int D, int ps, int n_pages, float scale, void* stream) {
+           int G, int D, int ps, int n_pages, int window, float scale,
+           void* stream) {
   if (B < 1 || Q < 1 || K < 1 || G < 1 || Q * G > kMaxRows || ps < 1 ||
-      ps > kMaxPs || n_pages < 1 || (k_scale == nullptr) != (v_scale == nullptr))
+      ps > kMaxPs || n_pages < 1 || window < 0 ||
+      (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(B, K);
-  const dim3 block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* ksp = static_cast<const __nv_bfloat16*>(k_scale);
@@ -273,18 +370,19 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   const auto* pp = static_cast<const int32_t*>(pos);
   const auto* np = static_cast<const int32_t*>(n_q);
   auto* op = static_cast<__nv_bfloat16*>(out);
-#define PAGED_LAUNCH(DIM, INT8)                                              \
-  paged_attend_kernel<DIM, kMaxRows, INT8><<<grid, block, 0, st>>>(          \
-      qp, k_pages, v_pages, ksp, vsp, tp, pp, np, op, Q, K, G, ps, n_pages, \
-      scale)
+#define PAGED_LAUNCH(DIM, INT8)                                               \
+  return launch_one<DIM, kMaxRows, INT8>(grid, st, qp, k_pages, v_pages, ksp, \
+                                         vsp, tp, pp, np, op, Q, K, G, ps,    \
+                                         n_pages, window, scale)
   const bool int8 = k_scale != nullptr;
   if (D == 32 && !int8) PAGED_LAUNCH(32, false);
-  else if (D == 32) PAGED_LAUNCH(32, true);
-  else if (D == 64 && !int8) PAGED_LAUNCH(64, false);
-  else if (D == 64) PAGED_LAUNCH(64, true);
-  else return (int)cudaErrorInvalidValue;
+  if (D == 32) PAGED_LAUNCH(32, true);
+  if (D == 64 && !int8) PAGED_LAUNCH(64, false);
+  if (D == 64) PAGED_LAUNCH(64, true);
+  if (D == 128 && !int8) PAGED_LAUNCH(128, false);
+  if (D == 128) PAGED_LAUNCH(128, true);
 #undef PAGED_LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace paged

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _ENTRIES: Dict[str, Callable[..., int]] = {}
 
@@ -58,7 +58,9 @@ def _target(src: Path) -> Path:
 def build_all() -> Tuple[float, Dict[str, Path]]:
     """Compile every ``csrc/*.cu`` that has no up-to-date library yet, one
     ``nvcc`` process per source, all running at once.  Returns (seconds,
-    {stem: library path}); raises with the compiler's output on failure."""
+    {stem: library path}); raises with the compiler's output on failure.
+    The compiler's output (``ptxas`` registers, spills and shared memory of
+    every kernel) is kept beside each library as ``<library>.log``."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo, out = [], {}
@@ -77,6 +79,7 @@ def build_all() -> Tuple[float, Dict[str, Path]]:
         if proc.returncode != 0:
             errors.append(f"{so.name}: nvcc exit {proc.returncode}\n{log}")
         else:
+            so.with_suffix(".log").write_text(log)
             os.replace(tmp, so)       # atomic: concurrent builders agree
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
@@ -103,13 +106,8 @@ def check_launch(rc: int, name: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
-def refuse_modes(name: str, window: int, softcap: float) -> None:
-    """The TPU kernels' modes the port does not have yet raise, naming the
-    ROADMAP item that brings each."""
-    if window:
-        raise NotImplementedError(
-            f"{name}: the sliding-window mode arrives with ROADMAP queue 1 "
-            "item 11")
+def refuse_softcap(name: str, softcap: float) -> None:
+    """The TPU kernels' logit-softcap mode is not ported: it raises."""
     if softcap:
         raise NotImplementedError(
             f"{name}: the logit-softcap mode is not ported (no registered "
@@ -128,8 +126,8 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 def check_pool(name, dev, k_pages, v_pages, tables, k_scale, v_scale):
     """Device, dtype, layout and shape checks of a paged pool, its scale
-    pages and its tables (shared by K1, K2 and K3); returns (P, ps, K, D)
-    of the pool."""
+    pages and its tables (shared by K1, K2, K3 and K4); returns (P, ps, K,
+    D) of the pool."""
     payload = torch.bfloat16 if k_scale is None else torch.int8
     check_tensor(k_pages, "k_pages", payload, 4, dev)
     check_tensor(v_pages, "v_pages", payload, 4, dev)

@@ -5,12 +5,15 @@ straight from the paged KV pool.
 .paged_attention_decode`` (Pallas ``kernel.py::paged_decode_fwd``) and
 ``paged_verify`` replaces ``paged_attention_verify`` (Pallas
 ``kernel.py::paged_verify_fwd``), each with bf16 pages or int8 pages plus
-bf16 scale pages (``k_scale``/``v_scale``); no sliding window, no softcap.
-Both kernels are instances of one CUDA body (``csrc/paged_attention.cuh``,
-design and bound in its note): K1 is its one-query case, so K3 with one
-live query per row reproduces K1 bit for bit.  For CPU tensors each
-wrapper runs its plain PyTorch version, which is also the reference
-backend's core and the kernel's oracle on the card.
+bf16 scale pages (``k_scale``/``v_scale``), and each with the TPU kernels'
+sliding-window ring mode (``window > 0``: the table is a ring of ``n_pages
+* ps`` token slots and each slot's absolute position is recovered from the
+ring layout); no softcap.  Both kernels are instances of one CUDA body
+(``csrc/paged_attention.cuh``, design and bound in its note): K1 is its
+one-query case, so K3 with one live query per row reproduces K1 bit for
+bit, ring mode included.  For CPU tensors each wrapper runs its plain
+PyTorch version, which is also the reference backend's core and the
+kernel's oracle on the card.
 """
 from __future__ import annotations
 
@@ -19,45 +22,50 @@ import ctypes
 import torch
 
 from .. import (check_launch, check_pool, check_tensor, entry, ptr,
-                refuse_modes)
+                refuse_softcap)
 from ...models import attention
 
 
 def paged_decode_plain(q, k_pages, v_pages, tables, pos, *, scale: float,
-                       k_scale=None, v_scale=None):
+                       window: int = 0, k_scale=None, v_scale=None):
     """q: [B, H, D]; k_pages/v_pages: [P, ps, K, D] (bf16, or int8 with
     ``k_scale``/``v_scale`` [P, ps, K] bf16); tables: [B, n_pages] physical
     page ids; pos: [B] absolute positions (the new token is already
     written).  Gathers the logical view (int8 dequantized to fp32 as
-    ``f32(q) * f32(s)``) and attends with ``idx <= pos``: fp32 scores and
-    softmax, fp32 probability-weighted sum, one cast at the output.
-    Returns [B, H, D] in ``q``'s dtype."""
+    ``f32(q) * f32(s)``) and attends with ``idx <= pos`` (``window > 0``:
+    the ring rule of ``attention.decode_valid_mask`` over ``n_pages * ps``
+    slots): fp32 scores and softmax, fp32 probability-weighted sum, one
+    cast at the output.  Returns [B, H, D] in ``q``'s dtype."""
     kg, vg = attention.gather_kv(k_pages, v_pages, tables, k_scale, v_scale)
-    valid = attention.decode_valid_mask(pos, kg.shape[1])
+    valid = attention.decode_valid_mask(pos, kg.shape[1], window=window)
     o = attention.masked_token_attend(q, kg, vg, valid, scale=scale)
     return o.to(q.dtype)
 
 
 def paged_verify_plain(q, k_pages, v_pages, tables, pos, n_q, *,
-                       scale: float, k_scale=None, v_scale=None):
+                       scale: float, window: int = 0, k_scale=None,
+                       v_scale=None):
     """q: [B, Q, H, D], query j of row b at absolute position
     ``pos[b] + j`` (all Q queries' K/V already written); n_q: [B] live
-    query counts.  Pools and tables as ``paged_decode_plain``.  Each live
-    query attends ``idx <= pos + j``; dead rows (``j >= n_q``) are exact
-    zeros.  Returns [B, Q, H, D] in ``q``'s dtype."""
+    query counts.  Pools, tables and ``window`` as ``paged_decode_plain``.
+    Each live query attends ``idx <= pos + j`` (or the ring rule at ``pos
+    + j``); dead rows (``j >= n_q``) are exact zeros.  Returns [B, Q, H, D]
+    in ``q``'s dtype."""
     kg, vg = attention.gather_kv(k_pages, v_pages, tables, k_scale, v_scale)
-    valid = attention.verify_valid_mask(pos, n_q, q.shape[1], kg.shape[1])
+    valid = attention.verify_valid_mask(pos, n_q, q.shape[1], kg.shape[1],
+                                        window=window)
     o = attention.masked_multi_token_attend(q, kg, vg, valid, scale=scale)
     return o.to(q.dtype)
 
 
 # decode: q, k, v, k_scale, v_scale, tables, pos, out, then B, K, G, D, ps,
-# n_pages, scale, stream; verify adds n_q after pos and Q after B
-_DECODE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+# n_pages, window, scale, stream; verify adds n_q after pos and Q after B
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_void_p]
-_VERIFY_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+_VERIFY_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
     + [ctypes.c_float, ctypes.c_void_p]
 MAX_ROWS = {"paged_decode": 16, "paged_verify": 48}   # csrc kMaxRows
+HEAD_DIMS = (32, 64, 128)                              # csrc launch()
 
 
 def paged_decode(q, k_pages, v_pages, tables, pos, *, scale: float,
@@ -67,14 +75,13 @@ def paged_decode(q, k_pages, v_pages, tables, pos, *, scale: float,
     device ``q`` and the pools are contiguous bf16 (int8 payload plus
     contiguous bf16 scale pages when scales are given), ``tables`` and
     ``pos`` contiguous int32, ``H % K == 0`` with ``G = H // K <= 16``,
-    page size <= 16 and head dim 32 or 64; anything else raises.  The TPU
-    kernel's other modes (``window``, ``softcap``) raise
-    ``NotImplementedError``."""
-    refuse_modes("paged_decode", window, softcap)
+    page size <= 16 and head dim 32, 64 or 128; anything else raises.  The
+    TPU kernel's ``softcap`` mode raises ``NotImplementedError``."""
+    refuse_softcap("paged_decode", softcap)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, tables, pos,
-                                  scale=scale, k_scale=k_scale,
-                                  v_scale=v_scale)
+                                  scale=scale, window=window,
+                                  k_scale=k_scale, v_scale=v_scale)
     dev = q.device
     check_tensor(q, "q", torch.bfloat16, 3, dev)
     B, H, D = q.shape
@@ -83,7 +90,7 @@ def paged_decode(q, k_pages, v_pages, tables, pos, *, scale: float,
     check_tensor(pos, "pos", torch.int32, 1, dev)
     if Dk != D or H % K or tables.shape[0] != B or pos.shape[0] != B \
             or H // K > MAX_ROWS["paged_decode"] or ps > 16 \
-            or D not in (32, 64):
+            or D not in HEAD_DIMS or window < 0:
         raise ValueError(
             f"paged_decode: unsupported shapes q {tuple(q.shape)}, pages "
             f"{tuple(k_pages.shape)}, tables {tuple(tables.shape)}, pos "
@@ -92,7 +99,7 @@ def paged_decode(q, k_pages, v_pages, tables, pos, *, scale: float,
     rc = entry("paged_decode", _DECODE_ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale),
         ptr(v_scale), tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B,
-        K, H // K, D, ps, tables.shape[1], float(scale),
+        K, H // K, D, ps, tables.shape[1], int(window), float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "paged_decode")
     paged_decode.launches += 1
@@ -109,13 +116,14 @@ def paged_verify(q, k_pages, v_pages, tables, pos, n_q, *, scale: float,
     a CUDA device ``q`` [B, Q, H, D] and the pools are contiguous bf16 (or
     int8 payload plus bf16 scale pages), ``tables``, ``pos`` and ``n_q``
     contiguous int32, ``H % K == 0`` with ``Q * (H // K) <= 48``, page size
-    <= 16 and head dim 32 or 64; anything else raises.  ``window`` and
-    ``softcap`` raise ``NotImplementedError``."""
-    refuse_modes("paged_verify", window, softcap)
+    <= 16 and head dim 32, 64 or 128; anything else raises (Q = 5 at G = 12,
+    command-r-plus-104b, is 60 rows).  ``softcap`` raises
+    ``NotImplementedError``."""
+    refuse_softcap("paged_verify", softcap)
     if q.device.type == "cpu":
         return paged_verify_plain(q, k_pages, v_pages, tables, pos, n_q,
-                                  scale=scale, k_scale=k_scale,
-                                  v_scale=v_scale)
+                                  scale=scale, window=window,
+                                  k_scale=k_scale, v_scale=v_scale)
     dev = q.device
     check_tensor(q, "q", torch.bfloat16, 4, dev)
     B, Q, H, D = q.shape
@@ -126,7 +134,7 @@ def paged_verify(q, k_pages, v_pages, tables, pos, n_q, *, scale: float,
     if Dk != D or H % K or tables.shape[0] != B or pos.shape[0] != B \
             or n_q.shape[0] != B \
             or Q * (H // K) > MAX_ROWS["paged_verify"] or ps > 16 \
-            or D not in (32, 64):
+            or D not in HEAD_DIMS or window < 0:
         raise ValueError(
             f"paged_verify: unsupported shapes q {tuple(q.shape)}, pages "
             f"{tuple(k_pages.shape)}, tables {tuple(tables.shape)}, pos "
@@ -135,7 +143,7 @@ def paged_verify(q, k_pages, v_pages, tables, pos, n_q, *, scale: float,
     rc = entry("paged_verify", _VERIFY_ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale),
         ptr(v_scale), tables.data_ptr(), pos.data_ptr(), n_q.data_ptr(),
-        out.data_ptr(), B, Q, K, H // K, D, ps, tables.shape[1],
+        out.data_ptr(), B, Q, K, H // K, D, ps, tables.shape[1], int(window),
         float(scale), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "paged_verify")
     paged_verify.launches += 1

@@ -1,12 +1,18 @@
-"""Ragged chunk prefill against the post-write paged pool (kernel K2).
+"""Ragged chunk prefill against the paged pool: kernel K2 (full attention,
+post-write pool) and kernel K4 (sliding window, pre-write page ring plus
+the chunk's fresh K/V).
 
 ``ragged_prefill`` replaces ``repro.kernels.ragged_prefill.ops
-.ragged_prefill_attend`` (Pallas ``kernel.py::ragged_prefill_fwd``) with
-bf16 pages or int8 pages plus bf16 scale pages.  For CUDA tensors it launches the hand-written kernel in
-``csrc/ragged_prefill.cu`` (design and bound in that file's note); for CPU
-tensors it runs ``ragged_prefill_plain``, the plain PyTorch version of the
-same function, which is also the reference backend's prefill core and the
-kernel's oracle on the card.
+.ragged_prefill_attend`` with ``window == 0`` (Pallas
+``kernel.py::ragged_prefill_fwd``) and ``windowed_prefill`` replaces it
+with ``window > 0`` (Pallas ``kernel.py::windowed_ragged_prefill_fwd``),
+each with bf16 pages or int8 pages plus bf16 scale pages.  For CUDA
+tensors they launch the hand-written kernels in ``csrc/ragged_prefill.cu``
+and ``csrc/windowed_ragged_prefill.cu`` (design and bound in each file's
+note); for CPU tensors they run ``ragged_prefill_plain`` and
+``windowed_prefill_plain``, the plain PyTorch versions of the same
+functions, which are also the reference backend's prefill cores and the
+kernels' oracles on the card.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import ctypes
 import torch
 
 from .. import (check_launch, check_pool, check_tensor, entry, ptr,
-                refuse_modes)
+                refuse_softcap)
 from ...models import attention
 
 
@@ -37,22 +43,47 @@ def ragged_prefill_plain(q, k_pages, v_pages, tables, start, *,
     return o.to(q.dtype)
 
 
+def windowed_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables, start,
+                           n_live, *, window: int, scale: float,
+                           q_block: int = 512, k_scale=None, v_scale=None):
+    """q: [B, T, H, D] roped chunk queries at per-row offsets ``start``;
+    k_new/v_new: [B, T, K, D] the chunk's fresh roped K/V at model
+    precision; k_pages/v_pages: [P, ps, K, D] the *pre-write* pool (bf16,
+    or int8 with ``k_scale``/``v_scale`` [P, ps, K] bf16); tables: [B,
+    n_ring] the page rings; n_live: [B] real chunk tokens.  Gathers each
+    row's ring (int8 dequantized to fp32, and then the fresh K/V promoted
+    to fp32 too, so probabilities stay fp32 end to end) and runs
+    ``attention.ring_chunk_attention``: ring slots masked by the position
+    recovered relative to ``start - 1`` and by the window, fresh keys by
+    the causal + window rule and ``t < n_live``, one softmax over both.
+    Rows ``t >= n_live`` (chunk padding, which the caller discards) are
+    zeros.  Returns [B, T, H, D] in ``q``'s dtype."""
+    kr, vr = attention.gather_kv(k_pages, v_pages, tables, k_scale, v_scale)
+    if k_scale is not None:
+        k_new, v_new = k_new.float(), v_new.float()
+    o = attention.ring_chunk_attention(q, k_new, v_new, kr, vr, start,
+                                       n_live, window=window, scale=scale,
+                                       q_block=q_block).to(q.dtype)
+    live = torch.arange(q.shape[1], device=q.device)[None, :] \
+        < n_live.reshape(-1, 1)
+    return torch.where(live[:, :, None, None], o, torch.zeros_like(o))
+
+
 # q, k, v, k_scale, v_scale, tables, start, out
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_void_p]
 
 
 def ragged_prefill(q, k_pages, v_pages, tables, start, *, scale: float,
-                   window: int = 0, softcap: float = 0.0, k_scale=None,
-                   v_scale=None):
+                   softcap: float = 0.0, k_scale=None, v_scale=None):
     """Ragged chunk prefill; arguments as ``ragged_prefill_plain`` (the
     kernel tiles its own queries, so it takes no ``q_block``).  On a CUDA
     device ``q`` and the pools are contiguous bf16 (int8 payload plus
     contiguous bf16 scale pages when scales are given), ``tables`` and
     ``start`` contiguous int32, ``H % K == 0``, page size <= 32 and head
-    dim 32 or 64; anything else raises.  The TPU kernel's other modes
-    (``window``, ``softcap``) raise ``NotImplementedError``."""
-    refuse_modes("ragged_prefill", window, softcap)
+    dim 32 or 64; anything else raises.  The sliding-window mode is K4
+    (``windowed_prefill``); ``softcap`` raises ``NotImplementedError``."""
+    refuse_softcap("ragged_prefill", softcap)
     if q.device.type == "cpu":
         return ragged_prefill_plain(q, k_pages, v_pages, tables, start,
                                     scale=scale, k_scale=k_scale,
@@ -82,3 +113,59 @@ def ragged_prefill(q, k_pages, v_pages, tables, start, *, scale: float,
 
 
 ragged_prefill.launches = 0
+
+
+# q, k_new, v_new, k, v, k_scale, v_scale, tables, start, n_live, out, then
+# B, T, H, K, D, ps, n_ring, window, scale, stream
+_WINDOWED_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 \
+    + [ctypes.c_float, ctypes.c_void_p]
+
+
+def windowed_prefill(q, k_new, v_new, k_pages, v_pages, tables, start,
+                     n_live, *, window: int, scale: float,
+                     softcap: float = 0.0, k_scale=None, v_scale=None):
+    """Sliding-window chunk prefill (K4); arguments as
+    ``windowed_prefill_plain`` (the kernel tiles its own queries, so it
+    takes no ``q_block``).  On a CUDA device ``q``, ``k_new``, ``v_new``
+    and the pools are contiguous bf16 (int8 payload plus contiguous bf16
+    scale pages when scales are given; the fresh K/V stay bf16),
+    ``tables``, ``start`` and ``n_live`` contiguous int32, ``H % K == 0``,
+    page size <= 32, head dim 32, 64 or 128 and ``window > 0``; anything
+    else raises.  ``softcap`` raises ``NotImplementedError``."""
+    refuse_softcap("windowed_prefill", softcap)
+    if q.device.type == "cpu":
+        return windowed_prefill_plain(q, k_new, v_new, k_pages, v_pages,
+                                      tables, start, n_live, window=window,
+                                      scale=scale, k_scale=k_scale,
+                                      v_scale=v_scale)
+    dev = q.device
+    check_tensor(q, "q", torch.bfloat16, 4, dev)
+    B, T, H, D = q.shape
+    P, ps, K, Dk = check_pool("windowed_prefill", dev, k_pages, v_pages,
+                              tables, k_scale, v_scale)
+    check_tensor(k_new, "k_new", torch.bfloat16, 4, dev)
+    check_tensor(v_new, "v_new", torch.bfloat16, 4, dev)
+    check_tensor(start, "start", torch.int32, 1, dev)
+    check_tensor(n_live, "n_live", torch.int32, 1, dev)
+    if Dk != D or H % K or tuple(k_new.shape) != (B, T, K, D) \
+            or v_new.shape != k_new.shape or tables.shape[0] != B \
+            or start.shape[0] != B or n_live.shape[0] != B or ps > 32 \
+            or D not in (32, 64, 128) or window <= 0:
+        raise ValueError(
+            f"windowed_prefill: unsupported shapes q {tuple(q.shape)}, "
+            f"k_new {tuple(k_new.shape)}, pages {tuple(k_pages.shape)}, "
+            f"tables {tuple(tables.shape)}, start {tuple(start.shape)}, "
+            f"n_live {tuple(n_live.shape)}, window {window}")
+    out = torch.empty_like(q)
+    rc = entry("windowed_ragged_prefill", _WINDOWED_ARGTYPES)(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), ptr(k_scale), ptr(v_scale), tables.data_ptr(),
+        start.data_ptr(), n_live.data_ptr(), out.data_ptr(), B, T, H, K, D,
+        ps, tables.shape[1], int(window), float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(rc, "windowed_prefill")
+    windowed_prefill.launches += 1
+    return out
+
+
+windowed_prefill.launches = 0

@@ -17,6 +17,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --kv-dtype int8 --verify
 
+  # sliding-window families over page rings (starcoder2-7b,
+  # command-r-plus-104b; the prefix cache is refused for rings)
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --arch starcoder2-7b --speculate-tokens 4 --verify
+
 The flags are those of ``repro.launch.serve`` for what the port supports,
 plus ``--device`` (``cuda`` by default: without a card the run raises
 instead of moving to the CPU).  ``--attn-backend`` takes

@@ -3,9 +3,10 @@ chunked causal attention for full sequences, a contiguous per-request KV
 cache for the static path, and the paged blocks the serving engine runs.
 
 The port's counterpart of ``repro.models.attention``, dense subset, with
-the int8 paged pool and the small-q speculative verify block; the
-sliding-window ring (ROADMAP queue 1 item 11) and the logit softcap (no
-registered arch sets it) arrive with their slices.  Every softmax is spelled
+the int8 paged pool, the small-q speculative verify block and the
+sliding-window family (page rings for the paged blocks, a ring buffer of
+``min(window, max_len)`` entries for the static cache); the logit softcap
+(no registered arch sets it) is not ported.  Every softmax is spelled
 out as ``exp(s - max) / sum`` — what ``jax.nn.softmax`` computes — and every
 score and probability-weighted sum is taken in fp32 from the bf16 operands,
 with one cast back at the block output: the rounding points the JAX
@@ -69,13 +70,13 @@ def softmax(s: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------- chunked core attention
 
 def chunked_attention(q, k, v, *, scale: float, q_block: int = 512,
-                      q_offset=0):
-    """Causal attention, scores times ``scale``.  q: [B, Sq, H, D]; k, v:
-    [B, Sk, K, D].  Query blocks of ``q_block`` rows bound the live fp32
-    score tensor at
-    [B, K, G, q_block, Sk].  ``q_offset`` is the absolute position of
-    q[:, 0] relative to k[:, 0]: an int, or a [B] tensor of per-row offsets.
-    Returns [B, Sq, H, D]."""
+                      q_offset=0, window: int = 0):
+    """Causal attention, scores times ``scale``; ``window > 0`` also masks
+    keys at or before ``q_pos - window`` (sliding window).  q: [B, Sq, H,
+    D]; k, v: [B, Sk, K, D].  Query blocks of ``q_block`` rows bound the
+    live fp32 score tensor at [B, K, G, q_block, Sk].  ``q_offset`` is the
+    absolute position of q[:, 0] relative to k[:, 0]: an int, or a [B]
+    tensor of per-row offsets.  Returns [B, Sq, H, D]."""
     B, Sq, H, D = q.shape
     K = k.shape[2]
     G = H // K
@@ -91,6 +92,8 @@ def chunked_attention(q, k, v, *, scale: float, q_block: int = 512,
         qpos = qoff + i0 + torch.arange(n, device=q.device)[None, :]
         s = torch.einsum("bqkgd,bskd->bkgqs", qi, kf) * scale
         mask = kpos[None, None, :] <= qpos[:, :, None]           # [B|1, n, Sk]
+        if window:
+            mask = mask & (kpos[None, None, :] > qpos[:, :, None] - window)
         s = torch.where(mask[:, None, None], s, NEG_INF)
         a = softmax(s).to(v.dtype)
         o = torch.einsum("bkgqs,bskd->bqkgd", a.float(), vf).to(v.dtype)
@@ -98,26 +101,87 @@ def chunked_attention(q, k, v, *, scale: float, q_block: int = 512,
     return torch.cat(outs, dim=1)
 
 
+def ring_chunk_mask(start, n_live, n: int, T: int,
+                    window: int) -> torch.Tensor:
+    """[B, T, n + T] keys each query of a sliding-window chunk sees: the
+    ``n`` slots of the page ring as it was *before* the chunk's writes,
+    then the chunk's ``T`` fresh keys.  Ring slot ``s`` holds the latest
+    position ``< start`` congruent to ``s`` mod ``n``, so its absolute
+    position is recovered relative to ``start - 1`` (at ``start == 0``
+    every slot is negative, i.e. unseen) and masked to the window; fresh
+    key ``f`` is seen causally, within the window and when ``f <
+    n_live``.  start, n_live: [B]."""
+    dev = start.device
+    st = start.reshape(-1, 1, 1).long()
+    last = st - 1
+    idx = torch.arange(n, device=dev)[None, None, :]
+    k_abs = last - ((last % n - idx) % n)          # torch's % is Python's
+    q_abs = st + torch.arange(T, device=dev)[None, :, None]
+    ring = (k_abs >= 0) & (k_abs > q_abs - window)
+    f = torch.arange(T, device=dev)[None, None, :]
+    fresh = (f <= q_abs - st) & (st + f > q_abs - window) \
+        & (f < n_live.reshape(-1, 1, 1).long())
+    return torch.cat([ring.expand(-1, T, -1), fresh], dim=2)
+
+
+def ring_chunk_attention(q, k, v, k_ring, v_ring, start, n_live, *,
+                         window: int, scale: float, q_block: int = 512):
+    """Sliding-window attend for a *chunk* of prefill at offset ``start``.
+
+    q: [B, T, H, D] roped chunk queries; k, v: [B, T, K, D] the chunk's
+    fresh roped K/V; k_ring, v_ring: [B, n, K, D] the gathered page ring as
+    it was *before* the chunk's writes (positions < start); start, n_live:
+    [B].  Keys are masked by ``ring_chunk_mask``.  One softmax over ring
+    and fresh keys together (fp32 scores, masked entries ``NEG_INF``),
+    probabilities cast to the value dtype, fp32 PV sum, one cast to the
+    value dtype: ``repro.models.attention.ring_chunk_attention`` op for op.
+    Returns [B, T, H, D]."""
+    B, T, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    q_block = min(q_block, T)
+    kc = torch.cat([k_ring, k], dim=1)                # [B, n + T, K, D]
+    vc = torch.cat([v_ring, v], dim=1)
+    kf, vf = kc.float(), vc.float()
+    mask = ring_chunk_mask(start, n_live, k_ring.shape[1], T, window)
+    outs = []
+    for i0 in range(0, T, q_block):
+        qi = q[:, i0:i0 + q_block]
+        nb = qi.shape[1]
+        qi = qi.reshape(B, nb, K, G, D).float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qi, kf) * scale
+        s = torch.where(mask[:, None, None, i0:i0 + nb], s, NEG_INF)
+        a = softmax(s).to(vc.dtype)
+        o = torch.einsum("bkgqs,bskd->bqkgd", a.float(), vf).to(vc.dtype)
+        outs.append(o.reshape(B, nb, H, vc.shape[-1]))
+    return torch.cat(outs, dim=1)
+
+
 def full_attention_block(cfg: ArchConfig, p, x, freqs, *, q_block=512):
-    """Causal self-attention over a full sequence (prefill)."""
+    """Causal self-attention over a full sequence (prefill), sliding-window
+    masked for windowed families."""
     q, k, v = qkv(cfg, p, x)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q = apply_rope(q, positions, freqs)
     k = apply_rope(k, positions, freqs)
     o = chunked_attention(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim_),
-                          q_block=q_block)
+                          q_block=q_block, window=cfg.sliding_window)
     return out_proj(o, p["wo"])
 
 
 # ------------------------------------------------------------------- KV cache
 
 def cache_defs(cfg: ArchConfig, batch: int, max_len: int):
-    """Defs for one layer's contiguous KV cache (static path)."""
+    """Defs for one layer's contiguous KV cache (static path): a ring
+    buffer of ``min(window, max_len)`` entries for sliding-window
+    families."""
     hd = cfg.head_dim_
+    w = cfg.sliding_window
+    L = min(w, max_len) if w else max_len
     return {
-        "k": ParamDef((batch, max_len, cfg.n_kv_heads, hd),
+        "k": ParamDef((batch, L, cfg.n_kv_heads, hd),
                       ("batch", "seq", "kv_heads", "head_dim"), init="zeros"),
-        "v": ParamDef((batch, max_len, cfg.n_kv_heads, hd),
+        "v": ParamDef((batch, L, cfg.n_kv_heads, hd),
                       ("batch", "seq", "kv_heads", "head_dim"), init="zeros"),
     }
 
@@ -204,22 +268,40 @@ def gather_kv(k_pages, v_pages, tables, k_scale=None, v_scale=None):
                  for x, s in ((k_pages, k_scale), (v_pages, v_scale)))
 
 
-def decode_valid_mask(pos: torch.Tensor, n: int) -> torch.Tensor:
-    """[B, n] validity of a gathered view at one-token decode: absolute
-    causal ``idx <= pos``."""
+def ring_valid(qpos: torch.Tensor, n: int, window: int) -> torch.Tensor:
+    """[..., n] validity of the ``n`` slots of a ring at query positions
+    ``qpos`` [...]: each slot's absolute position is recovered from the
+    ring layout (slot ``qpos % n`` holds ``qpos``) and masked to ``(qpos -
+    window, qpos]``."""
+    idx = torch.arange(n, device=qpos.device)
+    q = qpos.long()[..., None]
+    k_abs = q - ((q % n - idx) % n)
+    return (k_abs >= 0) & (k_abs <= q) & (k_abs > q - window)
+
+
+def decode_valid_mask(pos: torch.Tensor, n: int, *,
+                      window: int = 0) -> torch.Tensor:
+    """[B, n] validity of a gathered view at one-token decode.
+    ``window == 0``: absolute causal ``idx <= pos``.  ``window > 0``: ``n``
+    is the ring length and the ring rule of ``ring_valid`` applies."""
+    if window:
+        return ring_valid(pos, n, window)
     idx = torch.arange(n, device=pos.device)
     return idx[None, :] <= pos[:, None]
 
 
 def verify_valid_mask(pos: torch.Tensor, n_q: torch.Tensor, Q: int,
-                      n: int) -> torch.Tensor:
+                      n: int, *, window: int = 0) -> torch.Tensor:
     """[B, Q, n] validity of a gathered view at a small-q verify step:
-    query j of row b sits at absolute position ``pos[b] + j`` and sees
-    ``idx <= pos[b] + j``; dead query rows (``j >= n_q[b]``) are
-    all-False."""
+    query j of row b sits at absolute position ``pos[b] + j``; its row is
+    ``decode_valid_mask`` at that position (``idx <= pos[b] + j``, or the
+    ring rule with ring length ``n`` for ``window > 0``).  Dead query rows
+    (``j >= n_q[b]``) are all-False."""
     j = torch.arange(Q, device=pos.device)
     qpos = pos[:, None] + j[None, :]                              # [B, Q]
     live = j[None, :] < n_q[:, None]
+    if window:
+        return ring_valid(qpos, n, window) & live[:, :, None]
     idx = torch.arange(n, device=pos.device)
     return (idx[None, None, :] <= qpos[:, :, None]) & live[:, :, None]
 
@@ -302,21 +384,37 @@ def paged_prefill_attention_block(cfg: ArchConfig, p, x, cache, meta, freqs,
     x: [B, T, d] chunk activations; cache: {"k","v": [P, ps, K, D]} one
     layer's pages (written in place; int8 pools also carry ``k_scale`` /
     ``v_scale``); meta: the flat per-step prefill metadata from
-    ``attn_backend.prefill_meta``.  The chunk's K/V are scattered first
-    (quantized on write for int8), then the queries attend the post-write
-    pages with absolute causal masking, so a prefix written by an earlier
-    request (radix-cache hit) or an earlier chunk is read exactly as if
-    this call had prefilled it.  Returns (out [B, T, d], cache)."""
+    ``attn_backend.prefill_meta``.
+
+    Full-attention layers scatter the chunk's K/V first (quantized on write
+    for int8), then the queries attend the post-write pages with absolute
+    causal masking, so a prefix written by an earlier request (radix-cache
+    hit) or an earlier chunk is read exactly as if this call had prefilled
+    it.  Sliding-window layers attend first: the page ring as it stands
+    *before* the chunk's writes plus the chunk's fresh K/V (never
+    quantized), then scatter — writing first would recycle ring slots that
+    still hold in-window keys of the chunk's earliest queries (the JAX
+    package read the pre-write pool from its immutable input instead).
+    Returns (out [B, T, d], cache)."""
     B, T, _ = x.shape
     tables, start = meta["tables"], meta["start"]
     q, k, v = qkv(cfg, p, x)
     positions = start[:, None] + torch.arange(T, device=x.device)[None, :]
     q = apply_rope(q, positions, freqs)
     k = apply_rope(k, positions, freqs)
-    scales = write_pages(cache, meta["write_page"], meta["write_off"], k, v)
-    o = backend.prefill_attend(q, cache["k"], cache["v"], tables, start,
+    window = cfg.sliding_window
+    if window:
+        scales = ({"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+                  if "k_scale" in cache else {})
+    else:
+        scales = write_pages(cache, meta["write_page"], meta["write_off"],
+                             k, v)
+    o = backend.prefill_attend(q, k, v, cache["k"], cache["v"], tables,
+                               start, meta["n_live"],
                                scale=1.0 / math.sqrt(cfg.head_dim_),
-                               q_block=q_block, **scales)
+                               window=window, q_block=q_block, **scales)
+    if window:
+        write_pages(cache, meta["write_page"], meta["write_off"], k, v)
     return out_proj(o, p["wo"]), cache
 
 
@@ -327,13 +425,17 @@ def paged_decode_attention_block(cfg: ArchConfig, p, x, cache, meta, freqs,
     x: [B, d] slot activations; cache: one layer's pages (written in
     place); meta: the flat per-step metadata from
     ``attn_backend.decode_meta``.  The new token's K/V land at their
-    precomputed write target, then the attend reads the pages through
-    ``backend`` with positions > pos masked.  Returns (out [B, d], cache)."""
+    precomputed write target (for sliding-window layers the ring slot
+    ``pos`` mod the ring length, whose previous key has just left the
+    window), then the attend reads the pages through ``backend`` with
+    positions > pos masked (window layers: masked by the absolute position
+    recovered from the ring layout).  Returns (out [B, d], cache)."""
     pos = meta["pos"]
     q, k, v = decode_qkv(cfg, p, x, pos, freqs)
     scales = write_pages(cache, meta["write_page"], meta["write_off"], k, v)
     o = backend.decode_attend(q, cache["k"], cache["v"], meta["tables"], pos,
-                              scale=1.0 / math.sqrt(cfg.head_dim_), **scales)
+                              scale=1.0 / math.sqrt(cfg.head_dim_),
+                              window=cfg.sliding_window, **scales)
     return out_proj(o, p["wo"]), cache
 
 
@@ -346,9 +448,12 @@ def paged_verify_attention_block(cfg: ArchConfig, p, x, cache, meta, freqs,
     ``attn_backend.verify_meta``.  Write-all-then-attend: every query
     token's K/V scatters into its page first (dead rows to the null page),
     then each query attends the post-write pool under the per-query mask
-    ``token_pos <= pos + j`` and ``j < n_q`` — so a rejected draft's K/V is
-    invisible to every query that survives the accept decision and is
-    overwritten in place by the next step's writes at the same positions.
+    ``token_pos <= pos + j`` (the ring rule for sliding-window layers) and
+    ``j < n_q`` — so a rejected draft's K/V is invisible to every query
+    that survives the accept decision and is overwritten in place by the
+    next step's writes at the same positions.  In a ring, the pool's slack
+    page keeps a rejected draft's slot out of every surviving query's
+    window.
     Per token the projections, rope, scatter and attend are the per-row
     ops of the decode block.  Returns (out [B, Q, d], cache)."""
     pos, Q = meta["pos"], x.shape[1]
@@ -359,20 +464,27 @@ def paged_verify_attention_block(cfg: ArchConfig, p, x, cache, meta, freqs,
     scales = write_pages(cache, meta["write_page"], meta["write_off"], k, v)
     o = backend.verify_attend(q, cache["k"], cache["v"], meta["tables"], pos,
                               meta["n_q"],
-                              scale=1.0 / math.sqrt(cfg.head_dim_), **scales)
+                              scale=1.0 / math.sqrt(cfg.head_dim_),
+                              window=cfg.sliding_window, **scales)
     return out_proj(o, p["wo"]), cache
 
 
 def decode_attention_block(cfg: ArchConfig, p, x, cache, pos, freqs):
     """One-token decode step against a contiguous per-request cache.
-    x: [B, d]; pos: [B] absolute positions.  Returns (out [B, d], cache),
-    the cache written in place."""
+    x: [B, d]; pos: [B] absolute positions.  Sliding-window families keep a
+    ring of L = ``min(window, max_len)`` entries, written at ``pos % L``
+    and masked by the ring rule with ring length and window L (entries
+    older than L are overwritten).  Returns (out [B, d], cache), the cache
+    written in place."""
     B = x.shape[0]
     q, k, v = decode_qkv(cfg, p, x, pos, freqs)
+    L = cache["k"].shape[1]
+    ring = L if cfg.sliding_window else 0
+    slot = pos % L if ring else pos
     b = torch.arange(B, device=x.device)
-    cache["k"][b, pos] = k.to(cache["k"].dtype)
-    cache["v"][b, pos] = v.to(cache["v"].dtype)
-    valid = decode_valid_mask(pos, cache["k"].shape[1])
+    cache["k"][b, slot] = k.to(cache["k"].dtype)
+    cache["v"][b, slot] = v.to(cache["v"].dtype)
+    valid = decode_valid_mask(pos, L, window=ring)
     o = masked_token_attend(q, cache["k"], cache["v"], valid,
                             scale=1.0 / math.sqrt(cfg.head_dim_))
     return out_proj(o, p["wo"]), cache

@@ -8,9 +8,10 @@ that read happens is a *backend* choice:
   materializes the logical view, then dense masked attention): the plain
   versions of the kernels, and the parity oracle on every device.
 * ``hopper`` — the kernels written by hand for Hopper:
-  ``kernels.paged_attention`` K1 for decode and K3 for speculative verify,
-  ``kernels.ragged_prefill`` (K2) for chunk prefill.  All walk the page
-  table inside the kernel, so the gather never materializes.
+  ``kernels.paged_attention`` K1 for decode and K3 for speculative verify
+  (each also in its sliding-window ring mode), ``kernels.ragged_prefill``
+  K2 for chunk prefill and K4 for sliding-window chunk prefill.  All walk
+  the page table inside the kernel, so the gather never materializes.
 
 A backend implements the three *attend cores* of the dense decoder
 (``decode_attend``, ``prefill_attend``, ``verify_attend``), each taking
@@ -35,7 +36,9 @@ import torch
 from ..configs.base import ArchConfig
 from ..kernels.paged_attention import (paged_decode, paged_decode_plain,
                                       paged_verify, paged_verify_plain)
-from ..kernels.ragged_prefill import ragged_prefill, ragged_prefill_plain
+from ..kernels.ragged_prefill import (ragged_prefill, ragged_prefill_plain,
+                                      windowed_prefill,
+                                      windowed_prefill_plain)
 from . import attention
 
 # ---------------------------------------------------------------- registry
@@ -84,10 +87,18 @@ def decode_meta(cfg: ArchConfig, page_size: int, tables: np.ndarray,
     """Flat per-step decode metadata, computed once on the host instead of
     re-derived by every layer: the page-table rows, per-row absolute
     positions, and the physical (page, offset) write target of the step's
-    new token.  numpy in, numpy out (int32)."""
+    new token — ring-aware for sliding-window families.  numpy in, numpy
+    out (int32)."""
     B = tables.shape[0]
+    col = pos // page_size
+    if cfg.sliding_window:
+        # ring modulus contract: the ring IS the table width the engine
+        # passes (>= window_pages; the pool may add a slack page for
+        # speculative verify rollback) — write targets and every attend
+        # core's recovered-position mask use the same modulus
+        col = col % tables.shape[1]
     # live rows always have col < table width; the clamp covers idle rows
-    col = np.minimum(pos // page_size, tables.shape[1] - 1)
+    col = np.minimum(col, tables.shape[1] - 1)
     return {"tables": tables, "pos": pos,
             "write_page": tables[np.arange(B), col],
             "write_off": pos % page_size}
@@ -102,13 +113,23 @@ def prefill_meta(cfg: ArchConfig, page_size: int, tables: np.ndarray,
     page-table rows, decode-row indices of the rows, each row's chunk offset
     (``start``, absolute position of the chunk's first token) and live token
     count, and the physical (page, offset) write target of every chunk
-    position — padding positions routed to the reserved null page.  ``T`` is
-    the chunk width (the prefill bucket).  numpy in, numpy out."""
+    position — padding positions, and for sliding-window families the
+    positions that age out of the ring before the chunk ends, routed to the
+    reserved null page.  ``T`` is the chunk width (the prefill bucket).
+    numpy in, numpy out."""
     B = tables.shape[0]
     positions = start[:, None] + np.arange(T)[None, :]            # [B, T]
     n_live = n_tail + cfg.n_image_tokens
     live = np.arange(T)[None, :] < n_live[:, None]
-    col = np.minimum(positions // page_size, tables.shape[1] - 1)
+    col = positions // page_size
+    if cfg.sliding_window:
+        # ring modulus = table width (see decode_meta); a chunk longer than
+        # the ring writes only its last ring-span of positions
+        R = tables.shape[1]
+        live = live & (positions >= (start + n_live)[:, None]
+                       - R * page_size)
+        col = col % R
+    col = np.minimum(col, tables.shape[1] - 1)
     page = tables[np.arange(B)[:, None], col]
     return {"tables": tables, "slots": slots, "start": start,
             "n_tail": n_tail, "n_live": n_live,
@@ -124,17 +145,17 @@ def verify_meta(cfg: ArchConfig, page_size: int, tables: np.ndarray,
 
     Row ``b`` carries ``n_q[b]`` live queries (the last emitted token plus
     its draft) at absolute positions ``pos[b] .. pos[b] + n_q[b] - 1``; the
-    step is padded to the fixed width ``Q = speculate_tokens + 1``.  Dead
+    step is padded to the fixed width ``Q = speculate_tokens + 1``.  Write
+    targets follow the decode ring contract (modulus = table width); dead
     query rows (``j >= n_q[b]``) write to the reserved null page so their
     K/V never lands in an owned page.  numpy in, numpy out."""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: verify over a sliding-window page ring arrives "
-            "with ROADMAP queue 1 item 11")
     B = tables.shape[0]
     positions = pos[:, None] + np.arange(Q)[None, :]             # [B, Q]
     live = np.arange(Q)[None, :] < n_q[:, None]
-    col = np.minimum(positions // page_size, tables.shape[1] - 1)
+    col = positions // page_size
+    if cfg.sliding_window:
+        col = col % tables.shape[1]
+    col = np.minimum(col, tables.shape[1] - 1)
     page = tables[np.arange(B)[:, None], col]
     return {"tables": tables, "pos": pos, "n_q": n_q,
             "write_page": np.where(live, page, 0),
@@ -184,27 +205,36 @@ class AttentionBackend:
     # -------- attend cores (override to fuse)
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
-                      scale: float, k_scale=None, v_scale=None):
+                      scale: float, window: int = 0, k_scale=None,
+                      v_scale=None):
         """q: [B, H, D]; pools [P, ps, K, D]; tables [B, n]; pos [B].
-        Returns [B, H, D]."""
+        ``window > 0``: ``tables`` is a page ring of ``n * ps`` slots and
+        keys are masked by the ring rule.  Returns [B, H, D]."""
         raise NotImplementedError
 
-    def prefill_attend(self, q, k_pages, v_pages, tables, start, *,
-                       scale: float, q_block: int = 512, k_scale=None,
-                       v_scale=None):
-        """Ragged multi-token prefill attend against the *post-write* paged
-        pool: q [B, T, H, D] roped chunk queries at per-row offsets
-        ``start``, scores times ``scale``.  ``q_block`` bounds the plain
-        version's fp32 score memory; a kernel tiles its own queries and
-        ignores it.  Returns [B, T, H, D]."""
+    def prefill_attend(self, q, k, v, k_pages, v_pages, tables, start,
+                       n_live, *, scale: float, window: int = 0,
+                       q_block: int = 512, k_scale=None, v_scale=None):
+        """Ragged multi-token prefill attend: q [B, T, H, D] roped chunk
+        queries at per-row offsets ``start``, ``n_live`` [B] real chunk
+        tokens, scores times ``scale``.  ``window == 0``: the chunk's K/V
+        are already resident — the pools are the *post-write* pool and
+        ``k``/``v`` are unused.  ``window > 0``: the pools are the
+        *pre-write* page ring (``tables`` [B, n_ring]) and ``k``/``v`` [B,
+        T, K, D] carry the chunk's fresh roped K/V at model precision (only
+        resident pages are int8); rows ``t >= n_live`` come out as zeros.
+        ``q_block`` bounds the plain versions' fp32 score memory; a kernel
+        tiles its own queries and ignores it.  Returns [B, T, H, D]."""
         raise NotImplementedError
 
     def verify_attend(self, q, k_pages, v_pages, tables, pos, n_q, *,
-                      scale: float, k_scale=None, v_scale=None):
+                      scale: float, window: int = 0, k_scale=None,
+                      v_scale=None):
         """Small-q verify attend: q [B, Q, H, D] (query j of row b at
         absolute position ``pos[b] + j``) against the *post-write* pool,
-        masked ``token_pos <= pos + j`` and ``j < n_q[b]``; dead query
-        rows return exact zeros on every backend.  Returns [B, Q, H, D]."""
+        masked ``token_pos <= pos + j`` (the ring rule for ``window > 0``)
+        and ``j < n_q[b]``; dead query rows return exact zeros on every
+        backend.  Returns [B, Q, H, D]."""
         raise NotImplementedError
 
 
@@ -216,23 +246,30 @@ class ReferenceBackend(AttentionBackend):
     name = "reference"
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
-                      scale: float, k_scale=None, v_scale=None):
+                      scale: float, window: int = 0, k_scale=None,
+                      v_scale=None):
         return paged_decode_plain(q, k_pages, v_pages, tables, pos,
-                                  scale=scale, k_scale=k_scale,
-                                  v_scale=v_scale)
+                                  scale=scale, window=window,
+                                  k_scale=k_scale, v_scale=v_scale)
 
-    def prefill_attend(self, q, k_pages, v_pages, tables, start, *,
-                       scale: float, q_block: int = 512, k_scale=None,
-                       v_scale=None):
+    def prefill_attend(self, q, k, v, k_pages, v_pages, tables, start,
+                       n_live, *, scale: float, window: int = 0,
+                       q_block: int = 512, k_scale=None, v_scale=None):
+        if window:
+            return windowed_prefill_plain(
+                q, k, v, k_pages, v_pages, tables, start, n_live,
+                window=window, scale=scale, q_block=q_block,
+                k_scale=k_scale, v_scale=v_scale)
         return ragged_prefill_plain(q, k_pages, v_pages, tables, start,
                                     scale=scale, q_block=q_block,
                                     k_scale=k_scale, v_scale=v_scale)
 
     def verify_attend(self, q, k_pages, v_pages, tables, pos, n_q, *,
-                      scale: float, k_scale=None, v_scale=None):
+                      scale: float, window: int = 0, k_scale=None,
+                      v_scale=None):
         return paged_verify_plain(q, k_pages, v_pages, tables, pos, n_q,
-                                  scale=scale, k_scale=k_scale,
-                                  v_scale=v_scale)
+                                  scale=scale, window=window,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
 def _on_card(q: torch.Tensor) -> None:
@@ -244,27 +281,37 @@ def _on_card(q: torch.Tensor) -> None:
 @register_backend
 class HopperBackend(AttentionBackend):
     """The hand-written Hopper kernels: K1 (``paged_decode``) for decode,
-    K2 (``ragged_prefill``) for chunk prefill and K3 (``paged_verify``) for
-    speculative verify, each in its bf16 or int8 mode."""
+    K2 (``ragged_prefill``) for chunk prefill, K3 (``paged_verify``) for
+    speculative verify and K4 (``windowed_prefill``) for sliding-window
+    chunk prefill, each in its bf16 or int8 mode, K1 and K3 also in their
+    ring mode."""
 
     name = "hopper"
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
-                      scale: float, k_scale=None, v_scale=None):
+                      scale: float, window: int = 0, k_scale=None,
+                      v_scale=None):
         _on_card(q)
         return paged_decode(q.contiguous(), k_pages, v_pages, tables, pos,
-                            scale=scale, k_scale=k_scale, v_scale=v_scale)
+                            scale=scale, window=window, k_scale=k_scale,
+                            v_scale=v_scale)
 
-    def prefill_attend(self, q, k_pages, v_pages, tables, start, *,
-                       scale: float, q_block: int = 512, k_scale=None,
-                       v_scale=None):
+    def prefill_attend(self, q, k, v, k_pages, v_pages, tables, start,
+                       n_live, *, scale: float, window: int = 0,
+                       q_block: int = 512, k_scale=None, v_scale=None):
         _on_card(q)
+        if window:
+            return windowed_prefill(
+                q.contiguous(), k.contiguous(), v.contiguous(), k_pages,
+                v_pages, tables, start, n_live, window=window, scale=scale,
+                k_scale=k_scale, v_scale=v_scale)
         return ragged_prefill(q.contiguous(), k_pages, v_pages, tables, start,
                               scale=scale, k_scale=k_scale, v_scale=v_scale)
 
     def verify_attend(self, q, k_pages, v_pages, tables, pos, n_q, *,
-                      scale: float, k_scale=None, v_scale=None):
+                      scale: float, window: int = 0, k_scale=None,
+                      v_scale=None):
         _on_card(q)
         return paged_verify(q.contiguous(), k_pages, v_pages, tables, pos,
-                            n_q, scale=scale, k_scale=k_scale,
+                            n_q, scale=scale, window=window, k_scale=k_scale,
                             v_scale=v_scale)

@@ -14,8 +14,6 @@ _NOT_YET = (
      "enc-dec and vlm families arrive with ROADMAP queue 1 item 14"),
     (lambda c: c.use_mla or c.is_moe,
      "MLA and MoE families arrive with ROADMAP queue 1 item 12"),
-    (lambda c: bool(c.sliding_window),
-     "sliding-window attention arrives with ROADMAP queue 1 item 11"),
     (lambda c: c.family != "dense",
      "only the dense decoder family is ported (ROADMAP queue 1)"),
     (lambda c: bool(c.attn_logit_softcap),

@@ -1,5 +1,6 @@
 """Decoder-only LM, dense family: the port of ``repro.models.transformer
-.DecoderLM`` for ``family="dense"`` with full causal attention.
+.DecoderLM`` for ``family="dense"``, full causal or sliding-window
+attention.
 
 Parameters keep the JAX package's layer-stacked ``[n_layers, ...]`` leaves;
 the ``jax.lax.scan`` over layers becomes a Python loop over layer views of
@@ -86,7 +87,10 @@ class DecoderLM:
     def prefill(self, params, batch, logits_idx=None):
         """Forward the full prompt; returns (logits at ``logits_idx`` (or the
         last position) [B, V], contiguous cache {"blocks", "pos"}).  The
-        cache holds the roped K and the V of every position."""
+        cache holds the roped K and the V of every position; for
+        sliding-window families only the last ``W = min(window, S)``
+        positions, ring-buffered at slots ``t % W`` (the layout the static
+        decode reads)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -95,9 +99,18 @@ class DecoderLM:
         positions = torch.arange(S, device=x.device)[None, :]
         ks, vs = [], []
 
+        W = min(cfg.sliding_window, S) if cfg.sliding_window else S
+        slots = torch.arange(S - W, S, device=x.device) % W
+
         def attend(p, h):
             _, k, v = qkv(cfg, p, h)
-            ks.append(apply_rope(k, positions, freqs))
+            k = apply_rope(k, positions, freqs)
+            if cfg.sliding_window:
+                k = torch.zeros_like(k[:, :W]).index_copy_(1, slots,
+                                                           k[:, S - W:])
+                v = torch.zeros_like(v[:, :W]).index_copy_(1, slots,
+                                                           v[:, S - W:])
+            ks.append(k)
             vs.append(v)
             return full_attention_block(cfg, p, h, freqs,
                                         q_block=cfg.attn_q_block)
@@ -131,7 +144,14 @@ class DecoderLM:
     # -------------------------------------------------------- paged serving
 
     def cache_spec(self) -> CacheFamilySpec:
-        """The decode-cache taxonomy the serving stack schedules against."""
+        """The decode-cache taxonomy the serving stack schedules against: a
+        page ring of O(window) pages for sliding-window families (not
+        prefix-cacheable: ring slots are recycled in place), plain paged
+        KV otherwise."""
+        w = self.cfg.sliding_window
+        if w:
+            return CacheFamilySpec(kinds=(CacheSpec("windowed_kv", window=w),),
+                                   paged=True, window=w)
         return CacheFamilySpec(kinds=(CacheSpec("paged_kv"),), paged=True,
                                prefix_cacheable=True)
 

@@ -10,7 +10,9 @@
 
 plus ``run_offline(prompts)``, the batch driver used by ``launch/serve.py``.
 It is the port of ``repro.serving.engine`` for the paged-KV families the
-port builds: prefill writes straight into the paged pool (``prefill_paged``)
+port builds (full attention, and sliding-window page rings of O(window)
+pages, which the radix cache cannot share): prefill writes straight into
+the paged pool (``prefill_paged``)
 — the whole prompt, or with the radix prefix cache only its uncached tail —
 at a bucketed length, several same-bucket queued requests admitted in one
 batched call; with ``ServeConfig.prefill_chunk_tokens > 0`` long prompts
@@ -175,10 +177,16 @@ class Engine:
         self.tracer = tracer if tracer is not None else Tracer()
         self.pool = PagedKVPool(cfg, self.scfg, metrics=self.metrics,
                                 device=self.device)
-        self.radix = RadixCache(self.pool, self.scfg.page_size,
-                                self.scfg.cache_eviction,
-                                metrics=self.metrics) \
-            if self.scfg.prefix_cache else None
+        if self.scfg.prefix_cache and not self.spec.prefix_cacheable:
+            print(f"[engine] WARNING: prefix cache disabled for {cfg.name}: "
+                  f"cache family {self.spec.describe()} is not "
+                  f"token-addressable/immutable; serving uncached")
+            self.radix = None
+        else:
+            self.radix = RadixCache(self.pool, self.scfg.page_size,
+                                    self.scfg.cache_eviction,
+                                    metrics=self.metrics) \
+                if self.scfg.prefix_cache else None
         self.sched = Scheduler(self.scfg, self.pool, self.radix, None,
                                metrics=self.metrics, tracer=self.tracer)
         self._next_rid = 0
@@ -497,16 +505,20 @@ class Engine:
             n_tail[i] = n_chunk
             tables[i] = self.sched.slots[slot_idx].table
             slots[i] = slot_idx
-        # attend only the pages the batch actually reaches: truncate the
-        # table view to a pow2 page count (bounded shape set) instead of
-        # always paying a max_len-wide gather
+        # token-addressable families attend only the pages the batch
+        # actually reaches: truncate the table view to a pow2 page count
+        # (bounded shape set) instead of always paying a max_len-wide
+        # gather.  A ring keeps its full width: the ring modulus is the
+        # table width (attn_backend.decode_meta)
         ps = self.scfg.page_size
-        need = -(-(int((start + n_tail).max())
-                   + self.pool.spec.prefix_tokens) // ps)
-        W = 1
-        while W < need:
-            W *= 2
-        width = max(min(W, tables.shape[1]), 1)
+        width = tables.shape[1]
+        if not self.cfg.sliding_window:
+            need = -(-(int((start + n_tail).max())
+                       + self.pool.spec.prefix_tokens) // ps)
+            W = 1
+            while W < need:
+                W *= 2
+            width = max(min(W, tables.shape[1]), 1)
         meta = meta_to_device(prefill_meta(
             self.cfg, ps, tables[:, :width], slots, start, n_tail, bucket),
             self.device)
@@ -771,7 +783,9 @@ def generate_static(cfg: ArchConfig, params, prompts: Sequence[Sequence[int]],
                     eos_id: Optional[int] = None) -> Tuple[List[List[int]],
                                                            Dict]:
     """Static-batching reference on the device the params live on:
-    contiguous KV caches, arrival-order batches padded to a shared bucket,
+    contiguous KV caches (a ring of ``min(window, max_len)`` entries for
+    sliding-window families), arrival-order batches padded to a shared
+    bucket (windowed families: to the batch max),
     each batch decoded until its slowest request is done.  ``batch_size=1``
     is the exact single-request greedy baseline the engine's output is
     verified against.  ``eos_id`` defaults to ``scfg.eos_id``."""
@@ -793,7 +807,12 @@ def generate_static(cfg: ArchConfig, params, prompts: Sequence[Sequence[int]],
         B = len(idxs)
         lens = [len(prompts[i]) for i in idxs]
         budget = [min(budgets[i], scfg.max_len - len(prompts[i])) for i in idxs]
-        bucket = scfg.bucket_of(max(lens))
+        # the sliding-window ring is filled from the final prompt positions,
+        # so the prompt end must be the sequence end: windowed families pad
+        # to the batch max instead of a bucket (exact at batch_size=1 or
+        # equal lengths)
+        bucket = max(lens) if cfg.sliding_window \
+            else scfg.bucket_of(max(lens))
         toks = np.zeros((B, bucket), np.int32)
         for r, i in enumerate(idxs):
             toks[r, :lens[r]] = prompts[i]

@@ -14,9 +14,10 @@ in another order; where two sums differ in their last bit a probability can
 round to its other bf16 neighbour, moving the row by up to an ulp of its
 larger terms, so an element that cancels to near 0 is not held to its own
 ulp.  K3 (verify) with one live query per row equals K1 (decode) bit for
-bit, bf16 and int8.  The hopper engine passes the dual gate against the
-reference engine (``serving.parity``, max |dlogit| <= 0.25), with and
-without speculation and int8 pages.
+bit, bf16 and int8, in ring mode too.  The hopper engine passes the dual
+gate against the reference engine (``serving.parity``, max |dlogit| <=
+0.25), with and without speculation and int8 pages, dense and
+sliding-window.
 """
 import numpy as np
 import pytest
@@ -27,7 +28,8 @@ from repro_torch.configs import ServeConfig, get_arch, reduced  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode, paged_decode_plain, paged_verify, paged_verify_plain)
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
-    ragged_prefill, ragged_prefill_plain)
+    ragged_prefill, ragged_prefill_plain, windowed_prefill,
+    windowed_prefill_plain)
 from repro_torch.models.attention import quantize_int8  # noqa: E402
 from repro_torch.models.registry import init_params  # noqa: E402
 from repro_torch.serving import Engine, dual_gate, replay_logits  # noqa: E402
@@ -236,6 +238,125 @@ def test_speculative_hopper_engine_passes_the_dual_gate(cuda, kv_dtype):
         res, m = eng.run_offline(prompts, 16)
         assert paged_verify.launches > n0 and paged_decode.launches == d0
         assert m["spec_proposed"] > 0
+        tokens = [r.tokens for r in res]
+        ref = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
+                             attn_backend="reference")
+               for p, tk in zip(prompts, tokens)]
+        test = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
+                              attn_backend="hopper")
+                for p, tk in zip(prompts, tokens)]
+    rep = dual_gate(ref, test, tokens, tol=0.25)
+    assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}
+
+
+def _ring_inputs(rng, B, n_ring, ps, K, D, device):
+    """Random pages and B disjoint rings of ``n_ring`` shuffled pages."""
+    P = B * n_ring + 1
+    tables = (rng.permutation(P - 1) + 1).reshape(B, n_ring).astype(np.int32)
+    k = torch.from_numpy(rng.randn(P, ps, K, D).astype(np.float32))
+    v = torch.from_numpy(rng.randn(P, ps, K, D).astype(np.float32))
+    return (k.bfloat16().to(device), v.bfloat16().to(device),
+            torch.from_numpy(tables).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D,slack", [(9, 128, 0), (9, 128, 1), (2, 32, 1)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_ring_kernels_match_plain(cuda, G, D, slack, int8):
+    """K1 and K3 in ring mode (window 64 over a ring of window_pages(64,
+    16) pages, plus a slack page) against their plain versions, and K3
+    with one live query per row against K1 bit for bit."""
+    rng = np.random.RandomState(G + D + slack)
+    ps, K, window, Q = 16, 4, 64, 5
+    n_ring = 5 + slack
+    ring = n_ring * ps
+    k, v, t = _ring_inputs(rng, 4, n_ring, ps, K, D, cuda)
+    kw = dict(scale=D ** -0.5, window=window)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+    pos = torch.tensor([5, ring - 1, ring + 37, 3 * ring + 100],
+                       dtype=torch.int32, device=cuda)
+    q = torch.from_numpy(rng.randn(4, K * G, D).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    n0 = paged_decode.launches
+    got = paged_decode(q, k, v, t, pos, **kw)
+    assert paged_decode.launches == n0 + 1
+    assert _within_one_ulp(got, paged_decode_plain(q, k, v, t, pos, **kw))
+    if Q * G > 48:
+        return
+    qv = torch.from_numpy(rng.randn(4, Q, K * G, D).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    n_q = torch.tensor([1, 3, 5, 2], dtype=torch.int32, device=cuda)
+    got = paged_verify(qv, k, v, t, pos, n_q, **kw)
+    assert _within_one_ulp(got, paged_verify_plain(qv, k, v, t, pos, n_q,
+                                                   **kw))
+    one = paged_verify(qv, k, v, t, pos, torch.ones_like(n_q), **kw)
+    dec = paged_decode(qv[:, 0].contiguous(), k, v, t, pos, **kw)
+    assert torch.equal(one[:, 0], dec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D", [(9, 128), (2, 32)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_windowed_prefill_kernel_matches_plain(cuda, G, D, int8):
+    """K4 against its plain version: chunks at start 0 (empty ring), inside
+    the first window, past a ring wrap, and one with padding rows."""
+    rng = np.random.RandomState(G * D + int8)
+    ps, K, window, T = 16, 4, 64, 48
+    n_ring = 6
+    k, v, t = _ring_inputs(rng, 4, n_ring, ps, K, D, cuda)
+    kw = dict(scale=D ** -0.5, window=window)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)) \
+            .bfloat16().to(cuda)
+    q, kn, vn = rand(4, T, K * G, D), rand(4, T, K, D), rand(4, T, K, D)
+    st = torch.tensor([0, 32, 208, 400], dtype=torch.int32, device=cuda)
+    nl = torch.tensor([T, T, 21, T], dtype=torch.int32, device=cuda)
+    n0 = windowed_prefill.launches
+    got = windowed_prefill(q, kn, vn, k, v, t, st, nl, **kw)
+    want = windowed_prefill_plain(q, kn, vn, k, v, t, st, nl, **kw)
+    assert windowed_prefill.launches == n0 + 1
+    assert _within_one_ulp(got, want)
+    assert (got[2, 21:] == 0).all() and (want[2, 21:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_verify_refuses_more_rows_than_a_block_holds(cuda):
+    """command-r-plus-104b's G = 12 at Q = 5 is 60 rows > 48: K3 raises."""
+    rng = np.random.RandomState(3)
+    k, v, t = _ring_inputs(rng, 1, 5, 16, 1, 128, cuda)
+    q = torch.zeros(1, 5, 12, 128, dtype=torch.bfloat16, device=cuda)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        paged_verify(q, k, v, t, pos, pos + 5, scale=0.1, window=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype,spec", [("bf16", 0), ("bf16", 4),
+                                           ("int8", 0)])
+def test_windowed_hopper_engine_passes_the_dual_gate(cuda, kv_dtype, spec):
+    """Reduced starcoder2-7b (window 32, head dim 128, G = 9) on the hopper
+    backend: K4 for every prefill chunk, K1 or K3 in ring mode for every
+    decode step, held to the reference replay by the dual gate."""
+    cfg = reduced(get_arch("starcoder2-7b"), n_heads=36, n_kv_heads=4,
+                  head_dim=128, d_model=512)
+    params = init_params(cfg, 0, cuda)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist()
+               for n in (20, 75, 41)]
+    kw = dict(page_size=16, max_slots=3, max_len=112, kv_dtype=kv_dtype,
+              prefill_chunk_tokens=32, speculate_tokens=spec)
+    with torch.no_grad():
+        n0 = windowed_prefill.launches
+        d0, v0 = paged_decode.launches, paged_verify.launches
+        res, _ = Engine(cfg, ServeConfig(attn_backend="hopper", **kw), params,
+                        device=cuda).run_offline(prompts, 24)
+        assert windowed_prefill.launches > n0
+        assert (paged_verify.launches > v0) if spec \
+            else (paged_decode.launches > d0)
         tokens = [r.tokens for r in res]
         ref = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
                              attn_backend="reference")

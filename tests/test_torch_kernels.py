@@ -25,7 +25,7 @@ from repro.kernels.ragged_prefill.kernel import ragged_prefill_fwd  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode, paged_decode_plain, paged_verify)
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
-    ragged_prefill, ragged_prefill_plain)
+    ragged_prefill, ragged_prefill_plain, windowed_prefill)
 
 
 def _bf16(a):
@@ -141,8 +141,7 @@ def test_wrappers_run_the_plain_version_on_cpu():
     assert (paged_decode.launches, ragged_prefill.launches) == (n0, m0)
 
 
-@pytest.mark.parametrize("mode,item", [
-    (dict(window=32), "item 11"), (dict(softcap=30.0), "softcap")])
+@pytest.mark.parametrize("mode,item", [(dict(softcap=30.0), "softcap")])
 def test_unported_kernel_modes_refuse(mode, item):
     rng = np.random.RandomState(8)
     (_, kt), (_, vt), tables = _pool_and_tables(rng, [20], 8, 2, 32, 3)
@@ -159,3 +158,9 @@ def test_unported_kernel_modes_refuse(mode, item):
         paged_verify(_bf16(rng.randn(1, 3, 4, 32))[1], kt, vt, t, pos - 2,
                      torch.tensor([3], dtype=torch.int32), scale=0.2,
                      **mode)
+    kn = _bf16(rng.randn(1, 8, 2, 32))[1]
+    with pytest.raises(NotImplementedError, match=item):
+        windowed_prefill(_bf16(rng.randn(1, 8, 4, 32))[1], kn, kn, kt, vt, t,
+                         torch.tensor([0], dtype=torch.int32),
+                         torch.tensor([8], dtype=torch.int32), window=16,
+                         scale=0.2, **mode)

@@ -6,8 +6,8 @@
    are: each element within one bf16 ulp of the largest magnitude in its
    row, never below 2^-14; dead query rows are exact zeros on both sides.
    With one query it is the decode core.
-2. *Verify metadata* — write targets, dead rows to the null page, and the
-   ring (sliding window) refused until ROADMAP queue 1 item 11.
+2. *Verify metadata* — write targets, dead rows to the null page, and
+   ring (sliding window) write targets wrapping modulo the table width.
 3. *Model step* — ``DecoderLM.verify_paged`` against the JAX model's, with
    the same numpy-seeded parameters: dual gate (max |dlogit| <= 0.25) and
    exact greedy tokens, which hold at this size; and row j of the verify
@@ -181,11 +181,20 @@ def test_verify_meta_write_targets_and_dead_rows(setup):
 
 
 def test_verify_meta_ring_waits_for_the_window_slice(setup):
+    """The window slice has landed: a ring's verify writes wrap modulo the
+    table width (positions 7 and 8 of a 2-page ring of 4-token pages land
+    in its second page, then back in its first), as the JAX meta does."""
     _, tcfg, _, _ = setup
     cfg = dataclasses.replace(tcfg, sliding_window=8)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        verify_meta(cfg, 4, np.asarray([[11, 13]], np.int32),
-                    np.asarray([7], np.int32), np.asarray([2], np.int32), 2)
+    args = (4, np.asarray([[11, 13]], np.int32), np.asarray([7], np.int32),
+            np.asarray([2], np.int32), 2)
+    meta = verify_meta(cfg, *args)
+    np.testing.assert_array_equal(meta["write_page"], [[13, 11]])
+    np.testing.assert_array_equal(meta["write_off"], [[3, 0]])
+    jmeta = j_verify_meta(dataclasses.replace(reduced(get_arch("qwen2-0.5b")),
+                                              sliding_window=8), *args)
+    for k in meta:
+        np.testing.assert_array_equal(meta[k], np.asarray(jmeta[k]))
 
 
 # --------------------------------------------------------------- model step
