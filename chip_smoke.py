@@ -43,16 +43,45 @@ Phases, each printing its own lines; any failed check exits non-zero:
    tokens); K1 in ring mode at positions up to 6100; K3 in ring mode with
    Q=5 and live queries 1..5, and at one live query against K1-ring bit
    for bit;
-10. the slice's main path: full-width, full-depth starcoder2-7b (32 layers,
-   random weights from ``--seed``) on the hopper backend, 4 requests of
+10. the sliding-window path: full-width starcoder2-7b, its depth cut to 16
+   of 32 layers to keep the run near ten minutes (random weights from
+   ``--seed``) on the hopper backend, 4 requests of
    1024, 3072, 4608 and 6144 prompt tokens, 256-token chunks, 32 new
    tokens, prefix cache requested (and refused: a page ring is not
    cacheable): bf16 (K4 and K1-ring, counted), K = 4 n-gram speculation
    (K3-ring), int8 pages and int8 with speculation, each held to the
    reference replay along its own tokens by the dual gate and counted
-   against the bf16 run.
+   against the bf16 run;
+11. K2 at head dim 128 (minitron-4b: 8 KV x 3 query heads of 128, the 8
+   chunks of phase 3), bf16 and int8; K3 in ring mode at command-r-plus-104b
+   shapes (8 KV x 12 query heads of 128: Q=5 is 60 rows per (request, KV
+   head), split over two blocks), B=4 at positions up to 6000, bf16 and
+   int8, and at one live query against K1-ring bit for bit; K8 (the RBM's
+   fused GEMM + sigmoid) at every layer's positive, negative and
+   forward-propagation shapes of mnist-dbn, fp32 within 1e-5, and layer
+   0's positive phase in bf16;
+12. full-width, full-depth minitron-4b (32 layers) served as phase 6 serves
+   qwen2-0.5b (K2 at D=128 for every prefill chunk), bf16 and int8, each
+   held to the dual gate;
+13. command-r-plus-104b at full width, its depth cut to 4 of 64 layers
+   (full depth is ~210 GB): phase 10's four runs, the speculative ones
+   through K3's 60-row ring mode; gate 1 of its dual gates holds each
+   token's logits within 2 bf16 ulps of that row's largest |logit| (its
+   random logits lie near 32 to 64, where one ulp is 0.25);
+14. the paper's path: full-width mnist-dbn (784-1000-500-250-30) on 60000
+   synthetic digits, one CD-1 epoch per RBM (batch 100) through K8 (3
+   launches a CD step, 1 a layer's forward-propagation job), one epoch of
+   autoencoder and one of classifier fine-tuning (the reconstruction error
+   must fall, the test error beat chance), the CD samples that flip
+   between K8 and its plain version, and a fine-tuning step through
+   ``core.mapreduce`` over NCCL at world size 1 equal to the plain step
+   bit for bit.
 
-Each kernel is held to its plain version, element by element, within one
+In phases 7, 10 and 13 a verify step's rows must equal decode steps at
+``pos + j`` bit for bit.
+
+Each attention kernel, and K8 in bf16, is held to its plain version,
+element by element, within one
 bf16 ulp of the largest magnitude in the element's row (one head of one
 token, head-dim values), never below 2^-14.  Both take fp32 scores and sums
 of the same bf16 operands in another order; where two such sums differ in
@@ -63,9 +92,11 @@ flushed before every launch (in serving, the other 23 layers' weights and
 pages pass through L2 between two calls of one layer).  ``bound_ms`` is the
 larger of the bytes the function must move over 3.35 TB/s and its
 operations over 989 TFLOP/s (H100 SXM bf16 dense), counted for this run's
-inputs.  ``library_ms`` times ``scaled_dot_product_attention`` on the
+inputs (K8 in fp32: over 67 TFLOP/s, the H100's fp32 rate without tensor
+cores).  ``library_ms`` times ``scaled_dot_product_attention`` on the
 gathered K/V (dequantized to bf16 for int8 pools; with the verify mask
-for K3) as a yardstick; the port never calls it.
+for K3), and ``sigmoid(addmm)`` for K8, as a yardstick; the port never
+calls either.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -90,7 +121,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense, NVIDIA data sheet
 L2_FLUSH_BYTES = 64 << 20      # > the H100's 50 MB L2
+FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 without tensor cores
 LOGIT_TOL = 0.25               # dual-gate bound on max |dlogit|
+LOGIT_ROW_ULPS = 2.0           # command-r's bound, in bf16 ulps of the row
+K8_TOL = 1e-5                  # K8 vs plain in fp32 (another sum order)
+CLASSIFIER_LR = 1.0            # examples/quickstart.py's fine-tuning rate
 ULP_FLOOR = 2.0 ** -14         # least kernel-vs-plain bound (ulp at ~0.01)
 
 # the main path's workload: 8 requests of 128..1024 prompt tokens sharing a
@@ -247,14 +282,17 @@ def phase_decode(torch, rng, timer, int8=False):
             "library_ms": library_ms}
 
 
-def phase_prefill(torch, rng, timer, int8=False):
-    """K2 against its plain version at full-width qwen2 chunk shapes;
-    ``int8``: its int8 mode, on the pool quantized by ``quantize_int8``."""
+def phase_prefill(torch, rng, timer, int8=False, K=2, G=7, D=64,
+                  label="K2"):
+    """K2 against its plain version at full-width chunk shapes: qwen2's 2
+    KV x 7 query heads of 64 by default, minitron-4b's 8 x 3 of 128 with
+    ``K=8, G=3, D=128``; ``int8``: its int8 mode, on the pool quantized by
+    ``quantize_int8``."""
     from repro_torch.kernels.ragged_prefill import (ragged_prefill,
                                                     ragged_prefill_plain)
     from repro_torch.models.attention import gather_kv
-    B, K, G, D, ps, T, width = 8, 2, 7, 64, 16, 256, 128
-    H, name = K * G, "K2-int8" if int8 else "K2"
+    B, ps, T, width = 8, 16, 256, 128
+    H, name = K * G, label + ("-int8" if int8 else "")
     kw = dict(scale=1.0 / math.sqrt(D))
     starts = [256 * i for i in range(B)]
     k, v, tables = paged_pool(torch, rng, [s + T for s in starts], K, D, ps,
@@ -450,14 +488,27 @@ def phase_windowed_prefill(torch, rng, timer, int8=False):
             "library_ms": library_ms}
 
 
-def phase_ring(torch, rng, timer, int8=False):
+# starcoder2-7b's ring cases: K1 at B=4 over 257-page rings at positions 15
+# (ring not yet full), 4111 (its last slot), 4600 and 6100 (wrapped); K3 at
+# B=5 over 258-page rings (the slack page), Q=5, live queries 1..5 at
+# positions up to 6100.  (kernel id, B, slack pages, positions, live
+# queries)
+SC_RING_CASES = (("K1-ring", 4, 0, [15, 4111, 4600, 6100], None),
+                 ("K3-ring", 5, 1, [6100, 15, 4120, 4600, 5000],
+                  [1, 2, 3, 4, 5]))
+# command-r-plus-104b's: K3 at B=4, Q=5 over 258-page rings, 8 KV x 12
+# query heads of 128 -- 60 rows per (request, KV head), two blocks
+CR_K, CR_G = 8, 12
+CR_RING_CASES = (("K3-ring", 4, 1, [6000, 15, 4120, 5000], [5, 1, 3, 5]),)
+
+
+def phase_ring(torch, rng, timer, int8=False, K=SC_K, G=SC_G,
+               cases=SC_RING_CASES, label=""):
     """K1 and K3 in ring mode against their plain versions at full-width
-    starcoder2-7b shapes.  K1: B=4 over 257-page rings at positions 15
-    (ring not yet full), 4111 (its last slot), 4600 and 6100 (wrapped).
-    K3: B=5 over 258-page rings (the slack page), Q=5, live queries 1..5
-    at positions up to 6100; and K3 with one live query per row against K1
-    on the same ring bit for bit.  Returns (K1-ring numbers, K3-ring
-    numbers)."""
+    shapes (starcoder2-7b's by default; ``cases`` as ``SC_RING_CASES``),
+    and K3 with one live query per row against K1 on the same ring bit
+    for bit.  Returns {kernel id: numbers}; ``label`` is added to the
+    printed names."""
     from repro_torch.kernels.paged_attention import (paged_decode,
                                                      paged_decode_plain,
                                                      paged_verify,
@@ -465,14 +516,12 @@ def phase_ring(torch, rng, timer, int8=False):
     from repro_torch.models.attention import (decode_valid_mask, gather_kv,
                                               verify_valid_mask)
     from repro_torch.models.cache_spec import window_pages
-    K, G, D, ps, window = SC_K, SC_G, SC_D, PAGE, SC_WINDOW
+    D, ps, window = SC_D, PAGE, SC_WINDOW
     H, sfx = K * G, "-int8" if int8 else ""
     scale = 1.0 / math.sqrt(D)
     out = {}
-    for kid, B, slack, pos in (
-            ("K1-ring", 4, 0, [15, 4111, 4600, 6100]),
-            ("K3-ring", 5, 1, [6100, 15, 4120, 4600, 5000])):
-        name = kid + sfx
+    for kid, B, slack, pos, live_q in cases:
+        name = kid + label + sfx
         n_ring = window_pages(window, ps) + slack
         n = n_ring * ps
         k, v, tables = ring_pool(torch, rng, B, n_ring, K, D, ps)
@@ -497,7 +546,7 @@ def phase_ring(torch, rng, timer, int8=False):
             Q = 5
             q = torch.randn((B, Q, H, D), generator=gen,
                             device="cuda").bfloat16()
-            n_q = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+            n_q = torch.tensor(live_q, dtype=torch.int32, device="cuda")
             args = (q, k, v, tables, pos_t, n_q)
             fn, plain = paged_verify, paged_verify_plain
             seen = verify_valid_mask(pos_t, n_q, Q, n, window=window)
@@ -523,11 +572,11 @@ def phase_ring(torch, rng, timer, int8=False):
             torch.cuda.synchronize()
             res["n_q1_bit_equal_k1"] = bool(torch.equal(one, dec))
             print(f"[smoke] {name} with one live query per row vs "
-                  f"K1-ring{sfx} on the same ring: bit for bit "
+                  f"K1-ring{label}{sfx} on the same ring: bit for bit "
                   f"{'equal -> OK' if res['n_q1_bit_equal_k1'] else 'DIFFER'}",
                   flush=True)
             if not res["n_q1_bit_equal_k1"]:
-                fail(f"{name} at n_q = 1 differs from K1-ring{sfx}")
+                fail(f"{name} at n_q = 1 differs from K1-ring{label}{sfx}")
         ms = timer(lambda: fn(*args, **kw))
         plain_ms = timer(lambda: plain(*args, **kw))
         library_ms = sdpa_ms(torch, timer, q4, kg.bfloat16(), vg.bfloat16(),
@@ -542,7 +591,7 @@ def phase_ring(torch, rng, timer, int8=False):
         res.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=library_ms)
         out[kid] = res
-    return out["K1-ring"], out["K3-ring"]
+    return out
 
 
 def serving_workload(rng, vocab):
@@ -558,9 +607,10 @@ def serve_kwargs():
                 prefix_cache=True, prefill_chunk_tokens=CHUNK)
 
 
-def phase_serve(torch, cfg, seed):
+def phase_serve(torch, cfg, seed, profile=True):
     """Serve ``cfg`` on the hopper backend, then on the reference backend,
-    and hold them to each other.  Returns (launch counts of the hopper run,
+    and hold them to each other (``profile``: with a profiled rerun of the
+    hopper requests between).  Returns (launch counts of the hopper run,
     dual-gate report, params, prompts, hopper tokens, replay cache)."""
     from repro_torch.configs import ServeConfig
     from repro_torch.kernels.paged_attention import paged_decode
@@ -610,9 +660,12 @@ def phase_serve(torch, cfg, seed):
         if counts["K2"] != m["prefill_steps"] * cfg.n_layers:
             fail(f"K2 launches {counts['K2']} != prefill steps "
                  f"{m['prefill_steps']} x {cfg.n_layers} layers")
-        profile_rerun(torch, eng, prompts)
+        if profile:
+            profile_rerun(torch, eng, prompts)
+        del eng
         ref = Engine(cfg, ref_scfg, params, seed=seed, device=device)
         ref_results, rm = ref.run_offline(prompts, GEN_TOKENS)
+        del ref
         ref_tokens = [r.tokens for r in ref_results]
         print(f"[smoke] reference serve: {rm['tokens_per_s']:.1f} tok/s, "
               f"decode step p50 {rm['decode_step_ms_p50']:.3f} ms",
@@ -709,8 +762,12 @@ def serve_run(torch, cfg, params, prompts, label, proposer=None, base=None,
 
 
 def gate_line(label, rep):
-    print(f"[smoke] {label}: max |dlogit| {rep['max_logit_err']:.5f} (tol "
-          f"{rep['tol']}), {rep['greedy_equal_tokens']}/{rep['n_tokens']} "
+    ulps = rep["max_logit_err_row_ulps"]
+    tol = f"{ulps:.3f} row ulps (tol {rep['tol_row_ulps']} row ulps)" \
+        if rep["tol_row_ulps"] is not None \
+        else f"{ulps:.3f} row ulps (tol {rep['tol']})"
+    print(f"[smoke] {label}: max |dlogit| {rep['max_logit_err']:.5f} = "
+          f"{tol}, {rep['greedy_equal_tokens']}/{rep['n_tokens']} "
           f"tokens equal the reference replay's greedy token, "
           f"{rep['high_margin_mismatches']} mismatches over "
           f"{rep['high_margin_tokens']} high-margin tokens -> "
@@ -746,8 +803,9 @@ def spec_report(label, m, counts, tokens, base_tokens, n_layers):
     emitted = m["new_tokens"] - m["n_requests"]    # first tokens: prefill
     # each row of a verify step emits its accepted drafts plus one token
     per_row = emitted / max(emitted - m["spec_accepted"], 1)
-    same = sum(a == b for t, u in zip(tokens, base_tokens)
-               for a, b in zip(t, u))
+    per_request = [sum(a == b for a, b in zip(t, u))
+                   for t, u in zip(tokens, base_tokens)]
+    same = sum(per_request)
     print(f"[smoke] {label}: {m['spec_proposed']} drafts proposed, "
           f"{m['spec_accepted']} accepted (accept rate "
           f"{m['spec_accept_rate']:.3f}), {per_row:.3f} tokens per row and "
@@ -755,7 +813,8 @@ def spec_report(label, m, counts, tokens, base_tokens, n_layers):
           f"steps, "
           f"{m['tokens_per_s']:.1f} tok/s, step p50 "
           f"{m['decode_step_ms_p50']:.3f} ms, {same}/{m['new_tokens']} tokens "
-          f"equal the non-speculative hopper run; launches K1 "
+          f"equal the non-speculative hopper run (per request "
+          f"{per_request}); launches K1 "
           f"{counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}, K4 "
           f"{counts['K4']}",
           flush=True)
@@ -768,16 +827,18 @@ def spec_report(label, m, counts, tokens, base_tokens, n_layers):
             "tokens_per_verify_step": emitted / max(steps, 1),
             "verify_steps": steps, "tokens_per_s": m["tokens_per_s"],
             "step_ms_p50": m["decode_step_ms_p50"],
-            "tokens_equal_non_speculative": same}
+            "tokens_equal_non_speculative": same,
+            "tokens_equal_per_request": per_request}
 
 
 def verify_rows(torch, cfg, params, prompts, tokens, Q=5, base=None):
     """Row j of a verify step against the decode step at pos + j, on the
     hopper backend at full width: all requests prefilled into one pool,
     one verify step over each request's first Q generated tokens, then Q
-    decode steps fed the same tokens.  Counted, not gated: the verify
-    GEMMs run at M = B*Q rows where decode runs M = B, and a library GEMM
-    may round a row differently at another M."""
+    decode steps fed the same tokens.  The verify step runs every dense op
+    on each query token's [B, d] slice, the decode step's GEMM shape, and
+    K3's row j runs K1's instruction sequence at pos + j, so every row must
+    be bit for bit equal (the JAX package's contract)."""
     from repro_torch.configs import ServeConfig
     from repro_torch.models.attn_backend import (decode_meta, meta_to_device,
                                                  prefill_meta, verify_meta)
@@ -820,6 +881,9 @@ def verify_rows(torch, cfg, params, prompts, tokens, Q=5, base=None):
           f"bit equal, "
           f"{same_argmax}/{B * Q} equal argmax, max |dlogit| {err:.5f}",
           flush=True)
+    if equal_rows != B * Q:
+        fail(f"{cfg.name}: {B * Q - equal_rows} verify rows differ from the "
+             "decode step at pos + j")
     return {"rows": B * Q, "bit_equal_rows": equal_rows,
             "equal_argmax": same_argmax, "max_logit_err": err}
 
@@ -858,16 +922,18 @@ def phase_speculate(torch, cfg, params, prompts, base_tokens, base_m,
     return k3, out
 
 
-def phase_int8_serve(torch, cfg, params, prompts, replay):
-    """int8 pages on hopper, without and with speculation (K = 4).  Each run
-    is held to the dual gate against the int8 reference replay along its
-    tokens; its quantization error is the bf16 reference replay's distance
-    from the int8 one.  Returns (launch counts {K1-int8, K2-int8,
-    K3-int8}, report)."""
+def phase_int8_serve(torch, cfg, params, prompts, replay, spec=(0, 4)):
+    """int8 pages on hopper, without and with speculation (K = 4; ``spec``
+    the draft lengths to run).  Each run is held to the dual gate against
+    the int8 reference replay along its tokens; its quantization error is
+    the bf16 reference replay's distance from the int8 one.  Returns
+    (launch counts {K1-int8, K2-int8, K3-int8}, report)."""
     from repro_torch.serving import dual_gate
     counts, out, base = {"K2-int8": 0}, {}, None
     with torch.no_grad():
         for label, k in (("int8", 0), ("int8 speculative", 4)):
+            if k not in spec:
+                continue
             tokens, m, c, eng = serve_run(torch, cfg, params, prompts, label,
                                           kv_dtype="int8", speculate_tokens=k)
             bpt = eng.pool.kv_bytes_per_token
@@ -921,22 +987,29 @@ def window_serve_kwargs():
                 prefix_cache=True, prefill_chunk_tokens=CHUNK)
 
 
-def phase_window_serve(torch, seed):
-    """The slice's main path: full-width, full-depth starcoder2-7b (random
-    weights from ``seed``) served on the hopper backend, bf16 (K4 for every
-    prefill chunk, K1 in ring mode for every decode step), then with K = 4
-    n-gram speculation (K3 in ring mode), then int8 pages without and with
+def phase_window_serve(torch, seed, arch="starcoder2-7b", n_layers=None,
+                       why="", profile=True, tol_row_ulps=None):
+    """A sliding-window path at full width (random weights from ``seed``):
+    ``arch`` at full depth, or cut to ``n_layers`` layers for the reason
+    ``why``; served on the hopper backend, bf16 (K4 for every prefill
+    chunk, K1 in ring mode for every decode step), then with K = 4 n-gram
+    speculation (K3 in ring mode), then int8 pages without and with
     speculation.  Every run is held to the reference replay along its own
-    tokens by the dual gate, and counts its agreement with the bf16
+    tokens by the dual gate (gate 1 in row ulps where ``tol_row_ulps`` is
+    given), and counts its agreement with the bf16
     non-speculative run (a speculative run also with the non-speculative
     run of its pool dtype); then a verify step's rows are compared with
-    decode steps at ``pos + j``.  Returns (launch counts {K4, K1-ring, K3-ring,
-    K4-int8, K1-ring-int8, K3-ring-int8}, report)."""
+    decode steps at ``pos + j``.  Returns (launch counts {K4, K1-ring,
+    K3-ring, K4-int8, K1-ring-int8, K3-ring-int8}, report)."""
+    import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.models.params import tree_leaves
     from repro_torch.models.registry import init_params
     from repro_torch.serving import dual_gate
-    cfg = get_arch("starcoder2-7b")
+    cfg = get_arch(arch)
+    depth = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     L = cfg.n_layers
     rng = np.random.RandomState(seed + 1)
     prompts = [rng.randint(1, cfg.vocab, size=n).tolist() for n in SC_PROMPTS]
@@ -947,11 +1020,12 @@ def phase_window_serve(torch, seed):
         params = init_params(cfg, seed, "cuda")
         torch.cuda.synchronize()
         n_params = sum(leaf.numel() for _, leaf in tree_leaves(params))
+        cut = f" (depth cut from {depth}: {why})" if L != depth else ""
         print(f"[smoke] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
-              f"{L} layers, d_model {cfg.d_model}, {cfg.n_heads} query / "
-              f"{cfg.n_kv_heads} KV heads of {cfg.head_dim_}, window "
-              f"{cfg.sliding_window}, drawn on cuda in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{L} layers{cut}, d_model {cfg.d_model}, {cfg.n_heads} query "
+              f"/ {cfg.n_kv_heads} KV heads of {cfg.head_dim_}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab}, window {cfg.sliding_window}, "
+              f"drawn on cuda in {time.perf_counter() - t0:.1f} s", flush=True)
         replay = Replays(cfg, params, prompts, {}, base=base)
         base_tokens, plain_tokens = None, {}
         for label, kv, k in (("bf16", "bf16", 0),
@@ -987,7 +1061,8 @@ def phase_window_serve(torch, seed):
                 plain_tokens[kv] = tokens
             if base_tokens is None:
                 base_tokens = tokens
-                profile_rerun(torch, eng, prompts[:2])
+                if profile:
+                    profile_rerun(torch, eng, prompts[:2])
             del eng
             same = sum(a == b for t, u in zip(tokens, base_tokens)
                        for a, b in zip(t, u))
@@ -1001,10 +1076,11 @@ def phase_window_serve(torch, seed):
                   f"bf16 non-speculative run", flush=True)
             ref = replay("reference", kv, tokens)
             rep = dual_gate(ref, replay("hopper", kv, tokens), tokens,
-                            tol=LOGIT_TOL)
+                            tol=LOGIT_TOL, tol_row_ulps=tol_row_ulps)
             gate_line(f"dual gate of the {cfg.name} {label} run against the "
                       f"{kv} reference replay", rep)
             res.update(max_logit_err=rep["max_logit_err"],
+                       max_logit_err_row_ulps=rep["max_logit_err_row_ulps"],
                        greedy_equal_tokens=rep["greedy_equal_tokens"],
                        high_margin_tokens=rep["high_margin_tokens"],
                        tokens_equal_bf16_run=same, kv_bytes_per_token=bpt,
@@ -1015,10 +1091,13 @@ def phase_window_serve(torch, seed):
                                   tokens, tol=LOGIT_TOL)
                 print(f"[smoke] {cfg.name} {label} quantization error: int8 "
                       f"vs bf16 reference replay, max |dlogit| "
-                      f"{quant['max_logit_err']:.5f}, "
+                      f"{quant['max_logit_err']:.5f} = "
+                      f"{quant['max_logit_err_row_ulps']:.3f} row ulps, "
                       f"{quant['greedy_equal_tokens']}/{quant['n_tokens']} "
                       f"tokens equal the bf16 greedy token", flush=True)
                 res["quant_max_logit_err"] = quant["max_logit_err"]
+                res["quant_max_logit_err_row_ulps"] = \
+                    quant["max_logit_err_row_ulps"]
             out[label] = res
         # where the speculative stream parts from the plain one: a verify
         # step's rows against decode steps at pos + j, on 2048-token
@@ -1029,51 +1108,344 @@ def phase_window_serve(torch, seed):
     return counts, out
 
 
-def profile_rerun(torch, eng, prompts, n_new=8):
-    """Where the time goes: rerun the requests (prefixes now cached) for
-    ``n_new`` tokens under ``torch.profiler`` and print the device's busy
-    share of the wall time and its top kernels by self device time.  Only
-    the profiler's own start may fail (tracing refused): that prints "not
-    measured"; a failure of the engine run propagates."""
+def phase_gemm_sigmoid(torch, timer, seed):
+    """K8 against its plain version at every layer of full-width mnist-dbn
+    (784-1000-500-250-30): the positive phase [100, n_vis] x W, the
+    negative phase [100, n_hid] x W.T (a view the kernel reads by index)
+    and the forward-propagation job [60000, n_vis] x W, in fp32 within
+    ``K8_TOL``; and layer 0's positive phase in bf16 within one bf16 ulp
+    of the row's max.  Returns a list of per-shape numbers, the fp32 layer-0
+    positive phase first."""
+    from repro_torch.configs.mnist_dbn import STACK
+    from repro_torch.kernels.rbm_cd import gemm_sigmoid, gemm_sigmoid_plain
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+    cases = []
+    for i in range(len(STACK) - 1):
+        nv, nh = STACK[i], STACK[i + 1]
+        w = 0.1 * torch.randn((nv, nh), generator=gen, device="cuda")
+        bv, bh = 0.1 * rand(nv), 0.1 * rand(nh)
+        cases += [
+            (f"L{i} hidden [100,{nv}]x[{nv},{nh}]", rand(100, nv), w, bh),
+            (f"L{i} visible [100,{nh}]xW.T", (rand(100, nh) < 0.5).float(),
+             w.T, bv),
+            (f"L{i} forward-prop [60000,{nv}]x[{nv},{nh}]", rand(60000, nv),
+             w, bh)]
+    x, w, b = cases[0][1:]
+    cases.append((cases[0][0], x.bfloat16(), w.bfloat16(), b.bfloat16()))
+    out = []
+    for label, x, w, b in cases:
+        name = f"K8 gemm_sigmoid {label} {str(x.dtype)[6:]}"
+        got = gemm_sigmoid(x, w, b)
+        want = gemm_sigmoid_plain(x, w, b)
+        torch.cuda.synchronize()
+        if x.dtype == torch.float32:
+            err = (got - want).abs().max().item()
+            ok = bool(torch.isfinite(got).all().item()) and err <= K8_TOL
+            print(f"[smoke] {name}: max|kernel - plain| = {err:.6g} (tol "
+                  f"{K8_TOL}) -> {'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{name} disagrees with its plain version")
+        else:
+            err, _ = check_kernel(torch, name, got, want)
+        ms = timer(lambda: gemm_sigmoid(x, w, b))
+        plain_ms = timer(lambda: gemm_sigmoid_plain(x, w, b))
+        library_ms = timer(lambda: torch.sigmoid(torch.addmm(b, x, w)))
+        (M, K), N = x.shape, w.shape[1]
+        flops = 2 * M * N * K
+        nbytes = (M * K + K * N + N + M * N) * x.element_size()
+        rate = FP32_FLOPS_PER_S if x.dtype == torch.float32 \
+            else BF16_FLOPS_PER_S
+        t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+        bms, by = max(t_mem, t_ops), "bytes" if t_mem >= t_ops \
+            else "operations"
+        print(f"[smoke] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sigmoid(addmm) {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+              f"{flops / 1e9:.3f} GFLOP at {rate / 1e12:.0f} TFLOP/s, "
+              f"{nbytes / 1e6:.2f} MB); {flops / ms / 1e9:.2f} TFLOP/s",
+              flush=True)
+        out.append({"shape": label, "dtype": str(x.dtype)[6:],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by,
+                    "library_ms": library_ms})
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cd_flips(torch, x, seed, steps=20):
+    """The same CD-1 steps of mnist-dbn's first RBM (784 x 1000, batch 100)
+    from the same parameters and the same uniforms (generators seeded
+    alike), once through K8 and once through its plain version: a sample
+    ``u < p`` flips where p moved across u, after which the two runs part.
+    Returns (flips per step, max |dparam| and |d recon err| per step)."""
+    from repro_torch.core.rbm import (RBMConfig, hidden_probs,
+                                      phase_statistics, rbm_init, update,
+                                      visible_probs)
+    from repro_torch.kernels.rbm_cd import gemm_sigmoid_plain
+    cfg = RBMConfig(n_vis=784, n_hid=1000)
+    p0 = rbm_init(torch.Generator(device="cuda").manual_seed(seed + 3), cfg)
+
+    def run(hid, vis):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+        p = dict(p0)
+        vel = {k: torch.zeros_like(v) for k, v in p.items()}
+        trace = []
+        for s in range(steps):
+            v = x[s * 100:(s + 1) * 100]
+            h_prob = hid(p, v)
+            u = torch.rand(h_prob.shape, generator=gen, device="cuda")
+            h_sample = (u < h_prob).float()
+            v_neg = vis(p, h_sample)
+            h_neg = hid(p, v_neg)
+            stats = phase_statistics(v, h_prob, v_neg, h_neg)
+            err = stats.pop("err")
+            p, vel = update(p, vel, stats, cfg, 0)
+            trace.append((h_sample, p, err))
+        return trace
+    with torch.no_grad():
+        kern = run(hidden_probs, visible_probs)
+        plain = run(lambda p, v: gemm_sigmoid_plain(v, p["W"], p["bh"]),
+                    lambda p, h: gemm_sigmoid_plain(h, p["W"].T, p["bv"]))
+    flips = [int((a[0] != b[0]).sum().item()) for a, b in zip(kern, plain)]
+    dparam = [max((a[1][k] - b[1][k]).abs().max().item() for k in a[1])
+              for a, b in zip(kern, plain)]
+    derr = [abs(a[2].item() - b[2].item()) for a, b in zip(kern, plain)]
+    return flips, dparam, derr
+
+
+def phase_paper(torch, seed, n_train=60000, n_test=10000):
+    """The paper's path at full width: mnist-dbn (784-1000-500-250-30)
+    pre-trained layer by layer with one CD-1 epoch per RBM (batch 100)
+    through K8 on ``n_train`` synthetic digits, then one epoch of
+    autoencoder and one of classifier fine-tuning; the reconstruction error
+    before and after, the classifier's test error against chance (0.9),
+    the K8 launch count (3 a CD step and 1 a layer's forward-propagation
+    job), the flips of CD samples between K8 and its plain version, and
+    one fine-tuning step through ``core.mapreduce`` over NCCL at world
+    size 1 against the plain step, bit for bit.  Returns (K8 launches,
+    report)."""
+    import torch.distributed as dist
+    from repro_torch.configs.mnist_dbn import CONFIG, N_CLASSES, STACK
+    from repro_torch.core import (DBNConfig, autoencoder, dp_groups,
+                                  finetune, train_dbn)
+    from repro_torch.data import train_test
+    from repro_torch.kernels.rbm_cd import gemm_sigmoid
+    from repro_torch.models.params import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    Xtr, ytr, Xte, yte = train_test(n_train=n_train, n_test=n_test,
+                                    seed=seed)
+    print(f"[smoke] paper: {CONFIG.name} {STACK}, {n_train} / {n_test} "
+          f"synthetic digits from seed {seed} made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    batch = 100
+    cfg = DBNConfig(stack=STACK, max_epoch=1, batch_size=batch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    marks = []
+
+    def mark(layer, epoch, recon_err):
+        torch.cuda.synchronize()
+        marks.append((layer, time.perf_counter(), recon_err))
+    xtr = torch.as_tensor(Xtr, device="cuda")
+    torch.cuda.synchronize()
+    gemm_sigmoid.launches = 0
+    t1 = time.perf_counter()
+    stack = train_dbn(xtr, cfg, gen, callback=mark)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t1
+    launches = gemm_sigmoid.launches
+    steps_per_layer = n_train // batch
+    cd_steps = steps_per_layer * (len(STACK) - 1)
+    expected = 3 * cd_steps + (len(STACK) - 1)
+    layers, last = [], t1
+    for layer, t, err in marks:
+        layers.append({"layer": layer, "n_vis": STACK[layer],
+                       "n_hid": STACK[layer + 1], "cd_steps": steps_per_layer,
+                       "seconds": t - last, "recon_err": err})
+        print(f"[smoke] paper: RBM {STACK[layer]}x{STACK[layer + 1]}: "
+              f"{steps_per_layer} CD steps in {t - last:.3f} s (with the "
+              f"forward-propagation job before it) = "
+              f"{steps_per_layer / (t - last):.1f} steps/s, recon err "
+              f"{err:.5f}", flush=True)
+        last = t
+    print(f"[smoke] paper: pre-training took {pre_s:.3f} s = "
+          f"{cd_steps / pre_s:.1f} CD steps/s; K8 launches {launches} (3 x "
+          f"{cd_steps} CD steps + {len(STACK) - 1} forward-prop jobs = "
+          f"{expected})", flush=True)
+    if launches != expected:
+        fail(f"paper: K8 launches {launches} != {expected}")
+    if any(not math.isfinite(m[2]) for m in marks):
+        fail("paper: non-finite reconstruction error in pre-training")
+
+    busy = None
+    prof = profile_device(torch, lambda: train_dbn(
+        xtr[:50 * batch], DBNConfig(stack=STACK[:2], max_epoch=1,
+                                    batch_size=batch),
+        torch.Generator(device="cuda").manual_seed(seed)))
+    if prof is not None:
+        busy = print_profile("50 CD steps of the first RBM and its "
+                             "forward-propagation job", *prof)
+
+    ytr_t = torch.as_tensor(ytr.astype(np.int64), device="cuda")
+    perm = torch.randperm(n_train, generator=gen, device="cuda")
+    ae = autoencoder.unroll(stack)
+    err_pre = autoencoder.reconstruction_error(ae, Xte)
+    step = autoencoder.make_finetune_step(None)
+    vel = tree_map(torch.zeros_like, ae)
+    t1 = time.perf_counter()
+    for b in range(steps_per_layer):
+        ae, vel, loss, _ = step(ae, vel, {"x": xtr[perm[b * batch:
+                                                        (b + 1) * batch]]})
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t1
+    err_post = autoencoder.reconstruction_error(ae, Xte)
+    print(f"[smoke] paper: autoencoder fine-tuning, {steps_per_layer} steps "
+          f"in {ft_s:.3f} s; test reconstruction error per image "
+          f"{err_pre:.4f} pre-trained -> {err_post:.4f} fine-tuned -> "
+          f"{'OK' if err_post < err_pre else 'FAIL'}", flush=True)
+    if not err_post < err_pre:
+        fail("paper: fine-tuning did not lower the reconstruction error")
+
+    clf = finetune.classifier_init(stack, N_CLASSES, gen)
+    cstep = finetune.make_classifier_step(None, lr=CLASSIFIER_LR)
+    cvel = tree_map(torch.zeros_like, clf)
+    t1 = time.perf_counter()
+    for b in range(steps_per_layer):
+        idx = perm[b * batch:(b + 1) * batch]
+        clf, cvel, loss, aux = cstep(clf, cvel, {"x": xtr[idx],
+                                                 "y": ytr_t[idx]})
+    torch.cuda.synchronize()
+    cl_s = time.perf_counter() - t1
+    test_err = finetune.error_rate(clf, Xte, yte)
+    print(f"[smoke] paper: classifier fine-tuning, {steps_per_layer} steps "
+          f"in {cl_s:.3f} s; test error {test_err:.4f} (chance 0.9) -> "
+          f"{'OK' if test_err < 0.9 else 'FAIL'}", flush=True)
+    if not test_err < 0.9:
+        fail("paper: the classifier does not beat chance")
+
+    flips, dparam, derr = cd_flips(torch, xtr, seed)
+    first = next((s for s, f in enumerate(flips) if f), None)
+    before = slice(0, len(flips) if first is None else first)
+    dp_before = max(dparam[before], default=0.0)
+    de_before = max(derr[before], default=0.0)
+    ok = dp_before <= 1e-4 and de_before <= 1e-5
+    print(f"[smoke] paper: {len(flips)} CD steps of layer 0, K8 vs plain "
+          f"from the same parameters and uniforms: {sum(flips)} of "
+          f"{len(flips) * batch * STACK[1]} samples flipped (first at step "
+          f"{first}); before the first flip max|dparam| {dp_before:.3g} "
+          f"(tol 1e-4), max|d recon err| {de_before:.3g} (tol 1e-5); over "
+          f"all steps {max(dparam):.3g} and {max(derr):.3g} -> "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("paper: K8 and its plain version part before any flip")
+
+    mb = {"x": xtr[:batch], "y": ytr_t[:batch]}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        a = finetune.make_classifier_step(None, lr=CLASSIFIER_LR)(
+            clf, cvel, mb)
+        b = finetune.make_classifier_step(dp_groups(1), lr=CLASSIFIER_LR)(
+            clf, cvel, mb)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    ws1_equal = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        tree_leaves(list(a[:3])), tree_leaves(list(b[:3]))))
+    verdict = "equal bit for bit -> OK" if ws1_equal else "DIFFER"
+    print(f"[smoke] paper: a classifier fine-tuning step through "
+          f"core.mapreduce (NCCL, world size 1) vs the plain step: params, "
+          f"velocities and loss {verdict}", flush=True)
+    if not ws1_equal:
+        fail("paper: the world-size-1 MapReduce step differs from the plain "
+             "step")
+    return launches, {
+        "config": CONFIG.name, "stack": list(STACK), "n_train": n_train,
+        "n_test": n_test, "batch": batch, "rbm_epochs": 1, "layers": layers,
+        "pretrain_s": pre_s, "cd_steps": cd_steps,
+        "cd_steps_per_s": cd_steps / pre_s, "k8_launches": launches,
+        "k8_launches_expected": expected, "busy_share_cd": busy,
+        "recon_err_pretrained": err_pre, "recon_err_finetuned": err_post,
+        "finetune_s": ft_s, "classifier_test_error": test_err,
+        "classifier_s": cl_s,
+        "kernel_vs_plain": {"steps": len(flips), "flips": sum(flips),
+                            "first_flip_step": first,
+                            "max_dparam_before_flip": dp_before,
+                            "max_derr_before_flip": de_before,
+                            "max_dparam": max(dparam),
+                            "max_derr": max(derr)},
+        "mapreduce_ws1_bit_equal": ws1_equal}
+
+
+def profile_device(torch, fn):
+    """Run ``fn`` under ``torch.profiler``; returns (wall us, kernel rows
+    [(name, self device us, calls)] by time, device us over every event),
+    or None when the profiler's own start fails (tracing refused) or it
+    records no device time: both print "not measured".  A failure of
+    ``fn`` propagates."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
         prof.__enter__()
     except RuntimeError as e:
         print(f"[smoke] profile: not measured ({e})", flush=True)
-        return
-    reg = eng.metrics
-    steps0 = (reg.value("engine.prefill_steps"),
-              reg.get("engine.decode_step_s").count)
+        return None
     try:
         t0 = time.perf_counter()
-        eng.run_offline(prompts, n_new)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     finally:
         prof.__exit__(None, None, None)
-    prefill_steps = reg.value("engine.prefill_steps") - steps0[0]
-    decode_steps = reg.get("engine.decode_step_s").count - steps0[1]
     # kernels are the events on the device; an aten op's self device time
     # repeats the time of the kernels it launched, so only the former count
     rows = [(a.key, getattr(a, "self_device_time_total", 0.0), a.count,
              getattr(a, "device_type", None)
              == torch.autograd.DeviceType.CUDA)
             for a in prof.key_averages()]
-    busy = sum(t for _, t, _, on_device in rows if on_device)
-    if not busy:
+    kernels = sorted(((k, t, n) for k, t, n, on_device in rows if on_device),
+                     key=lambda r: -r[1])
+    if not sum(t for _, t, _ in kernels):
         print("[smoke] profile: no device time recorded (not measured)",
               flush=True)
-        return
-    print(f"[smoke] profile of a rerun of {len(prompts)} requests for "
-          f"{n_new} tokens ({decode_steps} decode steps, {prefill_steps} "
-          f"prefill steps, {wall_us / 1e3:.1f} ms wall): device busy "
-          f"{busy / 1e3:.1f} ms = {busy / wall_us:.3f} of wall (sum over "
+        return None
+    return wall_us, kernels, sum(r[1] for r in rows)
+
+
+def print_profile(what, wall_us, kernels, every_us):
+    busy = sum(t for _, t, _ in kernels)
+    print(f"[smoke] profile of {what}, {wall_us / 1e3:.1f} ms wall: device "
+          f"busy {busy / 1e3:.1f} ms = {busy / wall_us:.3f} of wall (sum over "
           f"kernels; over every event, kernels and the ops that launched "
-          f"them, {sum(r[1] for r in rows) / wall_us:.3f})", flush=True)
-    for key, t, n, _ in sorted(rows, key=lambda r: -r[1])[:10]:
+          f"them, {every_us / wall_us:.3f})", flush=True)
+    for key, t, n in kernels[:10]:
         print(f"[smoke]   {t / 1e3:9.3f} ms {n:6d} calls  {key[:90]}",
               flush=True)
+    return busy / wall_us
+
+
+def profile_rerun(torch, eng, prompts, n_new=8):
+    """Where the time goes: rerun the requests (prefixes now cached) for
+    ``n_new`` tokens under ``torch.profiler`` and print the device's busy
+    share of the wall time and its top kernels by self device time."""
+    reg = eng.metrics
+    steps0 = (reg.value("engine.prefill_steps"),
+              reg.get("engine.decode_step_s").count)
+    res = profile_device(torch, lambda: eng.run_offline(prompts, n_new))
+    if res is None:
+        return
+    prefill_steps = reg.value("engine.prefill_steps") - steps0[0]
+    decode_steps = reg.get("engine.decode_step_s").count - steps0[1]
+    print_profile(f"a rerun of {len(prompts)} requests for {n_new} tokens "
+                  f"({decode_steps} decode steps, {prefill_steps} prefill "
+                  f"steps)", *res)
 
 
 def print_ptxas(stem, log_path) -> None:
@@ -1089,11 +1461,11 @@ def print_ptxas(stem, log_path) -> None:
     for line in log_path.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)E",
-                          m.group(1))
+            k = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+|f|13__nv_"
+                          r"bfloat16)E", m.group(1))
             args = [("false", "true")[int(v)] if t == "b" else v
                     for t, v in re.findall(r"L([ib])(\d+)E", k.group(2))] \
-                if k else []
+                or [{"f": "float"}.get(k.group(2), "bf16")] if k else []
             name = f"{k.group(1)}<{', '.join(args)}>" if k else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -1147,10 +1519,16 @@ def main() -> None:
     k1q = phase_decode(torch, rng, timer, int8=True)
     k2q = phase_prefill(torch, rng, timer, int8=True)
     k3q = phase_verify(torch, rng, timer, int8=True)
+    k2w, k2wq = (phase_prefill(torch, rng, timer, int8=q, K=8, G=3, D=128,
+                               label="K2-D128") for q in (False, True))
     k4 = phase_windowed_prefill(torch, rng, timer)
     k4q = phase_windowed_prefill(torch, rng, timer, int8=True)
-    k1r, k3r = phase_ring(torch, rng, timer)
-    k1rq, k3rq = phase_ring(torch, rng, timer, int8=True)
+    ring = phase_ring(torch, rng, timer)
+    ringq = phase_ring(torch, rng, timer, int8=True)
+    cr, crq = (phase_ring(torch, rng, timer, int8=q, K=CR_K, G=CR_G,
+                          cases=CR_RING_CASES, label="-60")["K3-ring"]
+               for q in (False, True))
+    k8 = phase_gemm_sigmoid(torch, timer, args.seed)
     print(f"[smoke] kernel phases took {time.perf_counter() - t0:.1f} s",
           flush=True)
     cfg = get_arch("qwen2-0.5b")
@@ -1174,11 +1552,55 @@ def main() -> None:
           flush=True)
     del params, replay, cache
     torch.cuda.empty_cache()
+
+    # minitron-4b: the dense path at head dim 128 (K2-D128), bf16 and int8
     t0 = time.perf_counter()
-    window_counts, window = phase_window_serve(torch, args.seed)
+    mcfg = get_arch("minitron-4b")
+    mc, mreport, params, prompts, _, cache = phase_serve(
+        torch, mcfg, args.seed, profile=False)
+    m8c, m8 = phase_int8_serve(torch, mcfg, params, prompts,
+                               Replays(mcfg, params, prompts, cache),
+                               spec=(0,))
+    counts.update({"K2-D128": mc["K2"], "K2-D128-int8": m8c["K2-int8"],
+                   "K1 (minitron-4b)": mc["K1"],
+                   "K1-int8 (minitron-4b)": m8c["K1-int8"]})
+    minitron = {**{k: mreport[k] for k in (
+        "max_logit_err", "n_tokens", "greedy_equal_tokens",
+        "high_margin_tokens", "high_margin_mismatches", "tokens_per_s",
+        "decode_step_ms_p50", "ref_tokens_per_s", "ref_decode_step_ms_p50")},
+        "int8": m8["int8"]}
+    del params, cache
+    torch.cuda.empty_cache()
+    print(f"[smoke] minitron-4b serving phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    window_counts, window = phase_window_serve(
+        torch, args.seed, n_layers=16,
+        why="to keep the smoke near ten minutes")
     counts.update(window_counts)
     print(f"[smoke] sliding-window serving phase took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # command-r-plus-104b: K3 above 48 rows (G = 12), depth cut to 4 layers
+    t0 = time.perf_counter()
+    cr_counts, command_r = phase_window_serve(
+        torch, args.seed, arch="command-r-plus-104b", n_layers=4,
+        why="full depth does not fit one card", profile=False,
+        tol_row_ulps=LOGIT_ROW_ULPS)
+    counts.update({"K3-ring-60": cr_counts.pop("K3-ring"),
+                   "K3-ring-60-int8": cr_counts.pop("K3-ring-int8")})
+    counts.update({f"{k} (command-r-plus-104b)": c
+                   for k, c in cr_counts.items()})
+    torch.cuda.empty_cache()
+    print(f"[smoke] command-r-plus-104b serving phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    counts["K8"], paper = phase_paper(torch, args.seed)
+    print(f"[smoke] paper's path phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for kid, c in counts.items():
         if c <= 0:
             fail(f"{kid} was never launched on its serving path")
@@ -1202,18 +1624,28 @@ def main() -> None:
               "paged_attention/kernel.py:241", k3),
         entry("K3-int8", "paged_verify", "paged_verify.cu",
               "paged_attention/kernel.py:241", k3q),
+        entry("K2-D128", "ragged_prefill", "ragged_prefill.cu",
+              "ragged_prefill/kernel.py:141", k2w),
+        entry("K2-D128-int8", "ragged_prefill", "ragged_prefill.cu",
+              "ragged_prefill/kernel.py:141", k2wq),
         entry("K1-ring", "paged_decode", "paged_decode.cu",
-              "paged_attention/kernel.py:139", k1r),
+              "paged_attention/kernel.py:139", ring["K1-ring"]),
         entry("K1-ring-int8", "paged_decode", "paged_decode.cu",
-              "paged_attention/kernel.py:139", k1rq),
+              "paged_attention/kernel.py:139", ringq["K1-ring"]),
         entry("K3-ring", "paged_verify", "paged_verify.cu",
-              "paged_attention/kernel.py:241", k3r),
+              "paged_attention/kernel.py:241", ring["K3-ring"]),
         entry("K3-ring-int8", "paged_verify", "paged_verify.cu",
-              "paged_attention/kernel.py:241", k3rq),
+              "paged_attention/kernel.py:241", ringq["K3-ring"]),
+        entry("K3-ring-60", "paged_verify", "paged_verify.cu",
+              "paged_attention/kernel.py:241", cr),
+        entry("K3-ring-60-int8", "paged_verify", "paged_verify.cu",
+              "paged_attention/kernel.py:241", crq),
         entry("K4", "windowed_prefill", "windowed_ragged_prefill.cu",
               "ragged_prefill/kernel.py:289", k4),
         entry("K4-int8", "windowed_prefill", "windowed_ragged_prefill.cu",
               "ragged_prefill/kernel.py:289", k4q),
+        entry("K8", "gemm_sigmoid", "gemm_sigmoid.cu",
+              "rbm_cd/kernel.py:40", {**k8[0], "shapes": k8}),
     ]
     print(json.dumps({"kernels": kernels, "serve": {
         k: report[k] for k in ("max_logit_err", "n_tokens",
@@ -1223,7 +1655,8 @@ def main() -> None:
                                "identical_requests", "tokens_per_s",
                                "decode_step_ms_p50", "ref_tokens_per_s",
                                "ref_decode_step_ms_p50")},
-        "speculative": spec, "int8": int8, "sliding_window": window}),
+        "speculative": spec, "int8": int8, "minitron": minitron,
+        "sliding_window": window, "command_r": command_r, "paper": paper}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""Config registry: one module per assigned language-model architecture
-(copies of ``repro.configs``; the paper's MNIST DBN config arrives with the
-training slice)."""
+"""Config registry: one module per assigned language-model architecture,
+plus the paper's own MNIST deep-belief network (copies of
+``repro.configs``)."""
 from __future__ import annotations
 
 from .base import ArchConfig, ServeConfig, reduced  # noqa: F401
@@ -16,6 +16,7 @@ from . import (  # noqa: E402
     llava_next_34b,
     recurrentgemma_2b,
     mamba2_780m,
+    mnist_dbn,
 )
 
 ARCHS = {
@@ -33,6 +34,8 @@ ARCHS = {
         mamba2_780m,
     )
 }
+
+MNIST_DBN = mnist_dbn.CONFIG
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -52,12 +52,21 @@
 // 128 would be 192 registers a lane).  Where a value is stored does not
 // change its arithmetic.
 //
-// Every row runs the same instruction sequence whatever Q, G, the row count
-// and the accumulator's home are (explicit fmaf, no fast math), so K3 with
-// one live query per row reproduces K1 bit for bit, as the Pallas twin
-// does, ring mode included.  At B = 4 and K = 4 that is 16 blocks on 132
-// SMs: the page sweep is not split across blocks yet, so the kernel is
-// latency-bound at long contexts (PERF.md).
+// A (request, KV head)'s rows may outnumber a block's kMaxRows (Q = 5 at G =
+// 12, command-r-plus-104b, is 60 rows against K3's 48): they are split by
+// query token over blocks (grid z), qpb = kMaxRows / G whole tokens a block,
+// each block sweeping the pages up to its own last live query.  A page
+// that holds no slot visible to a row is an exact no-op on that row's
+// state (p = 0, alpha = 1), so the split changes no row's result, and a
+// block whose tokens are all dead writes exact zeros.
+//
+// Every row runs the same instruction sequence whatever Q, G, the row count,
+// the block's share of the rows and the accumulator's home are (explicit
+// fmaf, no fast math), so K3 with one live query per row reproduces K1 bit
+// for bit, as the Pallas twin does, ring mode included.  At B = 4 and K = 4
+// that is 16 blocks on 132 SMs (32 where the rows are split): the page
+// sweep is not split across blocks yet, so the kernel is latency-bound at
+// long contexts (PERF.md).
 //
 // Numerics: IEEE expf and division (build without --use_fast_math); scores
 // are fp32 dot products, scaled after the dot as in the reference.
@@ -198,20 +207,21 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
                     const int32_t* __restrict__ n_q,        // [B] or null
                     __nv_bfloat16* __restrict__ out,        // [B, Q, H, D]
                     int Q, int K, int G, int ps, int n_pages, int window,
-                    float scale) {
+                    int qpb, float scale) {
   constexpr int kDpl = D / 32;          // output dims owned by each lane
   constexpr bool kAccSmem = acc_in_smem<D, kMaxRows>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<Smem<D, kMaxRows, kInt8>*>(smem_raw);
 
   const int b = blockIdx.x, kh = blockIdx.y;
+  const int j0 = blockIdx.z * qpb;             // the block's first query token
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int H = K * G, rows = Q * G;
+  const int H = K * G, rows = min(qpb, Q - j0) * G;
   const int ring = n_pages * ps;
 
   for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
     const int r = e / D, d = e % D;
-    const int j = r / G, g = r % G;
+    const int j = j0 + r / G, g = r % G;
     sm.q[r][d] = __bfloat162float(
         q[(((size_t)b * Q + j) * H + kh * G + g) * D + d]);
   }
@@ -221,8 +231,10 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
   }
   const int p_b = pos[b];
   const int nq_b = n_q ? n_q[b] : 1;
-  const int last = p_b + nq_b - 1;               // last live query position
-  int n_live = last < 0 ? 0 : last / ps + 1;     // pages with i * ps <= last
+  // the block's last live query token, and its position
+  const int j_last = min(j0 + rows / G, nq_b) - 1;
+  const int last = p_b + j_last;
+  int n_live = (j_last < j0 || last < 0) ? 0 : last / ps + 1;  // i*ps <= last
   if (n_live > n_pages) n_live = n_pages;
   __syncthreads();
 
@@ -237,7 +249,7 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
     __syncwarp();
     for (int e = lane; e < rows * ps; e += 32) {
       const int r = e / ps, t = e % ps;
-      const int j = r / G;
+      const int j = j0 + r / G;
       float s = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d)
@@ -319,7 +331,7 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
   }
   for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
     const int r = e / D, d = e % D;
-    const int j = r / G, g = r % G;
+    const int j = j0 + r / G, g = r % G;
     out[(((size_t)b * Q + j) * H + kh * G + g) * D + d] =
         __float2bfloat16(sm.q[r][d] / fmaxf(sm.l[0][r], 1e-20f));
   }
@@ -333,7 +345,7 @@ int launch_one(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
                const __nv_bfloat16* k_scale, const __nv_bfloat16* v_scale,
                const int32_t* tables, const int32_t* pos, const int32_t* n_q,
                __nv_bfloat16* out, int Q, int K, int G, int ps, int n_pages,
-               int window, float scale) {
+               int window, int qpb, float scale) {
   constexpr size_t kSmem = sizeof(Smem<D, kMaxRows, kInt8>);
   static bool opted_in = false;
   if (!opted_in) {
@@ -345,23 +357,26 @@ int launch_one(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
   }
   paged_attend_kernel<D, kMaxRows, kInt8><<<grid, kWarps * 32, kSmem, st>>>(
       q, k_pages, v_pages, k_scale, v_scale, tables, pos, n_q, out, Q, K, G,
-      ps, n_pages, window, scale);
+      ps, n_pages, window, qpb, scale);
   return (int)cudaGetLastError();
 }
 
-// Launch the kernel for kMaxRows query rows per block.  Returns 0 on
-// success, else the cudaError_t of the refused or failed launch.
+// Launch the kernel for at most kMaxRows query rows per block: a (request,
+// KV head)'s Q * G rows go to ceil(Q / qpb) blocks of qpb = kMaxRows / G
+// query tokens each (grid z).  Returns 0 on success, else the cudaError_t
+// of the refused or failed launch.
 template <int kMaxRows>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scale, const void* v_scale, const void* tables,
            const void* pos, const void* n_q, void* out, int B, int Q, int K,
            int G, int D, int ps, int n_pages, int window, float scale,
            void* stream) {
-  if (B < 1 || Q < 1 || K < 1 || G < 1 || Q * G > kMaxRows || ps < 1 ||
+  if (B < 1 || Q < 1 || K < 1 || G < 1 || G > kMaxRows || ps < 1 ||
       ps > kMaxPs || n_pages < 1 || window < 0 ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, K);
+  const int qpb = kMaxRows / G;                  // query tokens per block
+  const dim3 grid(B, K, (Q + qpb - 1) / qpb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* ksp = static_cast<const __nv_bfloat16*>(k_scale);
@@ -373,7 +388,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 #define PAGED_LAUNCH(DIM, INT8)                                               \
   return launch_one<DIM, kMaxRows, INT8>(grid, st, qp, k_pages, v_pages, ksp, \
                                          vsp, tp, pp, np, op, Q, K, G, ps,    \
-                                         n_pages, window, scale)
+                                         n_pages, window, qpb, scale)
   const bool int8 = k_scale != nullptr;
   if (D == 32 && !int8) PAGED_LAUNCH(32, false);
   if (D == 32) PAGED_LAUNCH(32, true);

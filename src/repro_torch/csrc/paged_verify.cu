@@ -4,17 +4,19 @@
 // design are in paged_attention.cuh (shared with K1, which is its one-query
 // case: with n_q = 1 on every row K3 reproduces K1 bit for bit, ring mode
 // included); this file instantiates it for up to kVerifyRows (query token,
-// query head) rows per (request, KV head) and gives it its C entry point.
+// query head) rows per block and gives it its C entry point.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention/kernel.py::
 // paged_verify_fwd (_paged_verify_kernel).
 
 #include "paged_attention.cuh"
 
-// Q * G rows per block: 35 at Q = 5 (four drafts) and G = 7 (qwen2-0.5b),
-// 45 at G = 9 (starcoder2-7b).  Q = 5 at G = 12 (command-r-plus-104b) is
-// 60 rows and is refused.  At D = 128 the block takes ~168 KB of dynamic
-// shared memory, the row accumulators included.
+// At most 48 (query token, query head) rows per block: Q = 5 (four drafts)
+// is 35 rows at G = 7 (qwen2-0.5b) and 45 at G = 9 (starcoder2-7b), one
+// block per (request, KV head); at G = 12 (command-r-plus-104b) its 60 rows
+// go to two blocks of 4 and 1 query tokens.  At D = 128 a block takes ~168
+// KB of dynamic shared memory, the row accumulators included, so a 64-row
+// instantiation would not fit beside them.
 constexpr int kVerifyRows = 48;
 
 // q/out [B, Q, H, D] bf16; pools and tables as paged_decode; pos and n_q

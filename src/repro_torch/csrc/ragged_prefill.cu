@@ -20,7 +20,12 @@
 // Design.  One block per (q-tile, KV head, request), one thread per query
 // row of the tile (a row is a (token, query head) pair of the GQA group, so
 // each K/V page is read once per block for all G heads), the row's query
-// and fp32 accumulator in registers.  Instead of banking the scores, the
+// (as bf16 pairs, exact: q is bf16) and fp32 accumulator in registers.
+// Head dims 32, 64 and 128: at 128 the query pairs and the accumulator take
+// 192 registers a thread, the treatment K4 (windowed_ragged_prefill.cu)
+// gives the same row at D = 128; ptxas's registers and spills per
+// instantiation are kept beside the built library and printed by
+// chip_smoke.py.  Instead of banking the scores, the
 // block sweeps the row's live pages three times, recomputing every fp32
 // score with the same instruction sequence each time:
 //   pass 1: the row's true max m over all keys;
@@ -53,13 +58,25 @@ constexpr int kThreads = 128;   // query rows per block
 constexpr int kMaxPs = 32;      // tokens per page
 constexpr float kMaskValue = -1e30f;
 
+// fp32 dot product of a bf16 query row (kept as bf16 pairs: exact, and half
+// the registers of an fp32 copy, which D = 128 needs beside its fp32
+// accumulator) with an fp32 key row, in ascending d, scaled after the dot
+// as the reference does.  The same instruction sequence as K4's score.
 template <int D>
-__device__ __forceinline__ float score(const float (&qr)[D],
+__device__ __forceinline__ float score(const __nv_bfloat162 (&qr)[D / 2],
                                        const float* __restrict__ k_row,
                                        float scale) {
   float s = 0.f;
 #pragma unroll
-  for (int d = 0; d < D; ++d) s = fmaf(qr[d], k_row[d], s);
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 k = reinterpret_cast<const float4*>(k_row)[d4];
+    const float2 q01 = __bfloat1622float2(qr[2 * d4]);
+    const float2 q23 = __bfloat1622float2(qr[2 * d4 + 1]);
+    s = fmaf(q01.x, k.x, s);
+    s = fmaf(q01.y, k.y, s);
+    s = fmaf(q23.x, k.z, s);
+    s = fmaf(q23.y, k.w, s);
+  }
   return s * scale;
 }
 
@@ -96,8 +113,8 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
                       __nv_bfloat16* __restrict__ out,            // [B, T, H, D]
                       int T, int H, int K, int ps, int n_pages, int qt,
                       float scale) {
-  __shared__ float kv_s[kMaxPs][D];   // K page (passes 1-3)
-  __shared__ float v_s[kMaxPs][D];    // V page (pass 3)
+  __shared__ __align__(16) float kv_s[kMaxPs][D];   // K page (passes 1-3)
+  __shared__ __align__(16) float v_s[kMaxPs][D];    // V page (pass 3)
   const int tile = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int G = H / K;
   const int r = threadIdx.x;
@@ -111,11 +128,14 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
   if (n_live > n_pages) n_live = n_pages;
   const int32_t* tb = tables + (size_t)b * n_pages;
 
-  float qr[D];
+  __nv_bfloat162 qr[D / 2];
   const size_t q_off = (((size_t)b * T + (active ? t : 0)) * H + kh * G + g) * D;
+  {
+    const auto* src = reinterpret_cast<const __nv_bfloat162*>(q + q_off);
 #pragma unroll
-  for (int d = 0; d < D; ++d)
-    qr[d] = active ? __bfloat162float(q[q_off + d]) : 0.f;
+    for (int d = 0; d < D / 2; ++d)
+      qr[d] = active ? src[d] : __floats2bfloat162_rn(0.f, 0.f);
+  }
 
   // pass 1: row max over every key (masked keys hold -1e30)
   float m = kMaskValue;
@@ -151,7 +171,13 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
         if (!kInt8) p = __bfloat162float(__float2bfloat16(p));
       }
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, v_s[j][d], acc[d]);
+      for (int d4 = 0; d4 < D / 4; ++d4) {
+        const float4 v = reinterpret_cast<const float4*>(v_s[j])[d4];
+        acc[4 * d4] = fmaf(p, v.x, acc[4 * d4]);
+        acc[4 * d4 + 1] = fmaf(p, v.y, acc[4 * d4 + 1]);
+        acc[4 * d4 + 2] = fmaf(p, v.z, acc[4 * d4 + 2]);
+        acc[4 * d4 + 3] = fmaf(p, v.w, acc[4 * d4 + 3]);
+      }
     }
   }
   if (active) {
@@ -197,6 +223,8 @@ extern "C" int ragged_prefill(const void* q, const void* k_pages,
   else if (D == 32) PREFILL_LAUNCH(32, true);
   else if (D == 64 && !int8) PREFILL_LAUNCH(64, false);
   else if (D == 64) PREFILL_LAUNCH(64, true);
+  else if (D == 128 && !int8) PREFILL_LAUNCH(128, false);
+  else if (D == 128) PREFILL_LAUNCH(128, true);
   else return (int)cudaErrorInvalidValue;
 #undef PREFILL_LAUNCH
   return (int)cudaGetLastError();

@@ -68,6 +68,24 @@ MAX_ROWS = {"paged_decode": 16, "paged_verify": 48}   # csrc kMaxRows
 HEAD_DIMS = (32, 64, 128)                              # csrc launch()
 
 
+def check_verify_shapes(q_shape, page_shape, tables_shape, pos_shape,
+                        nq_shape, window: int = 0):
+    """Raise ``ValueError`` unless K3 takes these shapes: q [B, Q, H, D]
+    against pages [P, ps, K, D] with ``H % K == 0`` and ``G = H // K <=
+    48`` (any Q: the kernel splits a KV head's Q * G rows over blocks of at
+    most 48 by query token), tables [B, n], pos and n_q [B], page size <=
+    16, head dim 32, 64 or 128 and ``window >= 0``."""
+    B, Q, H, D = q_shape
+    P, ps, K, Dk = page_shape
+    if Dk != D or H % K or tables_shape[0] != B or pos_shape[0] != B \
+            or nq_shape[0] != B or H // K > MAX_ROWS["paged_verify"] \
+            or ps > 16 or D not in HEAD_DIMS or window < 0:
+        raise ValueError(
+            f"paged_verify: unsupported shapes q {tuple(q_shape)}, pages "
+            f"{tuple(page_shape)}, tables {tuple(tables_shape)}, pos "
+            f"{tuple(pos_shape)}, n_q {tuple(nq_shape)}")
+
+
 def paged_decode(q, k_pages, v_pages, tables, pos, *, scale: float,
                  window: int = 0, softcap: float = 0.0, k_scale=None,
                  v_scale=None):
@@ -115,9 +133,11 @@ def paged_verify(q, k_pages, v_pages, tables, pos, n_q, *, scale: float,
     """Small-q speculative verify; arguments as ``paged_verify_plain``.  On
     a CUDA device ``q`` [B, Q, H, D] and the pools are contiguous bf16 (or
     int8 payload plus bf16 scale pages), ``tables``, ``pos`` and ``n_q``
-    contiguous int32, ``H % K == 0`` with ``Q * (H // K) <= 48``, page size
-    <= 16 and head dim 32, 64 or 128; anything else raises (Q = 5 at G = 12,
-    command-r-plus-104b, is 60 rows).  ``softcap`` raises
+    contiguous int32, ``H % K == 0`` with ``G = H // K <= 48``, page size
+    <= 16 and head dim 32, 64 or 128 (``check_verify_shapes``); anything
+    else raises.  A (request, KV head)'s ``Q * G`` rows go to blocks of at
+    most 48 rows, split by query token (60 rows at Q = 5, G = 12,
+    command-r-plus-104b, are two blocks).  ``softcap`` raises
     ``NotImplementedError``."""
     refuse_softcap("paged_verify", softcap)
     if q.device.type == "cpu":
@@ -131,14 +151,8 @@ def paged_verify(q, k_pages, v_pages, tables, pos, n_q, *, scale: float,
                               k_scale, v_scale)
     check_tensor(pos, "pos", torch.int32, 1, dev)
     check_tensor(n_q, "n_q", torch.int32, 1, dev)
-    if Dk != D or H % K or tables.shape[0] != B or pos.shape[0] != B \
-            or n_q.shape[0] != B \
-            or Q * (H // K) > MAX_ROWS["paged_verify"] or ps > 16 \
-            or D not in HEAD_DIMS or window < 0:
-        raise ValueError(
-            f"paged_verify: unsupported shapes q {tuple(q.shape)}, pages "
-            f"{tuple(k_pages.shape)}, tables {tuple(tables.shape)}, pos "
-            f"{tuple(pos.shape)}, n_q {tuple(n_q.shape)}")
+    check_verify_shapes(q.shape, k_pages.shape, tables.shape, pos.shape,
+                        n_q.shape, window)
     out = torch.empty_like(q)
     rc = entry("paged_verify", _VERIFY_ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale),

@@ -69,6 +69,23 @@ def windowed_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables, start,
     return torch.where(live[:, :, None, None], o, torch.zeros_like(o))
 
 
+HEAD_DIMS = (32, 64, 128)        # csrc/ragged_prefill.cu launch()
+
+
+def check_prefill_shapes(q_shape, page_shape, tables_shape, start_shape):
+    """Raise ``ValueError`` unless K2 takes these shapes: q [B, T, H, D]
+    against pages [P, ps, K, D] with ``H % K == 0``, tables [B, n] and
+    start [B], page size <= 32 and head dim 32, 64 or 128."""
+    B, T, H, D = q_shape
+    P, ps, K, Dk = page_shape
+    if Dk != D or H % K or tables_shape[0] != B or start_shape[0] != B \
+            or ps > 32 or D not in HEAD_DIMS:
+        raise ValueError(
+            f"ragged_prefill: unsupported shapes q {tuple(q_shape)}, pages "
+            f"{tuple(page_shape)}, tables {tuple(tables_shape)}, start "
+            f"{tuple(start_shape)}")
+
+
 # q, k, v, k_scale, v_scale, tables, start, out
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_void_p]
@@ -81,8 +98,9 @@ def ragged_prefill(q, k_pages, v_pages, tables, start, *, scale: float,
     device ``q`` and the pools are contiguous bf16 (int8 payload plus
     contiguous bf16 scale pages when scales are given), ``tables`` and
     ``start`` contiguous int32, ``H % K == 0``, page size <= 32 and head
-    dim 32 or 64; anything else raises.  The sliding-window mode is K4
-    (``windowed_prefill``); ``softcap`` raises ``NotImplementedError``."""
+    dim 32, 64 or 128 (``check_prefill_shapes``); anything else raises.
+    The sliding-window mode is K4 (``windowed_prefill``); ``softcap``
+    raises ``NotImplementedError``."""
     refuse_softcap("ragged_prefill", softcap)
     if q.device.type == "cpu":
         return ragged_prefill_plain(q, k_pages, v_pages, tables, start,
@@ -94,13 +112,7 @@ def ragged_prefill(q, k_pages, v_pages, tables, start, *, scale: float,
     P, ps, K, Dk = check_pool("ragged_prefill", dev, k_pages, v_pages,
                               tables, k_scale, v_scale)
     check_tensor(start, "start", torch.int32, 1, dev)
-    if Dk != D or H % K \
-            or tables.shape[0] != B or start.shape[0] != B \
-            or ps > 32 or D not in (32, 64):
-        raise ValueError(
-            f"ragged_prefill: unsupported shapes q {tuple(q.shape)}, pages "
-            f"{tuple(k_pages.shape)}, tables {tuple(tables.shape)}, start "
-            f"{tuple(start.shape)}")
+    check_prefill_shapes(q.shape, k_pages.shape, tables.shape, start.shape)
     out = torch.empty_like(q)
     rc = entry("ragged_prefill", _ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale),
@@ -150,7 +162,7 @@ def windowed_prefill(q, k_new, v_new, k_pages, v_pages, tables, start,
     if Dk != D or H % K or tuple(k_new.shape) != (B, T, K, D) \
             or v_new.shape != k_new.shape or tables.shape[0] != B \
             or start.shape[0] != B or n_live.shape[0] != B or ps > 32 \
-            or D not in (32, 64, 128) or window <= 0:
+            or D not in HEAD_DIMS or window <= 0:
         raise ValueError(
             f"windowed_prefill: unsupported shapes q {tuple(q.shape)}, "
             f"k_new {tuple(k_new.shape)}, pages {tuple(k_pages.shape)}, "

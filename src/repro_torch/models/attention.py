@@ -439,34 +439,35 @@ def paged_decode_attention_block(cfg: ArchConfig, p, x, cache, meta, freqs,
     return out_proj(o, p["wo"]), cache
 
 
-def paged_verify_attention_block(cfg: ArchConfig, p, x, cache, meta, freqs,
+def paged_verify_attention_block(cfg: ArchConfig, p, xs, cache, meta, freqs,
                                  backend):
     """Small-q speculative verify step against the paged KV pool.
 
-    x: [B, Q, d] — per slot the last emitted token plus its draft, padded
-    to the fixed width Q; meta: the flat metadata from
-    ``attn_backend.verify_meta``.  Write-all-then-attend: every query
-    token's K/V scatters into its page first (dead rows to the null page),
-    then each query attends the post-write pool under the per-query mask
-    ``token_pos <= pos + j`` (the ring rule for sliding-window layers) and
-    ``j < n_q`` — so a rejected draft's K/V is invisible to every query
-    that survives the accept decision and is overwritten in place by the
-    next step's writes at the same positions.  In a ring, the pool's slack
-    page keeps a rejected draft's slot out of every surviving query's
-    window.
-    Per token the projections, rope, scatter and attend are the per-row
-    ops of the decode block.  Returns (out [B, Q, d], cache)."""
-    pos, Q = meta["pos"], x.shape[1]
-    q, k, v = qkv(cfg, p, x)
-    positions = pos[:, None] + torch.arange(Q, device=x.device)[None, :]
-    q = apply_rope(q, positions, freqs)
-    k = apply_rope(k, positions, freqs)
+    xs: Q tensors [B, d] — query token j's activations of every slot (the
+    last emitted token, then the draft, padded to the fixed width Q); meta:
+    the flat metadata from ``attn_backend.verify_meta``.
+    Write-all-then-attend: every query token's K/V scatters into its page
+    first (dead rows to the null page), then each query attends the
+    post-write pool under the per-query mask ``token_pos <= pos + j`` (the
+    ring rule for sliding-window layers) and ``j < n_q`` — so a rejected
+    draft's K/V is invisible to every query that survives the accept
+    decision and is overwritten in place by the next step's writes at the
+    same positions.  In a ring, the pool's slack page keeps a rejected
+    draft's slot out of every surviving query's window.
+    Token j's projections and rope are the decode block's ops at position
+    ``pos + j`` on a [B, d] input, the decode step's GEMM shape, and so is
+    its output projection; only the attend runs once over all Q tokens.
+    Returns (Q outputs [B, d], cache)."""
+    pos = meta["pos"]
+    q, k, v = (torch.stack(t, 1) for t in zip(*(
+        decode_qkv(cfg, p, x, pos + j, freqs) for j, x in enumerate(xs))))
     scales = write_pages(cache, meta["write_page"], meta["write_off"], k, v)
     o = backend.verify_attend(q, cache["k"], cache["v"], meta["tables"], pos,
                               meta["n_q"],
                               scale=1.0 / math.sqrt(cfg.head_dim_),
                               window=cfg.sliding_window, **scales)
-    return out_proj(o, p["wo"]), cache
+    return [out_proj(o[:, j].contiguous(), p["wo"])
+            for j in range(len(xs))], cache
 
 
 def decode_attention_block(cfg: ArchConfig, p, x, cache, pos, freqs):

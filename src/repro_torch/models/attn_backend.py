@@ -193,14 +193,16 @@ class AttentionBackend:
         return attention.paged_decode_attention_block(cfg, p, x, cache, meta,
                                                       freqs, backend=self)
 
-    def paged_verify(self, cfg: ArchConfig, p, x, cache, meta, freqs):
-        """Small-q speculative verify against the paged pool: ``x`` is
-        [B, Q, d] (last emitted token + draft, padded to Q), ``meta`` the
-        flat metadata from ``verify_meta``.  All Q tokens' K/V scatter into
-        their pages first, then every query attends the post-write pool
-        under its own causal mask.  Returns (out [B, Q, d], cache)."""
-        return attention.paged_verify_attention_block(cfg, p, x, cache, meta,
-                                                      freqs, backend=self)
+    def paged_verify(self, cfg: ArchConfig, p, xs, cache, meta, freqs):
+        """Small-q speculative verify against the paged pool: ``xs`` is Q
+        tensors [B, d] (query token j of every slot: last emitted token +
+        draft, padded to Q), ``meta`` the flat metadata from
+        ``verify_meta``.  All Q tokens' K/V scatter into their pages first,
+        then every query attends the post-write pool under its own causal
+        mask.  Returns (Q outputs [B, d], cache)."""
+        return attention.paged_verify_attention_block(cfg, p, xs, cache,
+                                                      meta, freqs,
+                                                      backend=self)
 
     # -------- attend cores (override to fuse)
 

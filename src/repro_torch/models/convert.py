@@ -6,6 +6,11 @@ numpy arrays (what ``jax.device_get`` returns; bf16 leaves arrive as
 leaf: both packages build the same key paths and layer-stacked shapes.
 bf16 goes through fp32, which represents every bf16 value exactly.  The
 port never imports jax; callers that hold a JAX tree convert it to numpy.
+
+The paper's RBM/DBN family has no ``ArchConfig`` tree: ``rbm_stack_from_numpy``
+maps a pre-trained RBM stack (a list of {"W", "bv", "bh"}) and
+``dbn_tree_from_numpy`` a classifier or autoencoder tree (dicts of lists of
+fp32 arrays, ``core.finetune`` / ``core.autoencoder``), leaf to leaf.
 """
 from __future__ import annotations
 
@@ -49,3 +54,45 @@ def _paths(tree, prefix: str = ""):
     for k, v in tree.items():
         out |= _paths(v, f"{prefix}/{k}" if prefix else k)
     return out
+
+
+RBM_KEYS = ("W", "bv", "bh")
+DBN_TREES = {"classifier": ("W", "b", "head_W", "head_b"),
+             "autoencoder": ("enc_W", "enc_b", "dec_W", "dec_b")}
+
+
+def _fp32(a, device):
+    return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device)
+
+
+def rbm_stack_from_numpy(stack, device="cpu"):
+    """A list of RBM layers {"W" [n_vis, n_hid], "bv", "bh"} as fp32
+    tensors on ``device``; raises on a missing or extra key or a layer whose
+    shapes do not chain."""
+    out = []
+    for i, layer_p in enumerate(stack):
+        if set(layer_p) != set(RBM_KEYS):
+            raise KeyError(f"RBM layer {i}: keys {sorted(layer_p)}, expected "
+                           f"{sorted(RBM_KEYS)}")
+        w = np.asarray(layer_p["W"])
+        if np.shape(layer_p["bv"]) != w.shape[:1] \
+                or np.shape(layer_p["bh"]) != w.shape[1:] \
+                or (out and out[-1]["W"].shape[1] != w.shape[0]):
+            raise ValueError(f"RBM layer {i}: shapes W {w.shape}, bv "
+                             f"{np.shape(layer_p['bv'])}, bh "
+                             f"{np.shape(layer_p['bh'])} do not chain")
+        out.append({k: _fp32(layer_p[k], device) for k in RBM_KEYS})
+    return out
+
+
+def dbn_tree_from_numpy(kind: str, tree, device="cpu"):
+    """A ``kind`` ("classifier" or "autoencoder") parameter tree of fp32
+    arrays as fp32 tensors on ``device``, leaf to leaf; raises on a
+    missing or extra key."""
+    keys = DBN_TREES[kind]
+    if set(tree) != set(keys):
+        raise KeyError(f"{kind} tree: keys {sorted(tree)}, expected "
+                       f"{sorted(keys)}")
+    return {k: [_fp32(a, device) for a in tree[k]]
+            if isinstance(tree[k], (list, tuple)) else _fp32(tree[k], device)
+            for k in keys}

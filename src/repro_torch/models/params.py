@@ -77,12 +77,36 @@ def stack_tree(defs, n: int) -> Any:
 
 
 def tree_leaves(tree, path: str = ""):
-    """(key path, leaf) pairs of a nested dict, in insertion order."""
-    if not isinstance(tree, dict):
+    """(key path, leaf) pairs of a tree of dicts and lists (a list's keys
+    are its indices), in insertion order."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
         yield path, tree
         return
-    for k, v in tree.items():
-        yield from tree_leaves(v, f"{path}/{k}" if path else k)
+    for k, v in items:
+        yield from tree_leaves(v, f"{path}/{k}" if path else str(k))
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest``, which share its structure (the role ``jax.tree.map`` plays
+    in the JAX package)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def layer(tree, i: int):

@@ -212,22 +212,26 @@ class DecoderLM:
         its draft, zero-padded to Q; meta: flat metadata from
         ``attn_backend.verify_meta`` on the model's device (per-row base
         positions and live query counts).  Every per-token op (embed, norms,
-        attention framing, MLP, logits) is the per-row computation of the
-        decode step, so row ``j`` of the logits is the decode step's logits
-        at position ``pos + j`` wherever the GEMMs round a row the same way
-        at ``M = B * Q`` as at ``M = B`` (they do at reduced widths on the
-        CPU; at full width a library GEMM may pick another kernel, so the
-        card holds the speculative stream to the dual gate).  The MoE step
-        of the JAX package (``cap=Q``) arrives with its family (ROADMAP
-        queue 1 item 12; ``build_model`` refuses MoE configs).  Returns
-        (logits [B, Q, V], kv, state)."""
+        projections, MLP, logits) runs on query token j's [B, d] slice, the
+        decode step's computation at its shape (a GEMM may round a row
+        otherwise at another M), and the attention is one verify call over
+        all Q tokens whose row j equals the decode attend's at ``pos + j``;
+        so row ``j`` of the logits equals the decode step's logits at
+        position ``pos + j`` bit for bit.  The MoE step of the JAX package
+        (``cap=Q``) arrives with its family (ROADMAP queue 1 item 12;
+        ``build_model`` refuses MoE configs).  Returns (logits [B, Q, V],
+        kv, state)."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens)              # [B, Q, d]
-        freqs = self._freqs(x.device)
+        xs = [embed_tokens(params["embed"], tokens[:, j])
+              for j in range(tokens.shape[1])]                 # Q x [B, d]
+        freqs = self._freqs(xs[0].device)
         for i in range(cfg.n_layers):
-            c = layer(kv, i)
-            x = self._block(
-                layer(params["blocks"], i), x,
-                lambda p, h: self.attn_backend.paged_verify(
-                    cfg, p, h, c, meta, freqs)[0])
-        return self._logits(params, x), kv, state
+            p, c = layer(params["blocks"], i), layer(kv, i)
+            a = self.attn_backend.paged_verify(
+                cfg, p["attn"], [apply_norm(cfg, p["ln1"], x) for x in xs],
+                c, meta, freqs)[0]
+            xs = [x + y for x, y in zip(xs, a)]
+            xs = [x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+                  for x in xs]
+        return torch.stack([self._logits(params, x) for x in xs], 1), kv, \
+            state

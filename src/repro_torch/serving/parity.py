@@ -93,17 +93,32 @@ def replay_logits(cfg: ArchConfig, scfg: ServeConfig, params,
     return np.stack(out)
 
 
+def row_ulps(ref: np.ndarray, test: np.ndarray) -> float:
+    """The largest |test - ref| of each token's logits in bf16 ulps of that
+    row's largest |ref| (2^-7 of its power of two, never below 2^-14),
+    the rule the kernel checks use; the max over the rows."""
+    if not len(ref):
+        return 0.0
+    top = np.maximum(np.max(np.abs(ref), axis=-1), 2.0 ** -7)
+    ulp = np.exp2(np.floor(np.log2(top)) - 7)
+    return float(np.max(np.max(np.abs(test - ref), axis=-1) / ulp))
+
+
 def dual_gate(ref_logits: Sequence[np.ndarray],
               test_logits: Sequence[np.ndarray],
-              tokens: Sequence[Sequence[int]], *, tol: float) -> Dict:
+              tokens: Sequence[Sequence[int]], *, tol: float,
+              tol_row_ulps: Optional[float] = None) -> Dict:
     """Hold ``tokens`` (per request, the sequence under test) and the
     logits replayed along them by the implementation under test to the
     reference's replayed logits.  Returns a report; ``report["ok"]`` is
-    gate 1 (``max_logit_err <= tol``) and gate 2 (no high-margin
-    mismatch)."""
+    gate 1 (``max_logit_err <= tol``, or with ``tol_row_ulps``
+    ``max_logit_err_row_ulps <= tol_row_ulps``: a bound that scales with
+    the logits' magnitude) and gate 2 (no high-margin mismatch)."""
     errs = [float(np.max(np.abs(r - t))) if len(r) else 0.0
             for r, t in zip(ref_logits, test_logits)]
     max_err = max(errs, default=0.0)
+    max_ulps = max((row_ulps(r, t) for r, t in zip(ref_logits, test_logits)),
+                   default=0.0)
     n_high = n_mismatch = n_tokens = n_exact = 0
     per_request: List[Dict] = []
     for r, toks, err in zip(ref_logits, tokens, errs):
@@ -122,11 +137,15 @@ def dual_gate(ref_logits: Sequence[np.ndarray],
         n_exact += int(np.sum(greedy == toks))
         per_request.append({"max_err": err, "high_margin": int(np.sum(high)),
                             "mismatches": mism})
-    return {"tol": tol, "max_logit_err": max_err, "n_tokens": n_tokens,
-            "greedy_equal_tokens": n_exact, "high_margin_tokens": n_high,
+    bounded = max_err <= tol if tol_row_ulps is None \
+        else max_ulps <= tol_row_ulps
+    return {"tol": tol, "tol_row_ulps": tol_row_ulps,
+            "max_logit_err": max_err, "max_logit_err_row_ulps": max_ulps,
+            "n_tokens": n_tokens, "greedy_equal_tokens": n_exact,
+            "high_margin_tokens": n_high,
             "high_margin_mismatches": n_mismatch,
             "per_request": per_request,
-            "ok": max_err <= tol and n_mismatch == 0}
+            "ok": bounded and n_mismatch == 0}
 
 
 def dual_gate_verify(cfg: ArchConfig, scfg: ServeConfig, params,

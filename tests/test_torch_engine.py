@@ -181,3 +181,21 @@ def test_unported_families_refuse():
         cfg = tconfigs.reduced(tconfigs.get_arch(name))
         with pytest.raises(NotImplementedError, match=item):
             Engine(cfg, tconfigs.ServeConfig(), device="cpu")
+
+
+@pytest.mark.parametrize("top,delta,ok", [
+    (40.0, 0.25, True),     # one ulp in [32, 64)
+    (70.0, 0.5, True),      # one ulp in [64, 128): 0.25 absolute would fail
+    (40.0, 0.75, False),    # three ulps
+])
+def test_dual_gate_row_ulp_bound(top, delta, ok):
+    """Gate 1 in bf16 ulps of each token's largest |logit| scales with the
+    logits: one ulp passes at any magnitude, three fail."""
+    ref = np.array([[top, 1.0, -3.0], [2.0, 0.5, 0.0]], np.float32)
+    test = ref.copy()
+    test[0, 1] += delta
+    rep = dual_gate([ref], [test], [[0, 0]], tol=TOL, tol_row_ulps=2.0)
+    assert rep["max_logit_err_row_ulps"] == delta / 2.0 ** (
+        np.floor(np.log2(top)) - 7)
+    assert rep["ok"] is ok
+    assert dual_gate([ref], [test], [[0, 0]], tol=TOL)["ok"] is (delta <= TOL)

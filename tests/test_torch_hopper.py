@@ -30,6 +30,8 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
     ragged_prefill, ragged_prefill_plain, windowed_prefill,
     windowed_prefill_plain)
+from repro_torch.kernels.rbm_cd import (  # noqa: E402
+    gemm_sigmoid, gemm_sigmoid_plain)
 from repro_torch.models.attention import quantize_int8  # noqa: E402
 from repro_torch.models.registry import init_params  # noqa: E402
 from repro_torch.serving import Engine, dual_gate, replay_logits  # noqa: E402
@@ -67,7 +69,7 @@ def _pool(rng, lengths, ps, K, D, width, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,D", [(7, 64), (2, 32)])
+@pytest.mark.parametrize("G,D", [(7, 64), (2, 32), (3, 128)])
 def test_kernels_match_plain(cuda, G, D):
     rng = np.random.RandomState(G)
     ps, K = 16, 2
@@ -149,7 +151,8 @@ def _verify_inputs(rng, Q, G, D, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,G,D", [(5, 7, 64), (3, 2, 32), (1, 7, 64)])
+@pytest.mark.parametrize("Q,G,D", [(5, 7, 64), (3, 2, 32), (1, 7, 64),
+                                   (5, 12, 128)])
 @pytest.mark.parametrize("int8", [False, True])
 def test_verify_kernel_matches_plain(cuda, Q, G, D, int8):
     rng = np.random.RandomState(Q * 10 + G)
@@ -181,7 +184,7 @@ def test_verify_with_one_live_query_is_decode_bit_for_bit(cuda, int8):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,D", [(7, 64), (2, 32)])
+@pytest.mark.parametrize("G,D", [(7, 64), (2, 32), (3, 128)])
 def test_int8_kernels_match_plain(cuda, G, D):
     rng = np.random.RandomState(G + 1)
     ps, K = 16, 2
@@ -260,12 +263,14 @@ def _ring_inputs(rng, B, n_ring, ps, K, D, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,D,slack", [(9, 128, 0), (9, 128, 1), (2, 32, 1)])
+@pytest.mark.parametrize("G,D,slack", [(9, 128, 0), (9, 128, 1), (2, 32, 1),
+                                        (12, 128, 1)])
 @pytest.mark.parametrize("int8", [False, True])
 def test_ring_kernels_match_plain(cuda, G, D, slack, int8):
     """K1 and K3 in ring mode (window 64 over a ring of window_pages(64,
     16) pages, plus a slack page) against their plain versions, and K3
-    with one live query per row against K1 bit for bit."""
+    with one live query per row against K1 bit for bit; at G = 12 K3's
+    60 rows go to two blocks."""
     rng = np.random.RandomState(G + D + slack)
     ps, K, window, Q = 16, 4, 64, 5
     n_ring = 5 + slack
@@ -282,8 +287,6 @@ def test_ring_kernels_match_plain(cuda, G, D, slack, int8):
     got = paged_decode(q, k, v, t, pos, **kw)
     assert paged_decode.launches == n0 + 1
     assert _within_one_ulp(got, paged_decode_plain(q, k, v, t, pos, **kw))
-    if Q * G > 48:
-        return
     qv = torch.from_numpy(rng.randn(4, Q, K * G, D).astype(np.float32)) \
         .bfloat16().to(cuda)
     n_q = torch.tensor([1, 3, 5, 2], dtype=torch.int32, device=cuda)
@@ -325,13 +328,18 @@ def test_windowed_prefill_kernel_matches_plain(cuda, G, D, int8):
 
 @pytest.mark.cuda
 def test_verify_refuses_more_rows_than_a_block_holds(cuda):
-    """command-r-plus-104b's G = 12 at Q = 5 is 60 rows > 48: K3 raises."""
+    """K3 splits a (request, KV head)'s rows over blocks by query token, so
+    one token's G rows must fit a block: G = 49 > 48 raises, while
+    command-r-plus-104b's G = 12 at Q = 5 (60 rows, two blocks) runs."""
     rng = np.random.RandomState(3)
     k, v, t = _ring_inputs(rng, 1, 5, 16, 1, 128, cuda)
-    q = torch.zeros(1, 5, 12, 128, dtype=torch.bfloat16, device=cuda)
     pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    q = torch.zeros(1, 1, 49, 128, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
-        paged_verify(q, k, v, t, pos, pos + 5, scale=0.1, window=64)
+        paged_verify(q, k, v, t, pos, pos + 1, scale=0.1, window=64)
+    q = torch.zeros(1, 5, 12, 128, dtype=torch.bfloat16, device=cuda)
+    out = paged_verify(q, k, v, t, pos, pos + 5, scale=0.1, window=64)
+    assert out.shape == q.shape
 
 
 @pytest.mark.cuda
@@ -366,3 +374,34 @@ def test_windowed_hopper_engine_passes_the_dual_gate(cuda, kv_dtype, spec):
                 for p, tk in zip(prompts, tokens)]
     rep = dual_gate(ref, test, tokens, tol=0.25)
     assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,transposed", [
+    (100, 784, 1000, False), (100, 1000, 784, True), (37, 200, 61, False),
+    (513, 250, 30, False), (100, 30, 250, True), (1, 30, 10, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_sigmoid_kernel_matches_plain(cuda, M, K, N, transposed,
+                                           dtype):
+    """K8 against its plain version: the paper's layer shapes (the negative
+    phase reads a row-major [N, K] weight as the transposed view), ragged
+    M, N and K.  fp32 within 1e-5 (the two sum K products in another order
+    and the sigmoid's slope is at most 1/4); bf16 within one bf16 ulp of
+    each row's largest output."""
+    rng = np.random.RandomState(M + K + N)
+    x = torch.from_numpy(rng.rand(M, K).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((0.1 * rng.randn(N, K) if transposed
+                          else 0.1 * rng.randn(K, N)).astype(np.float32))
+    w = w.to(cuda, dtype)
+    w = w.T if transposed else w
+    b = torch.from_numpy(0.1 * rng.randn(N).astype(np.float32)) \
+        .to(cuda, dtype)
+    n0 = gemm_sigmoid.launches
+    got = gemm_sigmoid(x, w, b)
+    want = gemm_sigmoid_plain(x, w, b)
+    assert gemm_sigmoid.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert _within_one_ulp(got, want)

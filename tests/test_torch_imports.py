@@ -26,7 +26,8 @@ ORIG = SRC / "repro"
 # the copy holds every definition of the original)
 ARCH_FILES = ["command_r_plus_104b", "dbrx_132b", "deepseek_v2_236b",
               "llava_next_34b", "mamba2_780m", "minitron_4b", "qwen2_0_5b",
-              "recurrentgemma_2b", "seamless_m4t_large_v2", "starcoder2_7b"]
+              "recurrentgemma_2b", "seamless_m4t_large_v2", "starcoder2_7b",
+              "mnist_dbn"]
 COPIES = {
     "configs/base.py": ("configs/base.py",
                         {"ServeConfig.__post_init__"}, True),
@@ -38,6 +39,8 @@ COPIES = {
                              {"Tracer.__doc__", "Tracer.__init__",
                               "Tracer.annotate"}, True),
     "serving/admission.py": ("serving/admission.py", set(), False),
+    "data/synthetic_mnist.py": ("data/synthetic_mnist.py", set(), True),
+    "data/dedup.py": ("data/dedup.py", set(), True),
     **{f"configs/{a}.py": (f"configs/{a}.py", set(), True)
        for a in ARCH_FILES},
 }

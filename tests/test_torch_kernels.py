@@ -26,6 +26,8 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode, paged_decode_plain, paged_verify)
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
     ragged_prefill, ragged_prefill_plain, windowed_prefill)
+from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
+from repro_torch.kernels.ragged_prefill import ops as ragged_ops  # noqa: E402
 
 
 def _bf16(a):
@@ -164,3 +166,32 @@ def test_unported_kernel_modes_refuse(mode, item):
                          torch.tensor([0], dtype=torch.int32),
                          torch.tensor([8], dtype=torch.int32), window=16,
                          scale=0.2, **mode)
+
+
+@pytest.mark.parametrize("D,ok", [(32, True), (64, True), (128, True),
+                                  (96, False)])
+def test_prefill_kernel_shape_check(D, ok):
+    """K2 takes head dims 32, 64 and 128 (minitron-4b, dbrx-132b and
+    llava-next-34b prefill at 128); other head dims raise before launch."""
+    args = ((2, 256, 24, D), (40, 16, 8, D), (2, 10), (2,))
+    if ok:
+        ragged_ops.check_prefill_shapes(*args)
+    else:
+        with pytest.raises(ValueError, match="unsupported"):
+            ragged_ops.check_prefill_shapes(*args)
+
+
+@pytest.mark.parametrize("Q,G,ok", [(5, 7, True), (5, 9, True),
+                                    (5, 12, True), (1, 48, True),
+                                    (5, 49, False)])
+def test_verify_kernel_shape_check(Q, G, ok):
+    """K3 splits a (request, KV head)'s Q * G rows over blocks of at most
+    48 rows by query token, so command-r-plus-104b's G = 12 at Q = 5 (60
+    rows) is accepted; only a group of more than 48 query heads per KV
+    head raises."""
+    args = ((4, Q, 8 * G, 128), (50, 16, 8, 128), (4, 258), (4,), (4,))
+    if ok:
+        paged_ops.check_verify_shapes(*args, window=4096)
+    else:
+        with pytest.raises(ValueError, match="unsupported"):
+            paged_ops.check_verify_shapes(*args, window=4096)

@@ -409,3 +409,48 @@ def test_cli_speculative_verify_on_cpu(capsys):
     out = capsys.readouterr().out
     assert len(tokens) == 6
     assert "speculation: K=4" in out and "verify OK: 6 requests" in out
+
+
+def test_verify_rows_equal_decode_rows_at_full_width():
+    """At qwen2-0.5b's full width (d_model 896, d_ff 4864; 2 layers, a 4096
+    vocab) on the CPU, row j of a verify step over 8 slots equals the
+    decode step at pos + j bit for bit, all 40 rows: the verify step runs
+    its projections, MLP and LM head at the decode step's M = 8, where one
+    product of M = 40 rows rounds some rows otherwise than M = 8 does."""
+    from repro_torch.models.registry import init_params
+    tcfg = tconfigs.reduced(tconfigs.get_arch("qwen2-0.5b"), d_model=896,
+                            n_heads=14, n_kv_heads=2, head_dim=64,
+                            d_ff=4864, vocab=4096)
+    params = init_params(tcfg, 0, "cpu")
+    ps, Q, B = 16, 5, 8
+    pool = PagedKVPool(tcfg, tconfigs.ServeConfig(page_size=ps, max_slots=B,
+                                                  max_len=64))
+    rng = np.random.RandomState(11)
+    lens = rng.randint(9, 40, size=B).astype(np.int32)
+    tables = np.zeros((B, pool.table_width), np.int32)
+    T = 48
+    toks = np.zeros((B, T), np.int32)
+    for b, n in enumerate(lens):
+        pages = pool.alloc(pool.pages_for(int(n) + Q))
+        tables[b, :len(pages)] = pages
+        toks[b, :n] = rng.randint(1, tcfg.vocab, size=n)
+    model = build_model(tcfg)
+    vt = rng.randint(1, tcfg.vocab, size=(B, Q)).astype(np.int32)
+    with torch.no_grad():
+        _, kv, _ = model.prefill_paged(
+            params, pool.kv, {}, meta_to_device(prefill_meta(
+                tcfg, ps, tables, np.arange(B, dtype=np.int32),
+                np.zeros(B, np.int32), lens, T), "cpu"),
+            torch.from_numpy(toks))
+        tv, kv, _ = model.verify_paged(
+            params, kv, {}, meta_to_device(verify_meta(
+                tcfg, ps, tables, lens, np.full(B, Q, np.int32), Q), "cpu"),
+            torch.from_numpy(vt))
+        equal = 0
+        for j in range(Q):
+            dec, kv, _ = model.decode_paged(
+                params, kv, {}, meta_to_device(
+                    decode_meta(tcfg, ps, tables, lens + j), "cpu"),
+                torch.from_numpy(vt[:, j]))
+            equal += int((dec == tv[:, j]).all(-1).sum())
+    assert equal == B * Q
