@@ -42,7 +42,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    4 chunks of 256 at starts 0, 3840, 4352 and 5888 (one with 200 live
    tokens); K1 in ring mode at positions up to 6100; K3 in ring mode with
    Q=5 and live queries 1..5, and at one live query against K1-ring bit
-   for bit;
+   for bit; and K1-ring, K3-ring and K4, bf16 and int8, on one window of
+   K/V laid out in a 257-page and in a 258-page ring at positions past the
+   wrap, bit for bit (the ring kernels sum in the order of absolute
+   positions, so the ring's length changes nothing);
 10. the sliding-window path: full-width starcoder2-7b, its depth cut to 16
    of 32 layers to keep the run near ten minutes (random weights from
    ``--seed``) on the hopper backend, 4 requests of
@@ -51,7 +54,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    cacheable): bf16 (K4 and K1-ring, counted), K = 4 n-gram speculation
    (K3-ring), int8 pages and int8 with speculation, each held to the
    reference replay along its own tokens by the dual gate and counted
-   against the bf16 run;
+   against the bf16 run; each speculative stream must equal the plain
+   stream of its pool dtype token for token;
 11. K2 at head dim 128 (minitron-4b: 8 KV x 3 query heads of 128, the 8
    chunks of phase 3), bf16 and int8; K3 in ring mode at command-r-plus-104b
    shapes (8 KV x 12 query heads of 128: Q=5 is 60 rows per (request, KV
@@ -67,7 +71,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    (full depth is ~210 GB): phase 10's four runs, the speculative ones
    through K3's 60-row ring mode; gate 1 of its dual gates holds each
    token's logits within 2 bf16 ulps of that row's largest |logit| (its
-   random logits lie near 32 to 64, where one ulp is 0.25);
+   random logits lie near 32 to 64, where one ulp is 0.25), and the
+   speculative streams again equal the plain ones;
 14. the paper's path: full-width mnist-dbn (784-1000-500-250-30) on 60000
    synthetic digits, one CD-1 epoch per RBM (batch 100) through K8 (3
    launches a CD step, 1 a layer's forward-propagation job), one epoch of
@@ -75,7 +80,18 @@ Phases, each printing its own lines; any failed check exits non-zero:
    must fall, the test error beat chance), the CD samples that flip
    between K8 and its plain version, and a fine-tuning step through
    ``core.mapreduce`` over NCCL at world size 1 equal to the plain step
-   bit for bit.
+   bit for bit;
+15. K5 (MLA latent decode) and K6 (MLA chunk prefill) against their plain
+   versions at full-width deepseek-v2 shapes (128 heads, a 512-wide latent
+   and 64-wide rope key, 16-token pages): K5 at B=8, ragged positions up
+   to 2047 over shuffled tables and two idle rows; K6 on 8 chunks of 256
+   at starts 0, 256, ..., 1792, the last with 200 live tokens;
+16. the MLA + MoE path: deepseek-v2-236b at full width, its depth cut to
+   4 of 60 layers (layer 0 dense, 3 MoE; 26.6 GB of bf16 weights, where
+   full depth is ~470 GB), served as phase 6 serves qwen2-0.5b (K6 for
+   every prefill chunk, K5 for every decode step, counted), with the
+   device's busy share from a profiled rerun, then on the reference
+   backend, and held to the reference replay by the dual gate.
 
 In phases 7, 10 and 13 a verify step's rows must equal decode steps at
 ``pos + j`` bit for bit.
@@ -594,6 +610,244 @@ def phase_ring(torch, rng, timer, int8=False, K=SC_K, G=SC_G,
     return out
 
 
+def ring_history(torch, hist, tables, ps, upto):
+    """Pages [P, ps, ...] holding, in each row's ring of ``tables`` [B, n]
+    pages, the newest ``n * ps`` positions up to ``upto[b]`` of ``hist[b]``
+    ([B, N, ...], one entry per absolute position): position a sits at slot
+    a mod (n * ps), as the engine writes it.  Page 0 (the null page) and
+    slots not yet written hold zeros."""
+    B, n = tables.shape
+    ring = n * ps
+    pages = hist.new_zeros((int(tables.max().item()) + 1, ps)
+                           + tuple(hist.shape[2:]))
+    for b in range(B):
+        a = torch.arange(max(0, upto[b] - ring + 1), upto[b] + 1,
+                         device=hist.device)
+        slot = a % ring
+        pages[tables[b, slot // ps].long(), slot % ps] = hist[b, a]
+    return pages
+
+
+# Part of phase 9: the same window of K/V laid out in starcoder2-7b's
+# 257-page ring and in the speculative pool's 258-page ring, at positions
+# past the wrap.  (kernel id, positions or chunk starts, live queries or
+# live chunk tokens)
+RING_LENGTH_CASES = (("K1-ring", [4200, 4600, 5000, 6100], None),
+                     ("K3-ring", [4120, 4600, 5000, 6100, 4500],
+                      [1, 2, 3, 4, 5]),
+                     ("K4", [4352, 5888, 4128, 6000], [256, 256, 256, 200]))
+
+
+def phase_ring_lengths(torch, rng, int8=False):
+    """K1-ring, K3-ring and K4 on one window of K/V held in a 257-page ring
+    and in a 258-page ring (the speculative pool's slack page), at
+    starcoder2-7b shapes: the kernels sweep a ring's pages in the order of
+    their absolute positions, so the two outputs must be equal bit for bit
+    (the windowed speculative stream equals the plain stream).  Returns
+    {kernel id: True}."""
+    from repro_torch.kernels.paged_attention import paged_decode, paged_verify
+    from repro_torch.kernels.ragged_prefill import windowed_prefill
+    from repro_torch.models.cache_spec import window_pages
+    K, G, D, ps, window = SC_K, SC_G, SC_D, PAGE, SC_WINDOW
+    H, sfx, T, Q = K * G, "-int8" if int8 else "", 256, 5
+    n0 = window_pages(window, ps)
+    gen = torch.Generator(device="cuda").manual_seed(21 + int8)
+    out = {}
+    for kid, pos, live in RING_LENGTH_CASES:
+        B = len(pos)
+        # each row's K/V at every absolute position it has written
+        upto = [p + (live[b] - 1 if kid == "K3-ring" else 0) if kid != "K4"
+                else p - 1 for b, p in enumerate(pos)]
+        N = max(upto) + 1
+        hk = torch.randn((B, N, K, D), generator=gen, device="cuda").bfloat16()
+        hv = torch.randn((B, N, K, D), generator=gen, device="cuda").bfloat16()
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        if kid == "K1-ring":
+            q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16()
+        elif kid == "K3-ring":
+            q = torch.randn((B, Q, H, D), generator=gen,
+                            device="cuda").bfloat16()
+        else:
+            q = torch.randn((B, T, H, D), generator=gen,
+                            device="cuda").bfloat16()
+            kn = torch.randn((B, T, K, D), generator=gen,
+                             device="cuda").bfloat16()
+            vn = torch.randn((B, T, K, D), generator=gen,
+                             device="cuda").bfloat16()
+        outs = []
+        for n_ring in (n0, n0 + 1):
+            tables = torch.as_tensor(
+                (rng.permutation(B * n_ring) + 1).reshape(B, n_ring)
+                .astype(np.int32), device="cuda")
+            k = ring_history(torch, hk, tables, ps, upto)
+            v = ring_history(torch, hv, tables, ps, upto)
+            kw = dict(scale=1.0 / math.sqrt(D), window=window)
+            if int8:
+                k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
+            if kid == "K1-ring":
+                o = paged_decode(q, k, v, tables, pos_t, **kw)
+            elif kid == "K3-ring":
+                o = paged_verify(q, k, v, tables, pos_t, torch.tensor(
+                    live, dtype=torch.int32, device="cuda"), **kw)
+            else:
+                o = windowed_prefill(q, kn, vn, k, v, tables, pos_t,
+                                     torch.tensor(live, dtype=torch.int32,
+                                                  device="cuda"), **kw)
+            outs.append(o)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(outs[0], outs[1]))
+        diff = (outs[0].float() - outs[1].float()).abs().max().item()
+        print(f"[smoke] {kid}{sfx} on one window in a {n0}-page and a "
+              f"{n0 + 1}-page ring (positions {pos}): bit for bit "
+              f"{'equal -> OK' if equal else f'DIFFER (max {diff:.3g})'}",
+              flush=True)
+        if not equal:
+            fail(f"{kid}{sfx}: the ring's length changes its output")
+        out[kid] = equal
+    return out
+
+
+# deepseek-v2-236b's MLA at full width: 128 heads, a 512-wide latent and a
+# 64-wide rope key per token (one shared latent "KV head"), 128 + 64 query
+# dims and 128 value dims a head
+DS_H, DS_L, DS_R, DS_NOPE, DS_V = 128, 512, 64, 128, 128
+
+
+def latent_pool(torch, rng, lengths, width):
+    """Random bf16 latent pages (ckv [P, 16, 512], krope [P, 16, 64]) for
+    requests of ``lengths`` tokens over shuffled tables (entries past a
+    request's pages, and idle rows, point at the null page 0)."""
+    need = [-(-n // PAGE) for n in lengths]
+    P = sum(need) + 1
+    perm = rng.permutation(P - 1) + 1
+    tables = torch.zeros((len(lengths), width), dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = torch.as_tensor(perm[at:at + n])
+        at += n
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    ckv = torch.randn((P, PAGE, DS_L), generator=gen,
+                      device="cuda").bfloat16()
+    kr = torch.randn((P, PAGE, DS_R), generator=gen, device="cuda").bfloat16()
+    return ckv, kr, tables.cuda()
+
+
+def phase_mla_decode(torch, rng, timer):
+    """K5 against its plain version at full-width deepseek-v2 decode
+    shapes: B=8, 128 heads, 16-token latent pages, ragged positions up to
+    2047 over shuffled tables and two idle rows (pos 0, null table)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (mla_paged_decode,
+                                                     mla_paged_decode_plain)
+    from repro_torch.models.attention import gather_pages
+    B, width = 8, 128
+    pos = [2047, 1500, 1023, 0, 15, 0, 777, 1900]
+    lengths = [p + 1 for p in pos]
+    lengths[3] = lengths[5] = 0                    # idle rows
+    ckv, kr, tables = latent_pool(torch, rng, lengths, width)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    q_eff = torch.randn((B, DS_H, DS_L), generator=gen,
+                        device="cuda").bfloat16()
+    q_rope = torch.randn((B, DS_H, DS_R), generator=gen,
+                         device="cuda").bfloat16()
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(DS_NOPE + DS_R)
+    args = (q_eff, q_rope, ckv, kr, tables, pos_t)
+    got = mla_paged_decode(*args, scale=scale)
+    want = mla_paged_decode_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    err, ratio = check_kernel(torch, "K5 mla_paged_decode", got, want)
+    ms = timer(lambda: mla_paged_decode(*args, scale=scale))
+    plain_ms = timer(lambda: mla_paged_decode_plain(*args, scale=scale))
+    # yardstick: SDPA of q_eff ++ q_rope against the gathered ckv ++ krope,
+    # v = ckv, one KV head shared by the 128 query heads
+    cc, cr = gather_pages(ckv, tables), gather_pages(kr, tables)
+    S = cc.shape[1]
+    qk = torch.cat([q_eff, q_rope], -1)[:, :, None, :]
+    kk = torch.cat([cc, cr], -1)[:, None].expand(B, DS_H, S, DS_L + DS_R)
+    vv = cc[:, None].expand(B, DS_H, S, DS_L)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= pos_t[:, None])[:, None, None, :]
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qk, kk, vv, attn_mask=mask, scale=scale))
+    live = sum(p + 1 for p in pos)
+    nbytes = live * (DS_L + DS_R) * 2 + (q_eff.numel() + q_rope.numel()
+                                         + got.numel()) * 2 \
+        + tables.numel() * 4 + B * 4
+    flops = live * DS_H * (2 * (DS_L + DS_R) + 2 * DS_L)
+    bms, by = bound(nbytes, flops)
+    print(f"[smoke] K5 mla_paged_decode: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}: {nbytes / 1e6:.2f} MB of latent pages, q, out, tables; "
+          f"{flops / 1e9:.2f} GFLOP)", flush=True)
+    return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def phase_mla_prefill(torch, rng, timer):
+    """K6 against its plain version at full-width deepseek-v2 chunk shapes:
+    B=8 chunks of 256 tokens at starts 0, 256, ..., 1792 over shuffled
+    tables, the last with 200 live tokens (its table ends there: its
+    padding rows read the null page, as in the engine), 128 heads, per-head
+    K/V materialized from the latent with a random ``wkv_b``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ragged_prefill import (mla_ragged_prefill,
+                                                    mla_ragged_prefill_plain)
+    from repro_torch.models.attention import gather_pages
+    B, T, width = 8, 256, 128
+    starts = [256 * i for i in range(B)]
+    n_live = [T] * (B - 1) + [200]
+    ckv, kr, tables = latent_pool(torch, rng,
+                                  [s + n for s, n in zip(starts, n_live)],
+                                  width)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    E = DS_NOPE + DS_R
+    q = torch.randn((B, T, DS_H, E), generator=gen, device="cuda").bfloat16()
+    wkv_b = (torch.randn((DS_L, DS_H, DS_NOPE + DS_V), generator=gen,
+                         device="cuda") / math.sqrt(DS_L)).bfloat16()
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    args = (q, ckv, kr, wkv_b, tables, st)
+    got = mla_ragged_prefill(*args, nope=DS_NOPE)
+    want = mla_ragged_prefill_plain(*args, nope=DS_NOPE)
+    torch.cuda.synchronize()
+    err, ratio = check_kernel(torch, "K6 mla_ragged_prefill", got, want)
+    ms = timer(lambda: mla_ragged_prefill(*args, nope=DS_NOPE))
+    plain_ms = timer(lambda: mla_ragged_prefill_plain(*args, nope=DS_NOPE))
+    # yardstick: the einsum that materializes K/V from the gathered latent,
+    # then SDPA with the chunk's causal mask
+    cc, cr = gather_pages(ckv, tables), gather_pages(kr, tables)
+    S = cc.shape[1]
+    qpos = st[:, None] + torch.arange(T, device="cuda")[None, :]
+    mask = (torch.arange(S, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    qh = q.transpose(1, 2)
+
+    def library():
+        kv = torch.einsum("bsl,lhe->bhse", cc, wkv_b)
+        k = torch.cat([kv[..., :DS_NOPE], cr[:, None].expand(
+            B, DS_H, S, DS_R)], -1)
+        return F.scaled_dot_product_attention(qh, k, kv[..., DS_NOPE:],
+                                              attn_mask=mask,
+                                              scale=1.0 / math.sqrt(E))
+    library_ms = timer(library)
+    keys = sum(s + T for s in starts)              # the keys K6 sweeps
+    pairs = sum(T * s + T * (T + 1) // 2 for s in starts)
+    flops = keys * DS_H * DS_L * (DS_NOPE + DS_V) * 2 \
+        + pairs * DS_H * (E + DS_V) * 2
+    nbytes = keys * (DS_L + DS_R) * 2 + (q.numel() + got.numel()
+                                         + wkv_b.numel()) * 2 \
+        + tables.numel() * 4 + B * 4
+    bms, by = bound(nbytes, flops)
+    print(f"[smoke] K6 mla_ragged_prefill: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, einsum + sdpa {library_ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, K/V "
+          f"materialization included, {nbytes / 1e6:.2f} MB)", flush=True)
+    return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
+
+
 def serving_workload(rng, vocab):
     shared = rng.randint(1, vocab, size=PREFIX).tolist()
     lens = [int(x) for x in np.linspace(PROMPT_LO, PROMPT_HI, N_REQUESTS)]
@@ -1048,6 +1302,13 @@ def phase_window_serve(torch, seed, arch="starcoder2-7b", n_layers=None,
                 res = spec_report(f"{cfg.name} {label} serve", m, c, tokens,
                                   plain_tokens[kv], L)
                 counts["K3-ring" + sfx] = c["K3"]
+                # the ring kernels sum in position order, so the slack
+                # page of the speculative pool changes no bit
+                if res["tokens_equal_non_speculative"] != m["new_tokens"]:
+                    fail(f"{cfg.name} {label}: "
+                         f"{res['tokens_equal_non_speculative']}/"
+                         f"{m['new_tokens']} tokens equal the {kv} "
+                         "non-speculative stream")
             else:
                 if c["K1"] != m["decode_steps"] * L or c["K3"]:
                     fail(f"{label}: K1 launches {c['K1']} != decode steps "
@@ -1106,6 +1367,124 @@ def phase_window_serve(torch, seed, arch="starcoder2-7b", n_layers=None,
             torch, cfg, params, [p[:2048] for p in prompts],
             [t[:5] for t in base_tokens], base=base)
     return counts, out
+
+
+# deepseek-v2-236b's depth cut: layer 0 dense and 3 MoE layers of 60 at
+# full width, 26.6 GB of bf16 weights (60 layers would be ~470 GB)
+DS_LAYERS = 4
+
+
+def phase_mla_serve(torch, seed):
+    """The MLA + MoE path: full-width deepseek-v2-236b cut to ``DS_LAYERS``
+    layers (random weights from ``seed``) served on the hopper backend with
+    phase 6's workload -- K6 for every prefill chunk, K5 for every decode
+    step, counted -- with a profiled rerun for the device's busy share; then
+    on the reference backend, and the hopper run held to the reference
+    replay along its tokens by the dual gate.  Returns (launch counts {K5,
+    K6}, report)."""
+    import dataclasses
+    from repro_torch.configs import ServeConfig, get_arch
+    from repro_torch.kernels.paged_attention import (mla_paged_decode,
+                                                     paged_decode,
+                                                     paged_verify)
+    from repro_torch.kernels.ragged_prefill import (mla_ragged_prefill,
+                                                    ragged_prefill,
+                                                    windowed_prefill)
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import Engine, dual_gate
+    full = get_arch("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, n_layers=DS_LAYERS)
+    L = cfg.n_layers
+    rng = np.random.RandomState(seed + 2)
+    prompts = serving_workload(rng, cfg.vocab)
+    kw = serve_kwargs()
+    kernels = (mla_paged_decode, mla_ragged_prefill, paged_decode,
+               paged_verify, ragged_prefill, windowed_prefill)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed, "cuda")
+        torch.cuda.synchronize()
+        n_params = sum(leaf.numel() for _, leaf in tree_leaves(params))
+        print(f"[smoke] {cfg.name}: {n_params / 1e9:.3f} B parameters "
+              f"({n_params * 2 / 1e9:.1f} GB bf16), {L} layers (depth cut "
+              f"from {full.n_layers}: full depth does not fit one card; "
+              f"{cfg.first_k_dense} dense, {L - cfg.first_k_dense} MoE of "
+              f"{cfg.n_experts} experts top-{cfg.top_k} + "
+              f"{cfg.n_shared_experts} shared), d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads, kv_lora {cfg.kv_lora_rank}, vocab "
+              f"{cfg.vocab}, drawn on cuda in {time.perf_counter() - t0:.1f}"
+              f" s", flush=True)
+        eng = Engine(cfg, ServeConfig(attn_backend="hopper", **kw), params,
+                     device="cuda")
+        for fn in kernels:
+            fn.launches = 0
+        results, m = eng.run_offline(prompts, GEN_TOKENS)
+        torch.cuda.synchronize()
+        counts = {"K5": mla_paged_decode.launches,
+                  "K6": mla_ragged_prefill.launches}
+        others = sum(fn.launches for fn in kernels[2:])
+        tokens = [r.tokens for r in results]
+        bpt = eng.pool.kv_bytes_per_token
+        print(f"[smoke] {cfg.name} hopper serve: {m['n_requests']} requests, "
+              f"{m['new_tokens']} tokens in {m['wall_s']:.3f} s = "
+              f"{m['tokens_per_s']:.1f} tok/s, decode step p50 "
+              f"{m['decode_step_ms_p50']:.3f} ms over {m['decode_steps']} "
+              f"steps, {m['prefill_steps']} prefill steps "
+              f"({m['chunked_prefill_steps']} continuation chunks), prefix "
+              f"cache hit rate {m['cache_hit_rate']:.3f}, pool {bpt:.0f} B "
+              f"per token; launches K5 {counts['K5']}, K6 {counts['K6']}, "
+              f"K1-K4 {others}", flush=True)
+        if any(r.failed for r in results) \
+                or any(len(t) != GEN_TOKENS for t in tokens) \
+                or not all(0 <= x < cfg.vocab_padded for t in tokens
+                           for x in t):
+            fail(f"{cfg.name}: failed, short or out-of-range requests")
+        if counts["K5"] != m["decode_steps"] * L \
+                or counts["K6"] != m["prefill_steps"] * L or others:
+            fail(f"{cfg.name}: K5 launches {counts['K5']} != decode steps "
+                 f"{m['decode_steps']} x {L}, or K6 launches {counts['K6']} "
+                 f"!= prefill steps {m['prefill_steps']} x {L}, or a GQA "
+                 f"kernel launched {others} times")
+        busy = profile_rerun(torch, eng, prompts)
+        del eng
+        ref = Engine(cfg, ServeConfig(attn_backend="reference", **kw),
+                     params, device="cuda")
+        ref_results, rm = ref.run_offline(prompts, GEN_TOKENS)
+        del ref
+        ref_tokens = [r.tokens for r in ref_results]
+        same = sum(a == b for t, u in zip(tokens, ref_tokens)
+                   for a, b in zip(t, u))
+        print(f"[smoke] {cfg.name} reference serve: {rm['tokens_per_s']:.1f}"
+              f" tok/s, decode step p50 {rm['decode_step_ms_p50']:.3f} ms; "
+              f"{same}/{m['new_tokens']} tokens equal the hopper run",
+              flush=True)
+        replay = Replays(cfg, params, prompts, {}, base=kw)
+        ref_logits = replay("reference", "bf16", tokens)
+        rep = dual_gate(ref_logits, replay("hopper", "bf16", tokens), tokens,
+                        tol=LOGIT_TOL)
+        top = [float(np.abs(r).max(-1).min()) for r in ref_logits] \
+            + [float(np.abs(r).max(-1).max()) for r in ref_logits]
+        print(f"[smoke] {cfg.name} reference replay logits: each token's "
+              f"largest |logit| lies in [{min(top):.3f}, {max(top):.3f}]",
+              flush=True)
+        gate_line(f"dual gate of the {cfg.name} hopper run against the "
+                  "reference replay", rep)
+    del params
+    return counts, {
+        "n_layers": L, "tokens_per_s": m["tokens_per_s"],
+        "decode_step_ms_p50": m["decode_step_ms_p50"],
+        "decode_steps": m["decode_steps"],
+        "prefill_steps": m["prefill_steps"], "busy_share": busy,
+        "ref_tokens_per_s": rm["tokens_per_s"],
+        "ref_decode_step_ms_p50": rm["decode_step_ms_p50"],
+        "tokens_equal_reference_engine": same,
+        "kv_bytes_per_token": bpt, "max_logit_err": rep["max_logit_err"],
+        "max_logit_err_row_ulps": rep["max_logit_err_row_ulps"],
+        "greedy_equal_tokens": rep["greedy_equal_tokens"],
+        "n_tokens": rep["n_tokens"],
+        "high_margin_tokens": rep["high_margin_tokens"],
+        "high_margin_mismatches": rep["high_margin_mismatches"]}
 
 
 def phase_gemm_sigmoid(torch, timer, seed):
@@ -1434,18 +1813,19 @@ def print_profile(what, wall_us, kernels, every_us):
 def profile_rerun(torch, eng, prompts, n_new=8):
     """Where the time goes: rerun the requests (prefixes now cached) for
     ``n_new`` tokens under ``torch.profiler`` and print the device's busy
-    share of the wall time and its top kernels by self device time."""
+    share of the wall time and its top kernels by self device time.
+    Returns the busy share (None: not measured)."""
     reg = eng.metrics
     steps0 = (reg.value("engine.prefill_steps"),
               reg.get("engine.decode_step_s").count)
     res = profile_device(torch, lambda: eng.run_offline(prompts, n_new))
     if res is None:
-        return
+        return None
     prefill_steps = reg.value("engine.prefill_steps") - steps0[0]
     decode_steps = reg.get("engine.decode_step_s").count - steps0[1]
-    print_profile(f"a rerun of {len(prompts)} requests for {n_new} tokens "
-                  f"({decode_steps} decode steps, {prefill_steps} prefill "
-                  f"steps)", *res)
+    return print_profile(f"a rerun of {len(prompts)} requests for {n_new} "
+                         f"tokens ({decode_steps} decode steps, "
+                         f"{prefill_steps} prefill steps)", *res)
 
 
 def print_ptxas(stem, log_path) -> None:
@@ -1528,7 +1908,13 @@ def main() -> None:
     cr, crq = (phase_ring(torch, rng, timer, int8=q, K=CR_K, G=CR_G,
                           cases=CR_RING_CASES, label="-60")["K3-ring"]
                for q in (False, True))
+    ring_lengths = {f"{kid}{'-int8' if q else ''}": equal
+                    for q in (False, True)
+                    for kid, equal in phase_ring_lengths(torch, rng,
+                                                         int8=q).items()}
     k8 = phase_gemm_sigmoid(torch, timer, args.seed)
+    k5 = phase_mla_decode(torch, rng, timer)
+    k6 = phase_mla_prefill(torch, rng, timer)
     print(f"[smoke] kernel phases took {time.perf_counter() - t0:.1f} s",
           flush=True)
     cfg = get_arch("qwen2-0.5b")
@@ -1598,6 +1984,13 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
+    mla_counts, deepseek = phase_mla_serve(torch, args.seed)
+    counts.update(mla_counts)
+    torch.cuda.empty_cache()
+    print(f"[smoke] deepseek-v2-236b serving phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
     counts["K8"], paper = phase_paper(torch, args.seed)
     print(f"[smoke] paper's path phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1646,6 +2039,10 @@ def main() -> None:
               "ragged_prefill/kernel.py:289", k4q),
         entry("K8", "gemm_sigmoid", "gemm_sigmoid.cu",
               "rbm_cd/kernel.py:40", {**k8[0], "shapes": k8}),
+        entry("K5", "mla_paged_decode", "mla_paged_decode.cu",
+              "paged_attention/kernel.py:338", k5),
+        entry("K6", "mla_ragged_prefill", "mla_ragged_prefill.cu",
+              "ragged_prefill/kernel.py:438", k6),
     ]
     print(json.dumps({"kernels": kernels, "serve": {
         k: report[k] for k in ("max_logit_err", "n_tokens",
@@ -1656,7 +2053,8 @@ def main() -> None:
                                "decode_step_ms_p50", "ref_tokens_per_s",
                                "ref_decode_step_ms_p50")},
         "speculative": spec, "int8": int8, "minitron": minitron,
-        "sliding_window": window, "command_r": command_r, "paper": paper}),
+        "ring_length_bit_equal": ring_lengths, "sliding_window": window,
+        "command_r": command_r, "deepseek": deepseek, "paper": paper}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

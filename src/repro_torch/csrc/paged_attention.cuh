@@ -32,17 +32,25 @@
 // reading tables[b, i], pos[b] and n_q[b] on its own.  The block's rows are
 // the Q * G (query token, query head) pairs of the GQA group -- 45 at Q = 5,
 // G = 9 -- and all of them share every K/V page read.  The four warps split
-// the pages round-robin, each with its own fp32 online-softmax state per
-// row, updated exactly as _online_softmax_update (kernel.py:53): -inf
-// masking, the isfinite guards, the alpha rescale.  The four states merge
+// the pages round-robin by absolute page number (warp w takes the absolute
+// pages a == w mod 4, oldest first; in a ring page a sits at slot a mod
+// n_pages), each with its own fp32 online-softmax state per row, updated
+// exactly as _online_softmax_update (kernel.py:53): -inf masking, the
+// isfinite guards, the alpha rescale.  The four states merge
 // at the end in warp order, and the output is cast to bf16 once, after
 // acc / max(l, 1e-20) (kernel.py:70).  Pages past the last live query are
 // never read: page i holds no visible slot when i * ps > pos + n_q - 1,
 // in a ring too (before the ring wraps such slots hold no position yet;
 // once pos + n_q - 1 >= ring every page is swept, as the TPU kernel sweeps
-// every resident page, kernel.py:110-111).  int8 pages are dequantized
-// element by element to f32(q) * f32(s) right before the dot and before
-// PV, as the Pallas bodies and the plain gather do (kernel.py:118-122).
+// every resident page, kernel.py:110-111).  Anchoring the sweep to
+// absolute pages makes a ring's sums independent of the ring's length: a
+// ring of n_pages + 1 (the speculative pool's slack page) holding the same
+// window adds only its oldest page, which no row sees, and a page no row
+// sees is an exact no-op on a warp's state (p = 0, alpha = 1).  So the
+// windowed speculative stream equals the plain stream bit for bit.  int8
+// pages are dequantized element by element to f32(q) * f32(s) right before
+// the dot and before PV, as the Pallas bodies and the plain gather do
+// (kernel.py:118-122).
 //
 // Shared memory (queries, four warps' K and V pages, scores, softmax
 // states) is dynamic: at D = 128 and 48 rows it passes the 48 KB a block
@@ -234,14 +242,28 @@ paged_attend_kernel(const __nv_bfloat16* __restrict__ q,    // [B, Q, H, D]
   // the block's last live query token, and its position
   const int j_last = min(j0 + rows / G, nq_b) - 1;
   const int last = p_b + j_last;
-  int n_live = (j_last < j0 || last < 0) ? 0 : last / ps + 1;  // i*ps <= last
-  if (n_live > n_pages) n_live = n_pages;
+  // The absolute pages to sweep, oldest first: a_lo..a_hi, page a at table
+  // slot a % n_pages.  Causal: slots 0..last / ps (a == slot).  Ring: the
+  // n_pages newest absolute pages up to last's, one sweep of the whole ring
+  // once it has wrapped.  Warp w takes the pages a == w (mod kWarps), so the
+  // page -> warp assignment and every warp's sum order follow absolute
+  // positions, not ring slots: two rings of different length holding the
+  // same window sum the same keys in the same order.
+  int a_hi = (j_last < j0 || last < 0) ? -1 : last / ps;
+  if (window == 0 && a_hi > n_pages - 1) a_hi = n_pages - 1;
+  const int a_lo = max(0, a_hi - n_pages + 1);
   __syncthreads();
 
   Acc<D, kMaxRows, kAccSmem> acc;
   acc.init(&sm.acc[kAccSmem ? warp : 0][0][0], lane);
 
-  for (int i = warp; i < n_live; i += kWarps) {
+  const int a0 = a_lo + ((warp - a_lo) % kWarps + kWarps) % kWarps;
+  int i = a0 % n_pages;                          // the page's table slot
+  for (int a = a0; a <= a_hi; a += kWarps) {
+    if (a > a0) {                                // i = a % n_pages
+      i += kWarps;
+      while (i >= n_pages) i -= n_pages;
+    }
     const int page = tables[(size_t)b * n_pages + i];
     const size_t base = ((size_t)page * ps * K + kh) * D;
     sm.k_t[warp].load(k_pages, k_scale, base, ps, K, kh, page, lane);

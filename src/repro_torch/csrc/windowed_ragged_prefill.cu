@@ -45,14 +45,18 @@
 //           fp32.
 // The two sources are two tile types staged into one fp32 tile: a ring page
 // through the page table (int8 dequantized to f32(q) * f32(s) as it is
-// staged), or ps rows of the fresh chunk.  Before a page is staged the
-// block computes its slots' absolute positions once (threads < ps) and
-// skips the page when no row of the tile sees any of them -- ring pages
-// that aged out of every row's window, fresh pages past the tile's last
-// live row.  This is the single softmax at the row's true max that keeps
-// the kernel exact against the reference -- it must not become an online
-// softmax.  Unseen keys take no part (the reference's -1e30 entries add
-// exp(-1e30 - m) = 0).  One bf16 cast at the output.
+// staged), or ps rows of the fresh chunk.  The ring's pages are swept in
+// the order of their absolute positions, oldest first, then the fresh
+// pages, so the ring's length does not change the order of any sum (a ring
+// with the speculative pool's slack page equals the plain ring bit for
+// bit).  Before a page is staged the block computes its slots' absolute
+// positions once (threads < ps) and skips the page when no row of the tile
+// sees any of them -- ring pages that aged out of every row's window, fresh
+// pages past the tile's last live row.  This is the single softmax at the
+// row's true max that keeps the kernel exact against the reference -- it
+// must not become an online softmax.  Unseen keys take no part (the
+// reference's -1e30 entries add exp(-1e30 - m) = 0).  One bf16 cast at the
+// output.
 //
 // Numerics: IEEE expf and division (build without --use_fast_math).
 
@@ -163,7 +167,19 @@ windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D
   const int q_hi = st + min(min(t0 + qt, T), nl) - 1;  // last live row
   const int ring = n_ring * ps;
   const int last = st - 1;
-  const int n_kp = n_ring + (nl + ps - 1) / ps;        // ring + fresh pages
+  // Key pages in the order of their absolute positions, oldest first: the
+  // ring's absolute pages a_lo..a_hi (page a at ring slot a % n_ring; none
+  // at start == 0), then the fresh pages.  Iterating by absolute page, not
+  // by ring slot, makes the sums independent of the ring's length: a ring
+  // of n_ring + 1 pages holding the same window adds only its oldest page,
+  // which no row sees.
+  const int a_hi = last >= 0 ? last / ps : -1;
+  const int a_lo = max(0, a_hi - n_ring + 1);
+  const int n_ring_kp = a_hi - a_lo + 1;               // 0 at start == 0
+  const int n_kp = n_ring_kp + (nl + ps - 1) / ps;     // ring + fresh pages
+  auto kp_of = [&](int it) {                           // sweep step -> page
+    return it < n_ring_kp ? (a_lo + it) % n_ring : n_ring + it - n_ring_kp;
+  };
   const int32_t* tb = tables + (size_t)b * n_ring;
 
   __nv_bfloat162 qr[D / 2];
@@ -176,7 +192,8 @@ windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D
 
   // Slot positions of key page kp, then whether any row of the tile sees
   // one (uniform across the block: every thread reads the same kabs_s).
-  auto positions = [&](int kp) -> bool {
+  auto positions = [&](int it) -> bool {
+    const int kp = kp_of(it);
     __syncthreads();                     // earlier readers of the tiles
     for (int j = threadIdx.x; j < ps; j += blockDim.x) {
       int ka = -1;
@@ -207,8 +224,9 @@ windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D
 
   // pass 1: the row's max over every key it sees
   float m = -INFINITY;
-  for (int kp = 0; kp < n_kp; ++kp) {
-    if (!positions(kp)) continue;
+  for (int it = 0; it < n_kp; ++it) {
+    if (!positions(it)) continue;
+    const int kp = kp_of(it);
     stage_page<D, kInt8>(k_s, k_pages, k_scale, k_new, tb, b, kp, n_ring, kh,
                          ps, K, T, nl);
     __syncthreads();
@@ -217,8 +235,9 @@ windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D
   }
   // pass 2: the normalizer at the true max
   float l = 0.f;
-  for (int kp = 0; kp < n_kp; ++kp) {
-    if (!positions(kp)) continue;
+  for (int it = 0; it < n_kp; ++it) {
+    if (!positions(it)) continue;
+    const int kp = kp_of(it);
     stage_page<D, kInt8>(k_s, k_pages, k_scale, k_new, tb, b, kp, n_ring, kh,
                          ps, K, T, nl);
     __syncthreads();
@@ -229,8 +248,9 @@ windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D
   float acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int kp = 0; kp < n_kp; ++kp) {
-    if (!positions(kp)) continue;
+  for (int it = 0; it < n_kp; ++it) {
+    if (!positions(it)) continue;
+    const int kp = kp_of(it);
     stage_page<D, kInt8>(k_s, k_pages, k_scale, k_new, tb, b, kp, n_ring, kh,
                          ps, K, T, nl);
     stage_page<D, kInt8>(v_s, v_pages, v_scale, v_new, tb, b, kp, n_ring, kh,

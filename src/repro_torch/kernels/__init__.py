@@ -114,6 +114,14 @@ def refuse_softcap(name: str, softcap: float) -> None:
             "arch sets attn_logit_softcap)")
 
 
+def refuse_int8_latent(name: str, ckv_scale) -> None:
+    """The TPU MLA kernels' int8 latent mode is not ported: it raises."""
+    if ckv_scale is not None:
+        raise NotImplementedError(
+            f"{name}: int8 latent pages are not ported yet: ROADMAP queue 1 "
+            "item 12b")
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
                  ndim: int, device: torch.device) -> None:
     if t.dtype != dtype or t.dim() != ndim or t.device != device \

@@ -14,6 +14,12 @@ one-query case, so K3 with one live query per row reproduces K1 bit for
 bit, ring mode included.  For CPU tensors each wrapper runs its plain
 PyTorch version, which is also the reference backend's core and the
 kernel's oracle on the card.
+
+``mla_paged_decode`` (kernel K5) replaces ``mla_paged_attention_decode``
+(Pallas ``kernel.py::mla_paged_decode_fwd``): the absorbed-latent MLA
+decode against bf16 latent pages (``csrc/mla_paged_decode.cu``), with its
+plain version ``mla_paged_decode_plain``.  Its int8 latent mode is not
+ported (ROADMAP queue 1 item 12b).
 """
 from __future__ import annotations
 
@@ -22,8 +28,8 @@ import ctypes
 import torch
 
 from .. import (check_launch, check_pool, check_tensor, entry, ptr,
-                refuse_softcap)
-from ...models import attention
+                refuse_int8_latent, refuse_softcap)
+from ...models import attention, mla
 
 
 def paged_decode_plain(q, k_pages, v_pages, tables, pos, *, scale: float,
@@ -165,3 +171,67 @@ def paged_verify(q, k_pages, v_pages, tables, pos, n_q, *, scale: float,
 
 
 paged_verify.launches = 0
+
+
+def mla_paged_decode_plain(q_eff, q_rope, ckv_pages, krope_pages, tables,
+                           pos, *, scale: float):
+    """q_eff: [B, H, L] (``w_uk``-absorbed queries); q_rope: [B, H, R]
+    (roped); ckv_pages: [P, ps, L]; krope_pages: [P, ps, R]; tables: [B,
+    n_pages]; pos: [B] (the new token already written).  Gathers the
+    logical latent view and runs ``mla.mla_latent_attend`` with ``idx <=
+    pos``: fp32 scores, softmax and latent context, one cast at the output.
+    Returns the latent context [B, H, L] in the pages' dtype."""
+    cc = attention.gather_pages(ckv_pages, tables)
+    cr = attention.gather_pages(krope_pages, tables)
+    valid = attention.decode_valid_mask(pos, cc.shape[1])
+    return mla.mla_latent_attend(q_eff, q_rope, cc, cr, valid, scale=scale)
+
+
+# q_eff, q_rope, ckv, krope, tables, pos, out, then B, H, L, R, ps, n_pages,
+# scale, stream
+_MLA_DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+    + [ctypes.c_float, ctypes.c_void_p]
+MLA_DIMS = (512, 64)                        # csrc/mla_paged_decode.cu: L, R
+
+
+def mla_paged_decode(q_eff, q_rope, ckv_pages, krope_pages, tables, pos, *,
+                     scale: float, ckv_scale=None, krope_scale=None):
+    """Absorbed-latent MLA decode (K5); arguments as
+    ``mla_paged_decode_plain``.  On a CUDA device ``q_eff``, ``q_rope`` and
+    the latent pages are contiguous bf16, ``tables`` and ``pos`` contiguous
+    int32, L = 512, R = 64 (deepseek-v2), H a multiple of 8 and page size
+    <= 16; anything else raises.  int8 latent pages (``ckv_scale``/
+    ``krope_scale``) raise ``NotImplementedError``."""
+    refuse_int8_latent("mla_paged_decode", ckv_scale)
+    if q_eff.device.type == "cpu":
+        return mla_paged_decode_plain(q_eff, q_rope, ckv_pages, krope_pages,
+                                      tables, pos, scale=scale)
+    dev = q_eff.device
+    check_tensor(q_eff, "q_eff", torch.bfloat16, 3, dev)
+    check_tensor(q_rope, "q_rope", torch.bfloat16, 3, dev)
+    check_tensor(ckv_pages, "ckv_pages", torch.bfloat16, 3, dev)
+    check_tensor(krope_pages, "krope_pages", torch.bfloat16, 3, dev)
+    check_tensor(tables, "tables", torch.int32, 2, dev)
+    check_tensor(pos, "pos", torch.int32, 1, dev)
+    B, H, L = q_eff.shape
+    P, ps, R = krope_pages.shape
+    if (L, R) != MLA_DIMS or tuple(q_rope.shape) != (B, H, R) \
+            or tuple(ckv_pages.shape) != (P, ps, L) or H % 8 or ps > 16 \
+            or tables.shape[0] != B or pos.shape[0] != B:
+        raise ValueError(
+            f"mla_paged_decode: unsupported shapes q_eff {tuple(q_eff.shape)}"
+            f", q_rope {tuple(q_rope.shape)}, ckv {tuple(ckv_pages.shape)}, "
+            f"krope {tuple(krope_pages.shape)}, tables {tuple(tables.shape)}"
+            f", pos {tuple(pos.shape)}")
+    out = torch.empty_like(q_eff)
+    rc = entry("mla_paged_decode", _MLA_DECODE_ARGTYPES)(
+        q_eff.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
+        krope_pages.data_ptr(), tables.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, H, L, R, ps, tables.shape[1], float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(rc, "mla_paged_decode")
+    mla_paged_decode.launches += 1
+    return out
+
+
+mla_paged_decode.launches = 0

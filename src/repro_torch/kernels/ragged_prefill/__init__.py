@@ -1,4 +1,6 @@
-"""Ragged paged prefill: the Hopper kernels K2 (full attention) and K4
-(sliding-window ring) and their plain versions."""
-from .ops import (ragged_prefill, ragged_prefill_plain,  # noqa: F401
-                  windowed_prefill, windowed_prefill_plain)
+"""Ragged paged prefill: the Hopper kernels K2 (full attention), K4
+(sliding-window ring) and K6 (MLA latent pages) and their plain
+versions."""
+from .ops import (mla_ragged_prefill, mla_ragged_prefill_plain,  # noqa: F401
+                  ragged_prefill, ragged_prefill_plain, windowed_prefill,
+                  windowed_prefill_plain)

@@ -22,6 +22,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --arch starcoder2-7b --speculate-tokens 4 --verify
 
+  # MLA + MoE (deepseek-v2-236b: latent pages; int8 pages and speculation
+  # are refused), and MoE on GQA pages (dbrx-132b)
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --arch deepseek-v2-236b --prefix-cache --prefill-chunk-tokens 32 \
+      --verify
+
 The flags are those of ``repro.launch.serve`` for what the port supports,
 plus ``--device`` (``cuda`` by default: without a card the run raises
 instead of moving to the CPU).  ``--attn-backend`` takes

@@ -10,8 +10,10 @@ that read happens is a *backend* choice:
 * ``hopper`` — the kernels written by hand for Hopper:
   ``kernels.paged_attention`` K1 for decode and K3 for speculative verify
   (each also in its sliding-window ring mode), ``kernels.ragged_prefill``
-  K2 for chunk prefill and K4 for sliding-window chunk prefill.  All walk
-  the page table inside the kernel, so the gather never materializes.
+  K2 for chunk prefill and K4 for sliding-window chunk prefill; for MLA
+  latent pages ``kernels.paged_attention`` K5 for decode and
+  ``kernels.ragged_prefill`` K6 for chunk prefill.  All walk the page
+  table inside the kernel, so the gather never materializes.
 
 A backend implements the three *attend cores* of the dense decoder
 (``decode_attend``, ``prefill_attend``, ``verify_attend``), each taking
@@ -19,8 +21,11 @@ optional int8 scale pools (``k_scale``/``v_scale`` [P, ps, K] bf16:
 ``None`` means bf16 payload pages, non-None int8 pages dequantized
 ``f32(q) * f32(s)`` before use).  The family framing (QKV projection,
 RoPE, page-table scatter with write-side quantization, output projection)
-is shared code in ``models.attention``.  Model code routes through
-``backend.paged_prefill`` / ``paged_decode`` / ``paged_verify``.
+is shared code in ``models.attention``.  MLA layers have their own cores
+(``mla_decode_attend``, ``mla_prefill_attend``; ``mla_verify_attend``
+raises: kernel K7 is ROADMAP queue 1 item 12b) behind the framing of
+``models.mla``.  Model code routes through ``backend.paged_prefill`` /
+``paged_decode`` / ``paged_verify``.
 
 Selection follows ``ServeConfig.attn_backend`` (``auto`` | ``reference`` |
 ``hopper``).  ``auto`` resolves by the device the tensors live on: ``cuda``
@@ -34,12 +39,16 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..kernels.paged_attention import (paged_decode, paged_decode_plain,
-                                      paged_verify, paged_verify_plain)
-from ..kernels.ragged_prefill import (ragged_prefill, ragged_prefill_plain,
+from ..kernels.paged_attention import (mla_paged_decode,
+                                      mla_paged_decode_plain, paged_decode,
+                                      paged_decode_plain, paged_verify,
+                                      paged_verify_plain)
+from ..kernels.ragged_prefill import (mla_ragged_prefill,
+                                      mla_ragged_prefill_plain,
+                                      ragged_prefill, ragged_prefill_plain,
                                       windowed_prefill,
                                       windowed_prefill_plain)
-from . import attention
+from . import attention, mla
 
 # ---------------------------------------------------------------- registry
 
@@ -183,15 +192,18 @@ class AttentionBackend:
         """Multi-token chunk prefill at an offset into the paged pool.
         ``meta`` is the flat per-step metadata from ``prefill_meta``;
         returns (out [B, T, d], cache)."""
-        return attention.paged_prefill_attention_block(
-            cfg, p, x, cache, meta, freqs, backend=self, q_block=q_block)
+        block = mla.mla_paged_prefill_block if cfg.use_mla \
+            else attention.paged_prefill_attention_block
+        return block(cfg, p, x, cache, meta, freqs, backend=self,
+                     q_block=q_block)
 
     def paged_decode(self, cfg: ArchConfig, p, x, cache, meta, freqs):
         """One-token decode against the paged pool.  ``meta`` is the flat
         per-step metadata from ``decode_meta``; returns (out [B, d],
         cache)."""
-        return attention.paged_decode_attention_block(cfg, p, x, cache, meta,
-                                                      freqs, backend=self)
+        block = mla.mla_paged_decode_block if cfg.use_mla \
+            else attention.paged_decode_attention_block
+        return block(cfg, p, x, cache, meta, freqs, backend=self)
 
     def paged_verify(self, cfg: ArchConfig, p, xs, cache, meta, freqs):
         """Small-q speculative verify against the paged pool: ``xs`` is Q
@@ -199,10 +211,11 @@ class AttentionBackend:
         draft, padded to Q), ``meta`` the flat metadata from
         ``verify_meta``.  All Q tokens' K/V scatter into their pages first,
         then every query attends the post-write pool under its own causal
-        mask.  Returns (Q outputs [B, d], cache)."""
-        return attention.paged_verify_attention_block(cfg, p, xs, cache,
-                                                      meta, freqs,
-                                                      backend=self)
+        mask.  Returns (Q outputs [B, d], cache).  MLA raises
+        ``NotImplementedError`` (ROADMAP queue 1 item 12b)."""
+        block = mla.mla_paged_verify_block if cfg.use_mla \
+            else attention.paged_verify_attention_block
+        return block(cfg, p, xs, cache, meta, freqs, backend=self)
 
     # -------- attend cores (override to fuse)
 
@@ -239,6 +252,30 @@ class AttentionBackend:
         backend.  Returns [B, Q, H, D]."""
         raise NotImplementedError
 
+    def mla_decode_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
+                          tables, pos, *, scale: float, ckv_scale=None,
+                          krope_scale=None):
+        """Absorbed-latent MLA decode: q_eff [B, H, L] (``w_uk``-absorbed),
+        q_rope [B, H, R] (roped) against the latent pages ckv [P, ps, L] /
+        krope [P, ps, R], masked ``idx <= pos``.  Returns the latent context
+        [B, H, L]."""
+        raise NotImplementedError
+
+    def mla_prefill_attend(self, q, ckv_pages, krope_pages, wkv_b, tables,
+                           start, n_live, *, nope: int, q_block: int = 512,
+                           ckv_scale=None, krope_scale=None):
+        """MLA chunk prefill: q [B, T, H, nope + R] (rope part roped) at
+        per-row offsets ``start`` against the *post-write* latent pages,
+        per-head K/V rebuilt from the latent with ``wkv_b`` [L, H, nope +
+        v]; every row is computed (``n_live`` is the contract's and unused,
+        as in the TPU kernel).  Returns [B, T, H, v]."""
+        raise NotImplementedError
+
+    def mla_verify_attend(self, *args, **kwargs):
+        """Small-q absorbed-latent verify (kernel K7): not ported."""
+        raise NotImplementedError(
+            f"MLA speculative verify is not ported yet: {mla.NOT_PORTED}")
+
 
 @register_backend
 class ReferenceBackend(AttentionBackend):
@@ -273,6 +310,19 @@ class ReferenceBackend(AttentionBackend):
                                   scale=scale, window=window,
                                   k_scale=k_scale, v_scale=v_scale)
 
+    def mla_decode_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
+                          tables, pos, *, scale: float, ckv_scale=None,
+                          krope_scale=None):
+        return mla_paged_decode_plain(q_eff, q_rope, ckv_pages, krope_pages,
+                                      tables, pos, scale=scale)
+
+    def mla_prefill_attend(self, q, ckv_pages, krope_pages, wkv_b, tables,
+                           start, n_live, *, nope: int, q_block: int = 512,
+                           ckv_scale=None, krope_scale=None):
+        return mla_ragged_prefill_plain(q, ckv_pages, krope_pages, wkv_b,
+                                        tables, start, nope=nope,
+                                        q_block=q_block)
+
 
 def _on_card(q: torch.Tensor) -> None:
     if q.device.type != "cuda":
@@ -286,7 +336,8 @@ class HopperBackend(AttentionBackend):
     K2 (``ragged_prefill``) for chunk prefill, K3 (``paged_verify``) for
     speculative verify and K4 (``windowed_prefill``) for sliding-window
     chunk prefill, each in its bf16 or int8 mode, K1 and K3 also in their
-    ring mode."""
+    ring mode; for MLA latent pages K5 (``mla_paged_decode``) for decode and
+    K6 (``mla_ragged_prefill``) for chunk prefill, bf16."""
 
     name = "hopper"
 
@@ -317,3 +368,20 @@ class HopperBackend(AttentionBackend):
         return paged_verify(q.contiguous(), k_pages, v_pages, tables, pos,
                             n_q, scale=scale, window=window, k_scale=k_scale,
                             v_scale=v_scale)
+
+    def mla_decode_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
+                          tables, pos, *, scale: float, ckv_scale=None,
+                          krope_scale=None):
+        _on_card(q_eff)
+        return mla_paged_decode(q_eff.contiguous(), q_rope.contiguous(),
+                                ckv_pages, krope_pages, tables, pos,
+                                scale=scale, ckv_scale=ckv_scale,
+                                krope_scale=krope_scale)
+
+    def mla_prefill_attend(self, q, ckv_pages, krope_pages, wkv_b, tables,
+                           start, n_live, *, nope: int, q_block: int = 512,
+                           ckv_scale=None, krope_scale=None):
+        _on_card(q)
+        return mla_ragged_prefill(q, ckv_pages, krope_pages, wkv_b, tables,
+                                  start, nope=nope, ckv_scale=ckv_scale,
+                                  krope_scale=krope_scale)

@@ -51,7 +51,7 @@ def _init_leaf(path: str, d: ParamDef, seed: int,
     gen.manual_seed((seed * 1_000_003 + zlib.crc32(path.encode())) % 2**63)
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (x * scale).to(d.dtype)
+    return x.mul_(scale).to(d.dtype)    # in place: one fp32 copy at a time
 
 
 def tree_map_defs(fn, defs, path: str = ""):

@@ -5,17 +5,18 @@ from ..configs.base import ArchConfig
 from .params import init_tree
 from .transformer import DecoderLM
 
-# where each arch that this slice does not build arrives (ROADMAP queue 1)
+# where each arch that the port does not build yet arrives (ROADMAP queue 1);
+# int8 MLA latent pages and MLA speculation are refused by the pool
+# (``mla.mla_paged_cache_defs``) and the engine: item 12b
 _NOT_YET = (
     (lambda c: c.family == "ssm" or c.family == "hybrid",
      "state-slot families (mamba2, recurrentgemma) arrive with ROADMAP "
      "queue 1 item 13"),
     (lambda c: c.enc_dec or bool(c.n_image_tokens),
      "enc-dec and vlm families arrive with ROADMAP queue 1 item 14"),
-    (lambda c: c.use_mla or c.is_moe,
-     "MLA and MoE families arrive with ROADMAP queue 1 item 12"),
-    (lambda c: c.family != "dense",
-     "only the dense decoder family is ported (ROADMAP queue 1)"),
+    (lambda c: c.family not in ("dense", "moe"),
+     "only the dense and MoE decoder families are ported (ROADMAP queue "
+     "1)"),
     (lambda c: bool(c.attn_logit_softcap),
      "the attention logit softcap is not ported (no registered arch sets "
      "it; ROADMAP queue 2, K1 modes)"),

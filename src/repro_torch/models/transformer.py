@@ -1,11 +1,14 @@
-"""Decoder-only LM, dense family: the port of ``repro.models.transformer
-.DecoderLM`` for ``family="dense"``, full causal or sliding-window
-attention.
+"""Decoder-only LM: the port of ``repro.models.transformer.DecoderLM`` for
+the dense family (full causal or sliding-window attention) and the MoE
+family (``dense_blocks`` of ``first_k_dense`` dense layers, then MoE
+``blocks``; GQA attention, or MLA latent attention with ``use_mla``).
 
 Parameters keep the JAX package's layer-stacked ``[n_layers, ...]`` leaves;
 the ``jax.lax.scan`` over layers becomes a Python loop over layer views of
-the stacked leaves.  Paged caches are written in place, so the step
-functions return the same pool objects they were given.
+the stacked leaves.  The caches stack every layer, dense lead-in layers
+first, so cache layer ``i`` is the i-th layer run.  Paged caches are
+written in place, so the step functions return the same pool objects they
+were given.
 """
 from __future__ import annotations
 
@@ -20,6 +23,9 @@ from .attn_backend import get_backend
 from .cache_spec import CacheFamilySpec, CacheSpec
 from .layers import (apply_mlp, apply_norm, apply_rope, embed_defs,
                      embed_tokens, lm_logits, mlp_defs, norm_defs, rope_freqs)
+from .mla import (mla_cache_defs, mla_decode_block, mla_defs, mla_full_block,
+                  mla_paged_cache_defs, mla_prefill_cache)
+from .moe import moe_apply, moe_decode_apply, moe_defs
 from .params import layer, stack_tree
 
 
@@ -36,30 +42,79 @@ class DecoderLM:
 
     # ------------------------------------------------------------ param defs
 
-    def _dense_block_defs(self):
+    def _attn_defs(self):
+        return mla_defs(self.cfg) if self.cfg.use_mla else attn_defs(self.cfg)
+
+    def _dense_block_defs(self, d_ff: int = 0):
         cfg = self.cfg
         return {
             "ln1": norm_defs(cfg, cfg.d_model),
-            "attn": attn_defs(cfg),
+            "attn": self._attn_defs(),
             "ln2": norm_defs(cfg, cfg.d_model),
-            "mlp": mlp_defs(cfg, cfg.d_model, cfg.d_ff),
+            "mlp": mlp_defs(cfg, cfg.d_model, d_ff or cfg.d_ff),
+        }
+
+    def _moe_block_defs(self):
+        cfg = self.cfg
+        return {
+            "ln1": norm_defs(cfg, cfg.d_model),
+            "attn": self._attn_defs(),
+            "ln2": norm_defs(cfg, cfg.d_model),
+            "moe": moe_defs(cfg),
         }
 
     def param_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
-        return {"embed": embed_defs(cfg),
-                "final_norm": norm_defs(cfg, cfg.d_model),
-                "blocks": stack_tree(self._dense_block_defs(), cfg.n_layers)}
+        defs = {"embed": embed_defs(cfg),
+                "final_norm": norm_defs(cfg, cfg.d_model)}
+        if cfg.is_moe:
+            k = cfg.first_k_dense
+            if k:
+                defs["dense_blocks"] = stack_tree(
+                    self._dense_block_defs(cfg.d_ff_dense or cfg.d_ff), k)
+            defs["blocks"] = stack_tree(self._moe_block_defs(),
+                                        cfg.n_layers - k)
+        else:
+            defs["blocks"] = stack_tree(self._dense_block_defs(),
+                                        cfg.n_layers)
+        return defs
+
+    def _layers(self, params):
+        """The parameters of every layer in the order they run: the dense
+        lead-in layers, then the main stack.  Layer ``i`` of this sequence
+        owns cache layer ``i``."""
+        dense = params.get("dense_blocks")
+        k = self.cfg.first_k_dense if dense is not None else 0
+        return [layer(dense, i) for i in range(k)] \
+            + [layer(params["blocks"], i)
+               for i in range(self.cfg.n_layers - k)]
 
     def _freqs(self, device):
-        return rope_freqs(self.cfg, self.cfg.head_dim_, device=device)
+        cfg = self.cfg
+        hd = cfg.rope_head_dim if cfg.use_mla else cfg.head_dim_
+        return rope_freqs(cfg, hd, device=device)
 
-    def _block(self, p, x, attend):
+    def _block(self, p, x, attend, moe):
         """One pre-norm residual block; ``attend(p_attn, h)`` returns the
-        attention output for the normed input."""
+        attention output for the normed input.  MoE layers apply ``moe(p_moe,
+        h)`` (the JAX package's group routing of the call site) where dense
+        layers apply their MLP."""
         cfg = self.cfg
         x = x + attend(p["attn"], apply_norm(cfg, p["ln1"], x))
-        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        h = apply_norm(cfg, p["ln2"], x)
+        if "moe" in p:
+            return x + moe(p["moe"], h)
+        return x + apply_mlp(cfg, p["mlp"], h)
+
+    def _seq_moe(self, p, h):
+        """MoE over a [B, S, d] sequence: every row is a group of S tokens
+        (padding included) at ``capacity(cfg, S)``."""
+        return moe_apply(self.cfg, p, h)[0]
+
+    def _token_moe(self, p, h):
+        """MoE over one decode token per row, h [B, d]: the B tokens are
+        one group at ``capacity(cfg, B)``."""
+        return moe_decode_apply(self.cfg, p, h)
 
     def _logits(self, params, x):
         x = apply_norm(self.cfg, params["final_norm"], x)
@@ -71,18 +126,20 @@ class DecoderLM:
         """x: [B, S, d] embedded inputs -> final-normed hidden [B, S, d]."""
         cfg = self.cfg
         freqs = self._freqs(x.device)
-        for i in range(cfg.n_layers):
+        block = mla_full_block if cfg.use_mla else full_attention_block
+        for p in self._layers(params):
             x = self._block(
-                layer(params["blocks"], i), x,
-                lambda p, h: full_attention_block(cfg, p, h, freqs,
-                                                  q_block=cfg.attn_q_block))
+                p, x, lambda pa, h: block(cfg, pa, h, freqs,
+                                          q_block=cfg.attn_q_block),
+                self._seq_moe)
         return apply_norm(cfg, params["final_norm"], x)
 
     # -------------------------------------------------------- static caches
 
     def cache_defs(self, batch: int, max_len: int):
-        return {"blocks": stack_tree(cache_defs(self.cfg, batch, max_len),
-                                     self.cfg.n_layers)}
+        per = (mla_cache_defs if self.cfg.use_mla else cache_defs)(
+            self.cfg, batch, max_len)
+        return {"blocks": stack_tree(per, self.cfg.n_layers)}
 
     def prefill(self, params, batch, logits_idx=None):
         """Forward the full prompt; returns (logits at ``logits_idx`` (or the
@@ -103,6 +160,12 @@ class DecoderLM:
         slots = torch.arange(S - W, S, device=x.device) % W
 
         def attend(p, h):
+            if cfg.use_mla:
+                c = mla_prefill_cache(cfg, p, h, freqs)
+                ks.append(c["ckv"])
+                vs.append(c["krope"])
+                return mla_full_block(cfg, p, h, freqs,
+                                      q_block=cfg.attn_q_block)
             _, k, v = qkv(cfg, p, h)
             k = apply_rope(k, positions, freqs)
             if cfg.sliding_window:
@@ -115,12 +178,14 @@ class DecoderLM:
             return full_attention_block(cfg, p, h, freqs,
                                         q_block=cfg.attn_q_block)
 
-        for i in range(cfg.n_layers):
-            x = self._block(layer(params["blocks"], i), x, attend)
+        for p in self._layers(params):
+            x = self._block(p, x, attend, self._seq_moe)
         x = apply_norm(cfg, params["final_norm"], x)
         last = x[:, -1] if logits_idx is None \
             else x[torch.arange(B, device=x.device), logits_idx]
-        cache = {"blocks": {"k": torch.stack(ks), "v": torch.stack(vs)},
+        names = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+        cache = {"blocks": dict(zip(names, (torch.stack(ks),
+                                            torch.stack(vs)))),
                  "pos": torch.full((B,), S, dtype=torch.int32,
                                    device=x.device)}
         return lm_logits(cfg, params["embed"], last), cache
@@ -132,22 +197,25 @@ class DecoderLM:
         pos = cache["pos"]
         x = embed_tokens(params["embed"], tokens)
         freqs = self._freqs(x.device)
-        for i in range(cfg.n_layers):
+        block = mla_decode_block if cfg.use_mla else decode_attention_block
+        for i, p in enumerate(self._layers(params)):
             c = layer(cache["blocks"], i)
             x = self._block(
-                layer(params["blocks"], i), x,
-                lambda p, h: decode_attention_block(cfg, p, h, c, pos,
-                                                    freqs)[0])
+                p, x, lambda pa, h: block(cfg, pa, h, c, pos, freqs)[0],
+                self._token_moe)
         cache["pos"] = pos + 1
         return self._logits(params, x), cache
 
     # -------------------------------------------------------- paged serving
 
     def cache_spec(self) -> CacheFamilySpec:
-        """The decode-cache taxonomy the serving stack schedules against: a
-        page ring of O(window) pages for sliding-window families (not
-        prefix-cacheable: ring slots are recycled in place), plain paged
-        KV otherwise."""
+        """The decode-cache taxonomy the serving stack schedules against:
+        latent pages for MLA, a page ring of O(window) pages for
+        sliding-window families (not prefix-cacheable: ring slots are
+        recycled in place), plain paged KV otherwise."""
+        if self.cfg.use_mla:
+            return CacheFamilySpec(kinds=(CacheSpec("paged_mla"),),
+                                   paged=True, prefix_cacheable=True)
         w = self.cfg.sliding_window
         if w:
             return CacheFamilySpec(kinds=(CacheSpec("windowed_kv", window=w),),
@@ -157,10 +225,12 @@ class DecoderLM:
 
     def paged_cache_defs(self, num_pages: int, page_size: int,
                          kv_dtype: str = "bf16"):
-        """Defs for the layer-stacked paged pool [L, P, ps, K, D]."""
-        return stack_tree(paged_cache_defs(self.cfg, num_pages, page_size,
-                                           kv_dtype=kv_dtype),
-                          self.cfg.n_layers)
+        """Defs for the layer-stacked paged pool: [L, P, ps, K, D] K/V
+        pages, or [L, P, ps, kv_lora] + [L, P, ps, rope] latent pages for
+        MLA (bf16 only)."""
+        per = mla_paged_cache_defs if self.cfg.use_mla else paged_cache_defs
+        return stack_tree(per(self.cfg, num_pages, page_size,
+                              kv_dtype=kv_dtype), self.cfg.n_layers)
 
     def decode_paged(self, params, kv, state, meta, tokens):
         """One-token continuous-batching decode step.
@@ -173,12 +243,11 @@ class DecoderLM:
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens)
         freqs = self._freqs(x.device)
-        for i in range(cfg.n_layers):
+        for i, p in enumerate(self._layers(params)):
             c = layer(kv, i)
             x = self._block(
-                layer(params["blocks"], i), x,
-                lambda p, h: self.attn_backend.paged_decode(
-                    cfg, p, h, c, meta, freqs)[0])
+                p, x, lambda pa, h: self.attn_backend.paged_decode(
+                    cfg, pa, h, c, meta, freqs)[0], self._token_moe)
         return self._logits(params, x), kv, state
 
     def prefill_paged(self, params, kv, state, meta, tokens, extras=None):
@@ -194,12 +263,12 @@ class DecoderLM:
         x = embed_tokens(params["embed"], tokens)
         freqs = self._freqs(x.device)
         B = x.shape[0]
-        for i in range(cfg.n_layers):
+        for i, p in enumerate(self._layers(params)):
             c = layer(kv, i)
             x = self._block(
-                layer(params["blocks"], i), x,
-                lambda p, h: self.attn_backend.paged_prefill(
-                    cfg, p, h, c, meta, freqs, q_block=cfg.attn_q_block)[0])
+                p, x, lambda pa, h: self.attn_backend.paged_prefill(
+                    cfg, pa, h, c, meta, freqs, q_block=cfg.attn_q_block)[0],
+                self._seq_moe)
         x = apply_norm(cfg, params["final_norm"], x)
         last = x[torch.arange(B, device=x.device), meta["n_live"].long() - 1]
         return lm_logits(cfg, params["embed"], last), kv, state
@@ -217,21 +286,30 @@ class DecoderLM:
         otherwise at another M), and the attention is one verify call over
         all Q tokens whose row j equals the decode attend's at ``pos + j``;
         so row ``j`` of the logits equals the decode step's logits at
-        position ``pos + j`` bit for bit.  The MoE step of the JAX package
-        (``cap=Q``) arrives with its family (ROADMAP queue 1 item 12;
-        ``build_model`` refuses MoE configs).  Returns (logits [B, Q, V],
-        kv, state)."""
+        position ``pos + j`` bit for bit.  MoE layers keep the JAX
+        package's verify rule that no token is ever dropped (``cap = Q``
+        there): token j's B rows route as the decode step's group at full
+        capacity (``cap = B``), which is the decode step's computation
+        whenever the decode step drops nothing (B <= 8 slots), so verify
+        row j still equals the decode step at ``pos + j``.  MLA's verify
+        block (kernel K7) raises ``NotImplementedError`` (ROADMAP queue 1
+        item 12b).  Returns (logits [B, Q, V], kv, state)."""
         cfg = self.cfg
         xs = [embed_tokens(params["embed"], tokens[:, j])
               for j in range(tokens.shape[1])]                 # Q x [B, d]
         freqs = self._freqs(xs[0].device)
-        for i in range(cfg.n_layers):
-            p, c = layer(params["blocks"], i), layer(kv, i)
+        for i, p in enumerate(self._layers(params)):
+            c = layer(kv, i)
             a = self.attn_backend.paged_verify(
                 cfg, p["attn"], [apply_norm(cfg, p["ln1"], x) for x in xs],
                 c, meta, freqs)[0]
             xs = [x + y for x, y in zip(xs, a)]
-            xs = [x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-                  for x in xs]
+            hs = [apply_norm(cfg, p["ln2"], x) for x in xs]
+            if "moe" in p:
+                ys = [moe_apply(cfg, p["moe"], h[None], cap=h.shape[0])[0][0]
+                      for h in hs]
+            else:
+                ys = [apply_mlp(cfg, p["mlp"], h) for h in hs]
+            xs = [x + y for x, y in zip(xs, ys)]
         return torch.stack([self._logits(params, x) for x in xs], 1), kv, \
             state

@@ -175,12 +175,15 @@ def test_unported_modes_refuse(kw, item):
 
 
 def test_unported_families_refuse():
-    for name, item in (("deepseek-v2-236b", "item 12"),
-                       ("mamba2-780m", "item 13"),
-                       ("llava-next-34b", "item 14")):
+    for name, kw, item in (("deepseek-v2-236b", dict(kv_dtype="int8"),
+                            "item 12b"),
+                           ("deepseek-v2-236b", dict(speculate_tokens=4),
+                            "item 12b"),
+                           ("mamba2-780m", {}, "item 13"),
+                           ("llava-next-34b", {}, "item 14")):
         cfg = tconfigs.reduced(tconfigs.get_arch(name))
         with pytest.raises(NotImplementedError, match=item):
-            Engine(cfg, tconfigs.ServeConfig(), device="cpu")
+            Engine(cfg, tconfigs.ServeConfig(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("top,delta,ok", [

@@ -14,10 +14,12 @@ in another order; where two sums differ in their last bit a probability can
 round to its other bf16 neighbour, moving the row by up to an ulp of its
 larger terms, so an element that cancels to near 0 is not held to its own
 ulp.  K3 (verify) with one live query per row equals K1 (decode) bit for
-bit, bf16 and int8, in ring mode too.  The hopper engine passes the dual
-gate against the reference engine (``serving.parity``, max |dlogit| <=
-0.25), with and without speculation and int8 pages, dense and
-sliding-window.
+bit, bf16 and int8, in ring mode too; K1, K3 and K4 on one window of K/V
+in a ring of n pages and in one of n + 1 give equal bits.  K5 (MLA decode)
+and K6 (MLA prefill) are held to their plain versions by the same one-ulp
+rule.  The hopper engine passes the dual gate against the reference
+engine (``serving.parity``, max |dlogit| <= 0.25), with and without
+speculation and int8 pages, dense, sliding-window and MLA.
 """
 import numpy as np
 import pytest
@@ -26,10 +28,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import ServeConfig, get_arch, reduced  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_decode, paged_decode_plain, paged_verify, paged_verify_plain)
+    mla_paged_decode, mla_paged_decode_plain, paged_decode,
+    paged_decode_plain, paged_verify, paged_verify_plain)
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
-    ragged_prefill, ragged_prefill_plain, windowed_prefill,
-    windowed_prefill_plain)
+    mla_ragged_prefill, mla_ragged_prefill_plain, ragged_prefill,
+    ragged_prefill_plain, windowed_prefill, windowed_prefill_plain)
 from repro_torch.kernels.rbm_cd import (  # noqa: E402
     gemm_sigmoid, gemm_sigmoid_plain)
 from repro_torch.models.attention import quantize_int8  # noqa: E402
@@ -405,3 +408,160 @@ def test_gemm_sigmoid_kernel_matches_plain(cuda, M, K, N, transposed,
         assert (got - want).abs().max().item() <= 1e-5
     else:
         assert _within_one_ulp(got, want)
+
+
+# ------------------------------------------- ring sums in position order
+
+def _ring_pages(hist, tables, ps, upto):
+    """Pages holding, in each row's ring of ``tables`` [B, n] pages, the
+    newest ``n * ps`` positions up to ``upto[b]`` of ``hist[b]`` ([B, N,
+    K, D], one entry per absolute position) at slot ``a mod (n * ps)``, as
+    the engine writes them."""
+    B, n = tables.shape
+    pages = hist.new_zeros((int(tables.max()) + 1, ps) + hist.shape[2:])
+    for b in range(B):
+        a = torch.arange(max(0, upto[b] - n * ps + 1), upto[b] + 1,
+                         device=hist.device)
+        slot = a % (n * ps)
+        pages[tables[b, slot // ps].long(), slot % ps] = hist[b, a]
+    return pages
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_ring_kernels_equal_across_ring_lengths(cuda, kernel, int8):
+    """One window of K/V in a ring of n pages and in one of n + 1 (the
+    speculative pool's slack page), at positions past the wrap: K1, K3 and
+    K4 sweep a ring's pages in the order of their absolute positions, so
+    the outputs are equal bit for bit."""
+    rng = np.random.RandomState(7)
+    K, G, D, ps, window = 2, 3, 64, 16, 128
+    n0 = window // ps + 1
+    pos = [200, 145, 177, 300]
+    live = [1, 3, 5, 2] if kernel == "K3" else [32, 32, 20, 32]
+    B, T, Q = len(pos), 32, 5
+    upto = [p - 1 if kernel == "K4" else p + (live[b] - 1 if kernel == "K3"
+                                              else 0)
+            for b, p in enumerate(pos)]
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).bfloat16()
+    hk, hv = randn(B, max(upto) + 1, K, D), randn(B, max(upto) + 1, K, D)
+    q = randn(B, K * G, D) if kernel == "K1" else \
+        randn(B, Q, K * G, D) if kernel == "K3" else randn(B, T, K * G, D)
+    kn, vn = randn(B, T, K, D), randn(B, T, K, D)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    live_t = torch.tensor(live, dtype=torch.int32, device=cuda)
+    outs = []
+    for n in (n0, n0 + 1):
+        tables = torch.from_numpy((rng.permutation(B * n) + 1).reshape(
+            B, n).astype(np.int32)).to(cuda)
+        k, v = (_ring_pages(h, tables, ps, upto) for h in (hk, hv))
+        kw = dict(scale=D ** -0.5, window=window)
+        if int8:
+            k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+        if kernel == "K1":
+            outs.append(paged_decode(q, k, v, tables, pos_t, **kw))
+        elif kernel == "K3":
+            outs.append(paged_verify(q, k, v, tables, pos_t, live_t, **kw))
+        else:
+            outs.append(windowed_prefill(q, kn, vn, k, v, tables, pos_t,
+                                         live_t, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+# ----------------------------------------------------- MLA kernels K5, K6
+
+def _latent(rng, lengths, ps, width, device):
+    need = [-(-n // ps) for n in lengths]
+    P = sum(need) + 2
+    perm = rng.permutation(P - 1) + 1
+    tables = np.zeros((len(lengths), width), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[at:at + n]
+        at += n
+    ckv = torch.from_numpy(rng.randn(P, ps, 512).astype(np.float32))
+    kr = torch.from_numpy(rng.randn(P, ps, 64).astype(np.float32))
+    return (ckv.bfloat16().to(device), kr.bfloat16().to(device),
+            torch.from_numpy(tables).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,ps", [(16, 16), (128, 16), (8, 8)])
+def test_mla_decode_kernel_matches_plain(cuda, H, ps):
+    rng = np.random.RandomState(H + ps)
+    pos = [300, ps - 1, 0, 64, 0]
+    lengths = [p + 1 for p in pos]
+    lengths[-1] = 0                                        # idle row
+    ckv, kr, t = _latent(rng, lengths, ps, 320 // ps, cuda)
+    B = len(pos)
+    q_eff = torch.from_numpy(rng.randn(B, H, 512).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    q_rope = torch.from_numpy(rng.randn(B, H, 64).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    n0 = mla_paged_decode.launches
+    got = mla_paged_decode(q_eff, q_rope, ckv, kr, t, pos_t, scale=192 ** -0.5)
+    want = mla_paged_decode_plain(q_eff, q_rope, ckv, kr, t, pos_t,
+                                  scale=192 ** -0.5)
+    assert mla_paged_decode.launches == n0 + 1
+    assert _within_one_ulp(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,T,starts,n_live", [
+    (8, 40, (0, 96, 16), (40, 40, 13)),     # padded q block, a cached prefix
+    (4, 256, (0, 512), (256, 200)),          # two q tiles, a partial chunk
+])
+def test_mla_prefill_kernel_matches_plain(cuda, H, T, starts, n_live):
+    rng = np.random.RandomState(H + T)
+    ckv, kr, t = _latent(rng, [s + n for s, n in zip(starts, n_live)], 16,
+                         -(-(max(starts) + T) // 16), cuda)
+    B = len(starts)
+    q = torch.from_numpy(rng.randn(B, T, H, 192).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    w = torch.from_numpy((rng.randn(512, H, 256) / np.sqrt(512)).astype(
+        np.float32)).bfloat16().to(cuda)
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    n0 = mla_ragged_prefill.launches
+    got = mla_ragged_prefill(q, ckv, kr, w, t, st, nope=128)
+    want = mla_ragged_prefill_plain(q, ckv, kr, w, t, st, nope=128)
+    assert mla_ragged_prefill.launches == n0 + 1
+    assert got.shape == want.shape == (B, T, H, 128)
+    assert _within_one_ulp(got, want)
+
+
+@pytest.mark.cuda
+def test_hopper_mla_engine_passes_the_dual_gate(cuda):
+    """deepseek-v2's MLA widths (a 512-wide latent, 64-wide rope key, 128
+    + 64 query and 128 value dims a head) on a small model: the hopper
+    engine, through K5 and K6, against the reference replay."""
+    cfg = reduced(get_arch("deepseek-v2-236b"), n_heads=8, d_model=256,
+                  kv_lora_rank=512, rope_head_dim=64, nope_head_dim=128,
+                  v_head_dim=128)
+    params = init_params(cfg, 0, cuda)
+    rng = np.random.RandomState(0)
+    shared = rng.randint(1, cfg.vocab, size=32).tolist()
+    prompts = [shared + rng.randint(1, cfg.vocab, size=n).tolist()
+               for n in (8, 90, 40)]
+    kw = dict(page_size=16, max_slots=4, max_len=160, prefix_cache=True,
+              prefill_chunk_tokens=48)
+    with torch.no_grad():
+        d0, p0 = mla_paged_decode.launches, mla_ragged_prefill.launches
+        hop = Engine(cfg, ServeConfig(attn_backend="hopper", **kw), params,
+                     device=cuda).run_offline(prompts, 8)[0]
+        assert mla_paged_decode.launches > d0
+        assert mla_ragged_prefill.launches > p0
+        tokens = [r.tokens for r in hop]
+        ref = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
+                             attn_backend="reference")
+               for p, tk in zip(prompts, tokens)]
+        test = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
+                              attn_backend="hopper")
+                for p, tk in zip(prompts, tokens)]
+    rep = dual_gate(ref, test, tokens, tol=0.25)
+    assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}
