@@ -81,20 +81,29 @@ Phases, each printing its own lines; any failed check exits non-zero:
    between K8 and its plain version, and a fine-tuning step through
    ``core.mapreduce`` over NCCL at world size 1 equal to the plain step
    bit for bit;
-15. K5 (MLA latent decode) and K6 (MLA chunk prefill) against their plain
-   versions at full-width deepseek-v2 shapes (128 heads, a 512-wide latent
-   and 64-wide rope key, 16-token pages): K5 at B=8, ragged positions up
-   to 2047 over shuffled tables and two idle rows; K6 on 8 chunks of 256
-   at starts 0, 256, ..., 1792, the last with 200 live tokens;
+15. K5 (MLA latent decode), K6 (MLA chunk prefill) and K7 (MLA latent
+   verify) against their plain versions at full-width deepseek-v2 shapes
+   (128 heads, a 512-wide latent and 64-wide rope key, 16-token pages),
+   bf16 and int8 (pools quantized from the same bf16 data by
+   ``quantize_int8``): K5 at B=8, ragged positions up to 2047 over
+   shuffled tables and two idle rows; K6 on 8 chunks of 256 at starts 0,
+   256, ..., 1792, the last with 200 live tokens; K7 at B=8, Q=5,
+   positions up to 2043, live-query counts 1..5 and two idle rows, its
+   dead rows exact zeros, and at one live query against K5 bit for bit;
 16. the MLA + MoE path: deepseek-v2-236b at full width, its depth cut to
    4 of 60 layers (layer 0 dense, 3 MoE; 26.6 GB of bf16 weights, where
    full depth is ~470 GB), served as phase 6 serves qwen2-0.5b (K6 for
    every prefill chunk, K5 for every decode step, counted), with the
    device's busy share from a profiled rerun, then on the reference
-   backend, and held to the reference replay by the dual gate.
+   backend, and held to the reference replay by the dual gate; then K = 4
+   speculation with n-gram and oracle drafts (K7 four times a verify step,
+   K5 never), int8 latent pages (K5-int8, K6-int8) and int8 with
+   speculation (K7-int8), each held to the reference replay of its pool
+   dtype by the dual gate.
 
-In phases 7, 10 and 13 a verify step's rows must equal decode steps at
-``pos + j`` bit for bit.
+In phases 7, 10, 13 and 16 a verify step's rows must equal decode steps
+at ``pos + j`` bit for bit, and in 10, 13 and 16 every speculative stream
+must equal the plain stream of its pool dtype.
 
 Each attention kernel, and K8 in bf16, is held to its plain version,
 element by element, within one
@@ -732,51 +741,92 @@ def latent_pool(torch, rng, lengths, width):
     return ckv, kr, tables.cuda()
 
 
-def phase_mla_decode(torch, rng, timer):
+def latent_bytes(tokens: int, int8: bool) -> int:
+    """Bytes of the latent pages that ``tokens`` token slots hold: bf16
+    ckv and krope, or int8 values plus one bf16 scale each."""
+    return tokens * ((DS_L + DS_R) + 4 if int8 else (DS_L + DS_R) * 2)
+
+
+def latent_int8(torch, ckv, kr):
+    """(ckv8, krope8, {ckv_scale, krope_scale}) quantized from the bf16
+    latent pages by the port's ``quantize_int8``."""
+    from repro_torch.models.attention import quantize_int8
+    (c8, cs), (r8, rs) = quantize_int8(ckv), quantize_int8(kr)
+    return c8, r8, {"ckv_scale": cs, "krope_scale": rs}
+
+
+def latent_sdpa(torch, timer, q_eff, q_rope, ckv, kr, tables, kw, mask,
+                scale):
+    """Time the yardstick of a latent attend: SDPA of q_eff ++ q_rope ([B,
+    H, Q, E]) against the gathered ckv ++ krope, v = ckv, one KV head
+    shared by the query heads (int8 pages dequantized to bf16 first)."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import gather_kv
+    cc, cr = gather_kv(ckv, kr, tables, kw.get("ckv_scale"),
+                       kw.get("krope_scale"))
+    cc, cr = cc.bfloat16(), cr.bfloat16()
+    B, S = cc.shape[:2]
+    H = q_eff.shape[1]
+    qk = torch.cat([q_eff, q_rope], -1)
+    kk = torch.cat([cc, cr], -1)[:, None].expand(B, H, S, DS_L + DS_R)
+    vv = cc[:, None].expand(B, H, S, DS_L)
+    return timer(lambda: F.scaled_dot_product_attention(
+        qk, kk, vv, attn_mask=mask, scale=scale))
+
+
+def mla_decode_inputs(torch, rng, pos, Q=None):
+    """Full-width deepseek-v2 latent attend inputs: B = len(pos) rows at
+    positions ``pos`` over shuffled tables (rows at position 0 idle: the
+    null table), 128 heads, 16-token pages; ``Q`` query tokens a row
+    (None: decode's [B, H, *])."""
+    lengths = [p + (Q or 1) if p else 0 for p in pos]
+    ckv, kr, tables = latent_pool(torch, rng, lengths, 128)
+    gen = torch.Generator(device="cuda").manual_seed(32 + (Q or 0))
+    shape = (len(pos), DS_H) if Q is None else (len(pos), Q, DS_H)
+    q_eff = torch.randn(shape + (DS_L,), generator=gen,
+                        device="cuda").bfloat16()
+    q_rope = torch.randn(shape + (DS_R,), generator=gen,
+                         device="cuda").bfloat16()
+    return (q_eff, q_rope, ckv, kr, tables,
+            torch.tensor(pos, dtype=torch.int32, device="cuda"))
+
+
+def phase_mla_decode(torch, rng, timer, int8=False):
     """K5 against its plain version at full-width deepseek-v2 decode
     shapes: B=8, 128 heads, 16-token latent pages, ragged positions up to
-    2047 over shuffled tables and two idle rows (pos 0, null table)."""
-    import torch.nn.functional as F
+    2047 over shuffled tables and two idle rows (pos 0, null table);
+    ``int8``: its int8 mode, on the pool quantized by ``quantize_int8``."""
     from repro_torch.kernels.paged_attention import (mla_paged_decode,
                                                      mla_paged_decode_plain)
-    from repro_torch.models.attention import gather_pages
-    B, width = 8, 128
     pos = [2047, 1500, 1023, 0, 15, 0, 777, 1900]
-    lengths = [p + 1 for p in pos]
-    lengths[3] = lengths[5] = 0                    # idle rows
-    ckv, kr, tables = latent_pool(torch, rng, lengths, width)
-    gen = torch.Generator(device="cuda").manual_seed(32)
-    q_eff = torch.randn((B, DS_H, DS_L), generator=gen,
-                        device="cuda").bfloat16()
-    q_rope = torch.randn((B, DS_H, DS_R), generator=gen,
-                         device="cuda").bfloat16()
-    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    scale = 1.0 / math.sqrt(DS_NOPE + DS_R)
+    q_eff, q_rope, ckv, kr, tables, pos_t = mla_decode_inputs(torch, rng,
+                                                              pos)
+    B = len(pos)
+    name = "K5-int8" if int8 else "K5"
+    kw = {"scale": 1.0 / math.sqrt(DS_NOPE + DS_R)}
+    if int8:
+        ckv, kr, scales = latent_int8(torch, ckv, kr)
+        kw.update(scales)
     args = (q_eff, q_rope, ckv, kr, tables, pos_t)
-    got = mla_paged_decode(*args, scale=scale)
-    want = mla_paged_decode_plain(*args, scale=scale)
+    got = mla_paged_decode(*args, **kw)
+    want = mla_paged_decode_plain(*args, **kw)
     torch.cuda.synchronize()
-    err, ratio = check_kernel(torch, "K5 mla_paged_decode", got, want)
-    ms = timer(lambda: mla_paged_decode(*args, scale=scale))
-    plain_ms = timer(lambda: mla_paged_decode_plain(*args, scale=scale))
-    # yardstick: SDPA of q_eff ++ q_rope against the gathered ckv ++ krope,
-    # v = ckv, one KV head shared by the 128 query heads
-    cc, cr = gather_pages(ckv, tables), gather_pages(kr, tables)
-    S = cc.shape[1]
-    qk = torch.cat([q_eff, q_rope], -1)[:, :, None, :]
-    kk = torch.cat([cc, cr], -1)[:, None].expand(B, DS_H, S, DS_L + DS_R)
-    vv = cc[:, None].expand(B, DS_H, S, DS_L)
+    err, ratio = check_kernel(torch, f"{name} mla_paged_decode", got, want)
+    ms = timer(lambda: mla_paged_decode(*args, **kw))
+    plain_ms = timer(lambda: mla_paged_decode_plain(*args, **kw))
+    S = tables.shape[1] * PAGE
     mask = (torch.arange(S, device="cuda")[None, :]
             <= pos_t[:, None])[:, None, None, :]
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        qk, kk, vv, attn_mask=mask, scale=scale))
+    library_ms = latent_sdpa(torch, timer, q_eff[:, :, None],
+                             q_rope[:, :, None], ckv, kr, tables, kw, mask,
+                             kw["scale"])
     live = sum(p + 1 for p in pos)
-    nbytes = live * (DS_L + DS_R) * 2 + (q_eff.numel() + q_rope.numel()
+    nbytes = latent_bytes(live, int8) + (q_eff.numel() + q_rope.numel()
                                          + got.numel()) * 2 \
         + tables.numel() * 4 + B * 4
     flops = live * DS_H * (2 * (DS_L + DS_R) + 2 * DS_L)
     bms, by = bound(nbytes, flops)
-    print(f"[smoke] K5 mla_paged_decode: kernel {ms:.4f} ms, plain "
+    print(f"[smoke] {name} mla_paged_decode: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
           f"({by}: {nbytes / 1e6:.2f} MB of latent pages, q, out, tables; "
           f"{flops / 1e9:.2f} GFLOP)", flush=True)
@@ -785,16 +835,79 @@ def phase_mla_decode(torch, rng, timer):
             "library_ms": library_ms}
 
 
-def phase_mla_prefill(torch, rng, timer):
+def phase_mla_verify(torch, rng, timer, int8=False):
+    """K7 against its plain version at full-width deepseek-v2 verify
+    shapes: B=8 rows of Q=5 queries (the last token and four drafts), 128
+    heads, 16-token latent pages, ragged live counts 1..5 at positions up
+    to 2043 and two idle rows (pos 0, one query, null table); dead rows
+    must be exact zeros; and with one live query per row against K5 on the
+    same inputs, bit for bit.  ``int8``: its int8 mode."""
+    from repro_torch.kernels.paged_attention import (mla_paged_decode,
+                                                     mla_paged_verify,
+                                                     mla_paged_verify_plain)
+    pos = [2043, 1500, 1023, 0, 15, 0, 777, 1900]
+    n_q = [5, 3, 1, 1, 5, 1, 2, 4]
+    Q = 5
+    q_eff, q_rope, ckv, kr, tables, pos_t = mla_decode_inputs(torch, rng,
+                                                              pos, Q)
+    B = len(pos)
+    nq_t = torch.tensor(n_q, dtype=torch.int32, device="cuda")
+    name = "K7-int8" if int8 else "K7"
+    kw = {"scale": 1.0 / math.sqrt(DS_NOPE + DS_R)}
+    if int8:
+        ckv, kr, scales = latent_int8(torch, ckv, kr)
+        kw.update(scales)
+    args = (q_eff, q_rope, ckv, kr, tables, pos_t, nq_t)
+    got = mla_paged_verify(*args, **kw)
+    want = mla_paged_verify_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, ratio = check_kernel(torch, f"{name} mla_paged_verify", got, want)
+    dead = torch.arange(Q, device="cuda")[None, :] >= nq_t[:, None]
+    if bool((got[dead] != 0).any().item()):
+        fail(f"{name}: dead query rows are not exact zeros")
+    one = mla_paged_verify(*args[:-1], torch.ones_like(nq_t), **kw)[:, 0]
+    dec = mla_paged_decode(q_eff[:, 0].contiguous(),
+                           q_rope[:, 0].contiguous(), *args[2:-1], **kw)
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(one, dec))
+    print(f"[smoke] {name} with one live query per row vs K5 on the same "
+          f"inputs: bit for bit {'equal -> OK' if bit_equal else 'DIFFER'}",
+          flush=True)
+    if not bit_equal:
+        fail(f"{name} at n_q = 1 differs from K5")
+    ms = timer(lambda: mla_paged_verify(*args, **kw))
+    plain_ms = timer(lambda: mla_paged_verify_plain(*args, **kw))
+    mask = verify_mask(torch, pos_t, nq_t, Q, tables.shape[1] * PAGE)
+    library_ms = latent_sdpa(torch, timer, q_eff.transpose(1, 2),
+                             q_rope.transpose(1, 2), ckv, kr, tables, kw,
+                             mask, kw["scale"])
+    keys = sum(p + n for p, n in zip(pos, n_q))
+    pairs = sum(p + j + 1 for p, n in zip(pos, n_q) for j in range(n))
+    nbytes = latent_bytes(keys, int8) + (q_eff.numel() + q_rope.numel()
+                                         + got.numel()) * 2 \
+        + tables.numel() * 4 + 2 * B * 4
+    flops = pairs * DS_H * (2 * (DS_L + DS_R) + 2 * DS_L)
+    bms, by = bound(nbytes, flops)
+    print(f"[smoke] {name} mla_paged_verify: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}: {flops / 1e9:.2f} GFLOP over {pairs} live (query, key) "
+          f"pairs, {nbytes / 1e6:.2f} MB)", flush=True)
+    return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "n_q1_bit_equal_k5": bit_equal}
+
+
+def phase_mla_prefill(torch, rng, timer, int8=False):
     """K6 against its plain version at full-width deepseek-v2 chunk shapes:
     B=8 chunks of 256 tokens at starts 0, 256, ..., 1792 over shuffled
     tables, the last with 200 live tokens (its table ends there: its
     padding rows read the null page, as in the engine), 128 heads, per-head
-    K/V materialized from the latent with a random ``wkv_b``."""
+    K/V materialized from the latent with a random ``wkv_b``; ``int8``:
+    its int8 mode, on the pool quantized by ``quantize_int8``."""
     import torch.nn.functional as F
     from repro_torch.kernels.ragged_prefill import (mla_ragged_prefill,
                                                     mla_ragged_prefill_plain)
-    from repro_torch.models.attention import gather_pages
+    from repro_torch.models.attention import gather_kv
     B, T, width = 8, 256, 128
     starts = [256 * i for i in range(B)]
     n_live = [T] * (B - 1) + [200]
@@ -807,16 +920,23 @@ def phase_mla_prefill(torch, rng, timer):
     wkv_b = (torch.randn((DS_L, DS_H, DS_NOPE + DS_V), generator=gen,
                          device="cuda") / math.sqrt(DS_L)).bfloat16()
     st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    name = "K6-int8" if int8 else "K6"
+    kw = {"nope": DS_NOPE}
+    if int8:
+        ckv, kr, scales = latent_int8(torch, ckv, kr)
+        kw.update(scales)
     args = (q, ckv, kr, wkv_b, tables, st)
-    got = mla_ragged_prefill(*args, nope=DS_NOPE)
-    want = mla_ragged_prefill_plain(*args, nope=DS_NOPE)
+    got = mla_ragged_prefill(*args, **kw)
+    want = mla_ragged_prefill_plain(*args, **kw)
     torch.cuda.synchronize()
-    err, ratio = check_kernel(torch, "K6 mla_ragged_prefill", got, want)
-    ms = timer(lambda: mla_ragged_prefill(*args, nope=DS_NOPE))
-    plain_ms = timer(lambda: mla_ragged_prefill_plain(*args, nope=DS_NOPE))
-    # yardstick: the einsum that materializes K/V from the gathered latent,
-    # then SDPA with the chunk's causal mask
-    cc, cr = gather_pages(ckv, tables), gather_pages(kr, tables)
+    err, ratio = check_kernel(torch, f"{name} mla_ragged_prefill", got, want)
+    ms = timer(lambda: mla_ragged_prefill(*args, **kw))
+    plain_ms = timer(lambda: mla_ragged_prefill_plain(*args, **kw))
+    # yardstick: the einsum that materializes K/V from the gathered latent
+    # (int8: dequantized to bf16), then SDPA with the chunk's causal mask
+    cc, cr = gather_kv(ckv, kr, tables, kw.get("ckv_scale"),
+                       kw.get("krope_scale"))
+    cc, cr = cc.bfloat16(), cr.bfloat16()
     S = cc.shape[1]
     qpos = st[:, None] + torch.arange(T, device="cuda")[None, :]
     mask = (torch.arange(S, device="cuda")[None, None, :]
@@ -835,11 +955,11 @@ def phase_mla_prefill(torch, rng, timer):
     pairs = sum(T * s + T * (T + 1) // 2 for s in starts)
     flops = keys * DS_H * DS_L * (DS_NOPE + DS_V) * 2 \
         + pairs * DS_H * (E + DS_V) * 2
-    nbytes = keys * (DS_L + DS_R) * 2 + (q.numel() + got.numel()
+    nbytes = latent_bytes(keys, int8) + (q.numel() + got.numel()
                                          + wkv_b.numel()) * 2 \
         + tables.numel() * 4 + B * 4
     bms, by = bound(nbytes, flops)
-    print(f"[smoke] K6 mla_ragged_prefill: kernel {ms:.4f} ms, plain "
+    print(f"[smoke] {name} mla_ragged_prefill: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, einsum + sdpa {library_ms:.4f} ms, bound "
           f"{bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, K/V "
           f"materialization included, {nbytes / 1e6:.2f} MB)", flush=True)
@@ -992,8 +1112,12 @@ def serve_run(torch, cfg, params, prompts, label, proposer=None, base=None,
     set to 0 just before and read just after.  Returns (tokens, metrics,
     counts, engine)."""
     from repro_torch.configs import ServeConfig
-    from repro_torch.kernels.paged_attention import paged_decode, paged_verify
-    from repro_torch.kernels.ragged_prefill import (ragged_prefill,
+    from repro_torch.kernels.paged_attention import (mla_paged_decode,
+                                                     mla_paged_verify,
+                                                     paged_decode,
+                                                     paged_verify)
+    from repro_torch.kernels.ragged_prefill import (mla_ragged_prefill,
+                                                    ragged_prefill,
                                                     windowed_prefill)
     from repro_torch.serving import Engine
     eng = Engine(cfg, ServeConfig(attn_backend="hopper",
@@ -1001,12 +1125,14 @@ def serve_run(torch, cfg, params, prompts, label, proposer=None, base=None,
                  params, device="cuda")
     if proposer is not None:
         eng.proposer = proposer
-    for fn in (paged_decode, ragged_prefill, paged_verify, windowed_prefill):
+    kernels = {"K1": paged_decode, "K2": ragged_prefill, "K3": paged_verify,
+               "K4": windowed_prefill, "K5": mla_paged_decode,
+               "K6": mla_ragged_prefill, "K7": mla_paged_verify}
+    for fn in kernels.values():
         fn.launches = 0
     results, m = eng.run_offline(prompts, GEN_TOKENS)
     torch.cuda.synchronize()
-    counts = {"K1": paged_decode.launches, "K2": ragged_prefill.launches,
-              "K3": paged_verify.launches, "K4": windowed_prefill.launches}
+    counts = {kid: fn.launches for kid, fn in kernels.items()}
     tokens = [r.tokens for r in results]
     if any(r.failed for r in results) \
             or any(len(t) != GEN_TOKENS for t in tokens) \
@@ -1049,9 +1175,11 @@ class Oracle:
         return []
 
 
-def spec_report(label, m, counts, tokens, base_tokens, n_layers):
-    """Print a speculative run's numbers and check its launch counts: K3
-    once a layer per verify step, K1 never.  ``base_tokens`` are the
+def spec_report(label, m, counts, tokens, base_tokens, n_layers,
+                verify="K3", decode="K1"):
+    """Print a speculative run's numbers and check its launch counts: the
+    ``verify`` kernel (K3; K7 for MLA) once a layer per verify step, the
+    ``decode`` kernel (K1; K5) never.  ``base_tokens`` are the
     non-speculative run's on the same pool dtype."""
     steps = m["decode_steps"]
     emitted = m["new_tokens"] - m["n_requests"]    # first tokens: prefill
@@ -1068,13 +1196,13 @@ def spec_report(label, m, counts, tokens, base_tokens, n_layers):
           f"{m['tokens_per_s']:.1f} tok/s, step p50 "
           f"{m['decode_step_ms_p50']:.3f} ms, {same}/{m['new_tokens']} tokens "
           f"equal the non-speculative hopper run (per request "
-          f"{per_request}); launches K1 "
-          f"{counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}, K4 "
-          f"{counts['K4']}",
+          f"{per_request}); launches "
+          f"{', '.join(f'{k} {c}' for k, c in counts.items() if c)}",
           flush=True)
-    if counts["K3"] != steps * n_layers or counts["K1"] != 0:
-        fail(f"{label}: K3 launches {counts['K3']} != verify steps {steps} "
-             f"x {n_layers} layers, or K1 launched {counts['K1']} times")
+    if counts[verify] != steps * n_layers or counts[decode] != 0:
+        fail(f"{label}: {verify} launches {counts[verify]} != verify steps "
+             f"{steps} x {n_layers} layers, or {decode} launched "
+             f"{counts[decode]} times")
     return {"proposed": m["spec_proposed"], "accepted": m["spec_accepted"],
             "accept_rate": m["spec_accept_rate"],
             "tokens_per_row_step": per_row,
@@ -1385,6 +1513,7 @@ def phase_mla_serve(torch, seed):
     import dataclasses
     from repro_torch.configs import ServeConfig, get_arch
     from repro_torch.kernels.paged_attention import (mla_paged_decode,
+                                                     mla_paged_verify,
                                                      paged_decode,
                                                      paged_verify)
     from repro_torch.kernels.ragged_prefill import (mla_ragged_prefill,
@@ -1399,8 +1528,8 @@ def phase_mla_serve(torch, seed):
     rng = np.random.RandomState(seed + 2)
     prompts = serving_workload(rng, cfg.vocab)
     kw = serve_kwargs()
-    kernels = (mla_paged_decode, mla_ragged_prefill, paged_decode,
-               paged_verify, ragged_prefill, windowed_prefill)
+    kernels = (mla_paged_decode, mla_ragged_prefill, mla_paged_verify,
+               paged_decode, paged_verify, ragged_prefill, windowed_prefill)
     with torch.no_grad():
         t0 = time.perf_counter()
         params = init_params(cfg, seed, "cuda")
@@ -1434,7 +1563,7 @@ def phase_mla_serve(torch, seed):
               f"({m['chunked_prefill_steps']} continuation chunks), prefix "
               f"cache hit rate {m['cache_hit_rate']:.3f}, pool {bpt:.0f} B "
               f"per token; launches K5 {counts['K5']}, K6 {counts['K6']}, "
-              f"K1-K4 {others}", flush=True)
+              f"K7 and K1-K4 {others}", flush=True)
         if any(r.failed for r in results) \
                 or any(len(t) != GEN_TOKENS for t in tokens) \
                 or not all(0 <= x < cfg.vocab_padded for t in tokens
@@ -1444,8 +1573,8 @@ def phase_mla_serve(torch, seed):
                 or counts["K6"] != m["prefill_steps"] * L or others:
             fail(f"{cfg.name}: K5 launches {counts['K5']} != decode steps "
                  f"{m['decode_steps']} x {L}, or K6 launches {counts['K6']} "
-                 f"!= prefill steps {m['prefill_steps']} x {L}, or a GQA "
-                 f"kernel launched {others} times")
+                 f"!= prefill steps {m['prefill_steps']} x {L}, or K7 or a "
+                 f"GQA kernel launched {others} times")
         busy = profile_rerun(torch, eng, prompts)
         del eng
         ref = Engine(cfg, ServeConfig(attn_backend="reference", **kw),
@@ -1470,8 +1599,14 @@ def phase_mla_serve(torch, seed):
               flush=True)
         gate_line(f"dual gate of the {cfg.name} hopper run against the "
                   "reference replay", rep)
+        t0 = time.perf_counter()
+        spec_counts, spec = mla_speculate_int8(torch, cfg, params, prompts,
+                                               tokens, replay, kw)
+        counts.update(spec_counts)
+        print(f"[smoke] {cfg.name} speculative and int8 runs took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     del params
-    return counts, {
+    return counts, {**spec, 
         "n_layers": L, "tokens_per_s": m["tokens_per_s"],
         "decode_step_ms_p50": m["decode_step_ms_p50"],
         "decode_steps": m["decode_steps"],
@@ -1485,6 +1620,91 @@ def phase_mla_serve(torch, seed):
         "n_tokens": rep["n_tokens"],
         "high_margin_tokens": rep["high_margin_tokens"],
         "high_margin_mismatches": rep["high_margin_mismatches"]}
+
+
+def mla_speculate_int8(torch, cfg, params, prompts, base_tokens, replay,
+                       base):
+    """The MLA path's speculative and int8 runs on the hopper backend, with
+    ``base_tokens`` the bf16 non-speculative run's tokens: K = 4 speculation
+    with (a) the n-gram proposer and (b) an oracle drafting the base run's
+    tokens (K7 four times a verify step, K5 never), then verify rows against
+    decode steps at pos + j; then int8 latent pages without (K5-int8,
+    K6-int8) and with speculation (K7-int8).  The n-gram and the int8 runs
+    are profiled in a rerun of 4 tokens for the device's busy share (the
+    other two are not: a profiled rerun of this model takes tens of
+    seconds).  Each run is held to the reference replay of its pool dtype
+    along its own tokens by the dual gate (the int8 runs' quantization
+    error against the bf16 reference replay printed); each speculative
+    stream must equal the plain stream of its pool dtype token for token.
+    Returns (launch counts {K7, K5-int8, K6-int8, K7-int8}, report)."""
+    from repro_torch.serving import dual_gate
+    L = cfg.n_layers
+    counts, out, plain = {}, {}, {"bf16": base_tokens}
+    for label, kv, k, proposer, profile in (
+            ("speculative ngram", "bf16", 4, None, True),
+            ("speculative oracle", "bf16", 4,
+             Oracle(4, prompts, base_tokens), False),
+            ("int8", "int8", 0, None, True),
+            ("int8 speculative", "int8", 4, None, False)):
+        tokens, m, c, eng = serve_run(torch, cfg, params, prompts,
+                                      f"{cfg.name} {label}", proposer=proposer,
+                                      base=base, kv_dtype=kv,
+                                      speculate_tokens=k)
+        bpt = eng.pool.kv_bytes_per_token
+        busy = profile_rerun(torch, eng, prompts, n_new=4) if profile \
+            else None
+        del eng
+        if c["K6"] != m["prefill_steps"] * L \
+                or sum(c[kid] for kid in ("K1", "K2", "K3", "K4")):
+            fail(f"{label}: K6 launches {c['K6']} != prefill steps "
+                 f"{m['prefill_steps']} x {L}, or a GQA kernel launched")
+        sfx = "-int8" if kv == "int8" else ""
+        if k:
+            res = spec_report(f"{cfg.name} {label} serve", m, c, tokens,
+                              plain[kv], L, verify="K7", decode="K5")
+            counts.setdefault(f"K7{sfx}", c["K7"])
+            if tokens != plain[kv]:
+                fail(f"{cfg.name} {label}: the speculative stream differs "
+                     f"from the plain {kv} stream")
+        else:
+            plain[kv] = tokens
+            if c["K5"] != m["decode_steps"] * L or c["K7"]:
+                fail(f"{label}: K5 launches {c['K5']} != decode steps "
+                     f"{m['decode_steps']} x {L}, or K7 launched")
+            counts.update({f"K5{sfx}": c["K5"], f"K6{sfx}": c["K6"]})
+            res = {"tokens_per_s": m["tokens_per_s"],
+                   "step_ms_p50": m["decode_step_ms_p50"],
+                   "decode_steps": m["decode_steps"]}
+            print(f"[smoke] {cfg.name} {label} serve: {m['new_tokens']} "
+                  f"tokens, {m['tokens_per_s']:.1f} tok/s, decode step p50 "
+                  f"{m['decode_step_ms_p50']:.3f} ms over "
+                  f"{m['decode_steps']} steps, pool {bpt:.0f} B per token; "
+                  f"launches K5 {c['K5']}, K6 {c['K6']}", flush=True)
+        ref = replay("reference", kv, tokens)
+        rep = dual_gate(ref, replay("hopper", kv, tokens), tokens,
+                        tol=LOGIT_TOL)
+        gate_line(f"dual gate of the {cfg.name} {label} run against the "
+                  f"{kv} reference replay", rep)
+        res.update(max_logit_err=rep["max_logit_err"], kv_bytes_per_token=bpt,
+                   busy_share=busy,
+                   tokens_equal_plain=sum(a == b for t, u in zip(
+                       tokens, plain[kv]) for a, b in zip(t, u)))
+        if kv == "int8":
+            quant = dual_gate(replay("reference", "bf16", tokens), ref,
+                              tokens, tol=LOGIT_TOL)
+            print(f"[smoke] {cfg.name} {label} quantization error: int8 vs "
+                  f"bf16 reference replay along these tokens, max |dlogit| "
+                  f"{quant['max_logit_err']:.5f}, "
+                  f"{quant['greedy_equal_tokens']}/{quant['n_tokens']} "
+                  f"tokens equal the bf16 greedy token", flush=True)
+            res.update(quant_max_logit_err=quant["max_logit_err"],
+                       quant_greedy_equal=quant["greedy_equal_tokens"])
+        out[label] = res
+    if out["speculative oracle"]["accepted"] <= 0:
+        fail(f"{cfg.name}: the oracle run accepted no draft")
+    out["verify_rows"] = verify_rows(torch, cfg, params, prompts,
+                                     base_tokens, base=base)
+    return counts, out
 
 
 def phase_gemm_sigmoid(torch, timer, seed):
@@ -1913,8 +2133,12 @@ def main() -> None:
                     for kid, equal in phase_ring_lengths(torch, rng,
                                                          int8=q).items()}
     k8 = phase_gemm_sigmoid(torch, timer, args.seed)
-    k5 = phase_mla_decode(torch, rng, timer)
-    k6 = phase_mla_prefill(torch, rng, timer)
+    k5, k5q = (phase_mla_decode(torch, rng, timer, int8=q)
+               for q in (False, True))
+    k6, k6q = (phase_mla_prefill(torch, rng, timer, int8=q)
+               for q in (False, True))
+    k7, k7q = (phase_mla_verify(torch, rng, timer, int8=q)
+               for q in (False, True))
     print(f"[smoke] kernel phases took {time.perf_counter() - t0:.1f} s",
           flush=True)
     cfg = get_arch("qwen2-0.5b")
@@ -2041,8 +2265,16 @@ def main() -> None:
               "rbm_cd/kernel.py:40", {**k8[0], "shapes": k8}),
         entry("K5", "mla_paged_decode", "mla_paged_decode.cu",
               "paged_attention/kernel.py:338", k5),
+        entry("K5-int8", "mla_paged_decode", "mla_paged_decode.cu",
+              "paged_attention/kernel.py:338", k5q),
         entry("K6", "mla_ragged_prefill", "mla_ragged_prefill.cu",
               "ragged_prefill/kernel.py:438", k6),
+        entry("K6-int8", "mla_ragged_prefill", "mla_ragged_prefill.cu",
+              "ragged_prefill/kernel.py:438", k6q),
+        entry("K7", "mla_paged_verify", "mla_paged_verify.cu",
+              "paged_attention/kernel.py:432", k7),
+        entry("K7-int8", "mla_paged_verify", "mla_paged_verify.cu",
+              "paged_attention/kernel.py:432", k7q),
     ]
     print(json.dumps({"kernels": kernels, "serve": {
         k: report[k] for k in ("max_logit_err", "n_tokens",

@@ -114,14 +114,6 @@ def refuse_softcap(name: str, softcap: float) -> None:
             "arch sets attn_logit_softcap)")
 
 
-def refuse_int8_latent(name: str, ckv_scale) -> None:
-    """The TPU MLA kernels' int8 latent mode is not ported: it raises."""
-    if ckv_scale is not None:
-        raise NotImplementedError(
-            f"{name}: int8 latent pages are not ported yet: ROADMAP queue 1 "
-            "item 12b")
-
-
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
                  ndim: int, device: torch.device) -> None:
     if t.dtype != dtype or t.dim() != ndim or t.device != device \
@@ -155,6 +147,35 @@ def check_pool(name, dev, k_pages, v_pages, tables, k_scale, v_scale):
         raise ValueError(f"{name}: k_pages {tuple(k_pages.shape)} and "
                          f"v_pages {tuple(v_pages.shape)} differ")
     return k_pages.shape
+
+
+def check_latent_pool(name, dev, ckv_pages, krope_pages, tables, ckv_scale,
+                      krope_scale):
+    """Device, dtype, layout and shape checks of an MLA latent pool (ckv
+    [P, ps, L], krope [P, ps, R]; bf16, or int8 with contiguous bf16 scale
+    pages [P, ps] for both), its scale pages and its tables (shared by K5,
+    K6 and K7); returns (P, ps, L, R)."""
+    payload = torch.bfloat16 if ckv_scale is None else torch.int8
+    check_tensor(ckv_pages, "ckv_pages", payload, 3, dev)
+    check_tensor(krope_pages, "krope_pages", payload, 3, dev)
+    check_tensor(tables, "tables", torch.int32, 2, dev)
+    if (ckv_scale is None) != (krope_scale is None):
+        raise ValueError(f"{name}: ckv_scale and krope_scale come together")
+    P, ps, L = ckv_pages.shape
+    R = krope_pages.shape[2]
+    if tuple(krope_pages.shape[:2]) != (P, ps):
+        raise ValueError(f"{name}: ckv {tuple(ckv_pages.shape)} and krope "
+                         f"{tuple(krope_pages.shape)} pages differ")
+    if ckv_scale is not None:
+        check_tensor(ckv_scale, "ckv_scale", torch.bfloat16, 2, dev)
+        check_tensor(krope_scale, "krope_scale", torch.bfloat16, 2, dev)
+        if tuple(ckv_scale.shape) != (P, ps) \
+                or tuple(krope_scale.shape) != (P, ps):
+            raise ValueError(
+                f"{name}: scale pages {tuple(ckv_scale.shape)}/"
+                f"{tuple(krope_scale.shape)} do not match the payload "
+                f"{(P, ps)}")
+    return P, ps, L, R
 
 
 def ptr(t):

@@ -16,10 +16,14 @@ PyTorch version, which is also the reference backend's core and the
 kernel's oracle on the card.
 
 ``mla_paged_decode`` (kernel K5) replaces ``mla_paged_attention_decode``
-(Pallas ``kernel.py::mla_paged_decode_fwd``): the absorbed-latent MLA
-decode against bf16 latent pages (``csrc/mla_paged_decode.cu``), with its
-plain version ``mla_paged_decode_plain``.  Its int8 latent mode is not
-ported (ROADMAP queue 1 item 12b).
+(Pallas ``kernel.py::mla_paged_decode_fwd``) and ``mla_paged_verify``
+(kernel K7) replaces ``mla_paged_attention_verify`` (Pallas
+``kernel.py::mla_paged_verify_fwd``): the absorbed-latent MLA decode and
+small-q verify against bf16 latent pages, or int8 latent pages plus bf16
+per-slot scale pages (``ckv_scale``/``krope_scale``).  Both are instances
+of one CUDA row body (``csrc/mla_attention.cuh``): K5 is its one-query
+case, so K7 with one live query reproduces K5 bit for bit.  Their plain
+versions are ``mla_paged_decode_plain`` and ``mla_paged_verify_plain``.
 """
 from __future__ import annotations
 
@@ -27,8 +31,8 @@ import ctypes
 
 import torch
 
-from .. import (check_launch, check_pool, check_tensor, entry, ptr,
-                refuse_int8_latent, refuse_softcap)
+from .. import (check_latent_pool, check_launch, check_pool, check_tensor,
+                entry, ptr, refuse_softcap)
 from ...models import attention, mla
 
 
@@ -174,60 +178,96 @@ paged_verify.launches = 0
 
 
 def mla_paged_decode_plain(q_eff, q_rope, ckv_pages, krope_pages, tables,
-                           pos, *, scale: float):
+                           pos, *, scale: float, ckv_scale=None,
+                           krope_scale=None):
     """q_eff: [B, H, L] (``w_uk``-absorbed queries); q_rope: [B, H, R]
-    (roped); ckv_pages: [P, ps, L]; krope_pages: [P, ps, R]; tables: [B,
+    (roped); ckv_pages: [P, ps, L]; krope_pages: [P, ps, R] (bf16, or int8
+    with ``ckv_scale``/``krope_scale`` [P, ps] bf16); tables: [B,
     n_pages]; pos: [B] (the new token already written).  Gathers the
-    logical latent view and runs ``mla.mla_latent_attend`` with ``idx <=
-    pos``: fp32 scores, softmax and latent context, one cast at the output.
-    Returns the latent context [B, H, L] in the pages' dtype."""
-    cc = attention.gather_pages(ckv_pages, tables)
-    cr = attention.gather_pages(krope_pages, tables)
+    logical latent view (int8 dequantized to fp32 as ``f32(q) * f32(s)``)
+    and runs ``mla.mla_latent_attend`` with ``idx <= pos``: fp32 scores,
+    softmax and latent context, one cast at the output.  Returns the
+    latent context [B, H, L] in ``q_eff``'s dtype."""
+    cc, cr = attention.gather_kv(ckv_pages, krope_pages, tables, ckv_scale,
+                                 krope_scale)
     valid = attention.decode_valid_mask(pos, cc.shape[1])
-    return mla.mla_latent_attend(q_eff, q_rope, cc, cr, valid, scale=scale)
+    return mla.mla_latent_attend(q_eff, q_rope, cc, cr, valid,
+                                 scale=scale).to(q_eff.dtype)
 
 
-# q_eff, q_rope, ckv, krope, tables, pos, out, then B, H, L, R, ps, n_pages,
-# scale, stream
-_MLA_DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+def mla_paged_verify_plain(q_eff, q_rope, ckv_pages, krope_pages, tables,
+                           pos, n_q, *, scale: float, ckv_scale=None,
+                           krope_scale=None):
+    """q_eff: [B, Q, H, L] and q_rope: [B, Q, H, R], query j of row b at
+    absolute position ``pos[b] + j`` (all Q latents already written); n_q:
+    [B] live query counts.  Pages, scales and tables as
+    ``mla_paged_decode_plain``.  Each live query attends ``idx <= pos +
+    j`` (``attention.verify_valid_mask``) with the decode attend's per-row
+    ops; dead rows (``j >= n_q``) are exact zeros.  Returns the latent
+    context [B, Q, H, L] in ``q_eff``'s dtype."""
+    cc, cr = attention.gather_kv(ckv_pages, krope_pages, tables, ckv_scale,
+                                 krope_scale)
+    valid = attention.verify_valid_mask(pos, n_q, q_eff.shape[1],
+                                        cc.shape[1])
+    return mla.mla_latent_verify_attend(q_eff, q_rope, cc, cr, valid,
+                                        scale=scale).to(q_eff.dtype)
+
+
+# q_eff, q_rope, ckv, krope, ckv_scale, krope_scale, tables, pos, out, then
+# B, H, L, R, ps, n_pages, scale, stream; verify adds n_q after pos and Q
+# after B
+_MLA_DECODE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
     + [ctypes.c_float, ctypes.c_void_p]
-MLA_DIMS = (512, 64)                        # csrc/mla_paged_decode.cu: L, R
+_MLA_VERIFY_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float, ctypes.c_void_p]
+MLA_DIMS = (512, 64)                        # csrc/mla_attention.cuh: L, R
+
+
+def _check_mla_shapes(name, q_eff, q_rope, pool_shape, tables, pos,
+                      n_q=None):
+    """Raise ``ValueError`` unless K5 (q_eff [B, H, L]) or K7 (q_eff [B,
+    Q, H, L], ``n_q`` given) takes these shapes: L = 512, R = 64, q_rope
+    matching q_eff, H a multiple of 8, page size <= 16, tables [B, n] and
+    pos (n_q) [B]."""
+    P, ps, L, R = pool_shape
+    B, H = q_eff.shape[0], q_eff.shape[-2]
+    if (L, R) != MLA_DIMS or q_eff.shape[-1] != L \
+            or tuple(q_rope.shape) != tuple(q_eff.shape[:-1]) + (R,) \
+            or H % 8 or ps > 16 or tables.shape[0] != B \
+            or pos.shape[0] != B or (n_q is not None and n_q.shape[0] != B):
+        raise ValueError(
+            f"{name}: unsupported shapes q_eff {tuple(q_eff.shape)}, q_rope "
+            f"{tuple(q_rope.shape)}, latent pages {(P, ps, L)}/{(P, ps, R)}"
+            f", tables {tuple(tables.shape)}, pos {tuple(pos.shape)}")
 
 
 def mla_paged_decode(q_eff, q_rope, ckv_pages, krope_pages, tables, pos, *,
                      scale: float, ckv_scale=None, krope_scale=None):
     """Absorbed-latent MLA decode (K5); arguments as
-    ``mla_paged_decode_plain``.  On a CUDA device ``q_eff``, ``q_rope`` and
-    the latent pages are contiguous bf16, ``tables`` and ``pos`` contiguous
-    int32, L = 512, R = 64 (deepseek-v2), H a multiple of 8 and page size
-    <= 16; anything else raises.  int8 latent pages (``ckv_scale``/
-    ``krope_scale``) raise ``NotImplementedError``."""
-    refuse_int8_latent("mla_paged_decode", ckv_scale)
+    ``mla_paged_decode_plain``.  On a CUDA device ``q_eff`` and ``q_rope``
+    are contiguous bf16, the latent pages contiguous bf16 (or int8 with
+    both scale pages, contiguous bf16 [P, ps]), ``tables`` and ``pos``
+    contiguous int32, L = 512, R = 64 (deepseek-v2), H a multiple of 8 and
+    page size <= 16; anything else raises."""
     if q_eff.device.type == "cpu":
         return mla_paged_decode_plain(q_eff, q_rope, ckv_pages, krope_pages,
-                                      tables, pos, scale=scale)
+                                      tables, pos, scale=scale,
+                                      ckv_scale=ckv_scale,
+                                      krope_scale=krope_scale)
     dev = q_eff.device
     check_tensor(q_eff, "q_eff", torch.bfloat16, 3, dev)
     check_tensor(q_rope, "q_rope", torch.bfloat16, 3, dev)
-    check_tensor(ckv_pages, "ckv_pages", torch.bfloat16, 3, dev)
-    check_tensor(krope_pages, "krope_pages", torch.bfloat16, 3, dev)
-    check_tensor(tables, "tables", torch.int32, 2, dev)
     check_tensor(pos, "pos", torch.int32, 1, dev)
+    shape = check_latent_pool("mla_paged_decode", dev, ckv_pages,
+                              krope_pages, tables, ckv_scale, krope_scale)
+    _check_mla_shapes("mla_paged_decode", q_eff, q_rope, shape, tables, pos)
     B, H, L = q_eff.shape
-    P, ps, R = krope_pages.shape
-    if (L, R) != MLA_DIMS or tuple(q_rope.shape) != (B, H, R) \
-            or tuple(ckv_pages.shape) != (P, ps, L) or H % 8 or ps > 16 \
-            or tables.shape[0] != B or pos.shape[0] != B:
-        raise ValueError(
-            f"mla_paged_decode: unsupported shapes q_eff {tuple(q_eff.shape)}"
-            f", q_rope {tuple(q_rope.shape)}, ckv {tuple(ckv_pages.shape)}, "
-            f"krope {tuple(krope_pages.shape)}, tables {tuple(tables.shape)}"
-            f", pos {tuple(pos.shape)}")
     out = torch.empty_like(q_eff)
     rc = entry("mla_paged_decode", _MLA_DECODE_ARGTYPES)(
         q_eff.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
-        krope_pages.data_ptr(), tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, H, L, R, ps, tables.shape[1], float(scale),
+        krope_pages.data_ptr(), ptr(ckv_scale), ptr(krope_scale),
+        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, L,
+        shape[3], shape[1], tables.shape[1], float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "mla_paged_decode")
     mla_paged_decode.launches += 1
@@ -235,3 +275,42 @@ def mla_paged_decode(q_eff, q_rope, ckv_pages, krope_pages, tables, pos, *,
 
 
 mla_paged_decode.launches = 0
+
+
+def mla_paged_verify(q_eff, q_rope, ckv_pages, krope_pages, tables, pos, n_q,
+                     *, scale: float, ckv_scale=None, krope_scale=None):
+    """Small-q absorbed-latent MLA verify (K7); arguments as
+    ``mla_paged_verify_plain``.  On a CUDA device ``q_eff`` [B, Q, H, L]
+    and ``q_rope`` [B, Q, H, R] are contiguous bf16, the pages, scales,
+    ``tables`` and ``pos`` as ``mla_paged_decode``'s and ``n_q``
+    contiguous int32 [B]; anything else raises.  Each (request, query
+    token) gets its own H / 8 blocks (grid B x Q x H / 8), so a block
+    holds 8 of one token's head rows."""
+    if q_eff.device.type == "cpu":
+        return mla_paged_verify_plain(q_eff, q_rope, ckv_pages, krope_pages,
+                                      tables, pos, n_q, scale=scale,
+                                      ckv_scale=ckv_scale,
+                                      krope_scale=krope_scale)
+    dev = q_eff.device
+    check_tensor(q_eff, "q_eff", torch.bfloat16, 4, dev)
+    check_tensor(q_rope, "q_rope", torch.bfloat16, 4, dev)
+    check_tensor(pos, "pos", torch.int32, 1, dev)
+    check_tensor(n_q, "n_q", torch.int32, 1, dev)
+    shape = check_latent_pool("mla_paged_verify", dev, ckv_pages,
+                              krope_pages, tables, ckv_scale, krope_scale)
+    _check_mla_shapes("mla_paged_verify", q_eff, q_rope, shape, tables, pos,
+                      n_q)
+    B, Q, H, L = q_eff.shape
+    out = torch.empty_like(q_eff)
+    rc = entry("mla_paged_verify", _MLA_VERIFY_ARGTYPES)(
+        q_eff.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
+        krope_pages.data_ptr(), ptr(ckv_scale), ptr(krope_scale),
+        tables.data_ptr(), pos.data_ptr(), n_q.data_ptr(), out.data_ptr(),
+        B, Q, H, L, shape[3], shape[1], tables.shape[1], float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(rc, "mla_paged_verify")
+    mla_paged_verify.launches += 1
+    return out
+
+
+mla_paged_verify.launches = 0

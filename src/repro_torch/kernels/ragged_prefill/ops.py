@@ -17,9 +17,9 @@ kernels' oracles on the card.
 ``mla_ragged_prefill`` (kernel K6, ``csrc/mla_ragged_prefill.cu``)
 replaces ``mla_ragged_prefill_attend`` (Pallas
 ``kernel.py::mla_ragged_prefill_fwd``): the MLA chunk prefill against the
-post-write bf16 latent pages, per-head K/V materialized from the latent
-inside the kernel; ``mla_ragged_prefill_plain`` is its plain version.  Its
-int8 latent mode is not ported (ROADMAP queue 1 item 12b).
+post-write latent pages (bf16, or int8 plus bf16 per-slot scale pages),
+per-head K/V materialized from the latent inside the kernel;
+``mla_ragged_prefill_plain`` is its plain version.
 """
 from __future__ import annotations
 
@@ -28,8 +28,8 @@ import math
 
 import torch
 
-from .. import (check_launch, check_pool, check_tensor, entry, ptr,
-                refuse_int8_latent, refuse_softcap)
+from .. import (check_latent_pool, check_launch, check_pool, check_tensor,
+                entry, ptr, refuse_softcap)
 from ...models import attention, mla
 
 
@@ -192,24 +192,30 @@ windowed_prefill.launches = 0
 
 
 def mla_ragged_prefill_plain(q, ckv_pages, krope_pages, wkv_b, tables, start,
-                             *, nope: int, q_block: int = 512):
+                             *, nope: int, q_block: int = 512,
+                             ckv_scale=None, krope_scale=None):
     """q: [B, T, H, nope + R] roped chunk queries (rope part roped), row b's
     first at absolute position ``start[b]``; ckv_pages: [P, ps, L] and
-    krope_pages: [P, ps, R] the *post-write* latent pages; wkv_b: [L, H,
-    nope + v]; tables: [B, n_pages].  ``mla.mla_materialized_prefill_attend``:
-    per-head K/V materialized from the gathered latent (one bf16 einsum),
-    then the chunked causal attend (fp32 scores times ``1 / sqrt(nope +
-    R)``, one softmax at the row's true max, probabilities cast to bf16,
+    krope_pages: [P, ps, R] the *post-write* latent pages (bf16, or int8
+    with ``ckv_scale``/``krope_scale`` [P, ps] bf16); wkv_b: [L, H, nope +
+    v]; tables: [B, n_pages].  ``mla.mla_materialized_prefill_attend``:
+    per-head K/V materialized from the gathered latent (one einsum: for
+    bf16 pages fp64 sums rounded to fp32, then to bf16; fp32 from the
+    latent dequantized as ``f32(q) * f32(s)`` for int8 pages, with
+    ``wkv_b`` promoted to fp32), then the chunked causal attend (fp32
+    scores times ``1 / sqrt(nope + R)``, one softmax at the row's true max,
+    probabilities cast to the K/V dtype -- bf16, or kept fp32 for int8 --,
     fp32 PV sum, one cast).  Every row is computed, chunk padding too.
     Returns [B, T, H, v] in ``q``'s dtype."""
     return mla.mla_materialized_prefill_attend(
         q, ckv_pages, krope_pages, wkv_b, tables, start, nope=nope,
-        q_block=q_block).to(q.dtype)
+        q_block=q_block, ckv_scale=ckv_scale,
+        krope_scale=krope_scale).to(q.dtype)
 
 
-# q, ckv, krope, wkv_b, tables, start, out, then B, H, Tp, L, nope, R, vd,
-# ps, n_pages, scale, stream
-_MLA_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+# q, ckv, krope, ckv_scale, krope_scale, wkv_b, tables, start, out, then B,
+# H, Tp, L, nope, R, vd, ps, n_pages, scale, stream
+_MLA_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
     + [ctypes.c_float, ctypes.c_void_p]
 MLA_DIMS = (512, 128, 64, 128)   # csrc/mla_ragged_prefill.cu: L, nope, R, v
 MLA_Q_BLOCK = 128                # the TPU wrapper's q_blk
@@ -222,28 +228,26 @@ def mla_ragged_prefill(q, ckv_pages, krope_pages, wkv_b, tables, start, *,
     takes no ``q_block``).  As the TPU wrapper does, the queries go
     head-major ([B, H, T, E]) with the token axis padded to a multiple of
     the q block ``min(128, T rounded up to 8)``; the padding rows are
-    computed and dropped.  On a CUDA device ``q``, the latent pages and
-    ``wkv_b`` are bf16 (pages and ``wkv_b`` contiguous), ``tables`` and
-    ``start`` contiguous int32, L = 512, nope = 128, R = 64, v = 128
-    (deepseek-v2) and 16-token pages; anything else raises.  int8 latent
-    pages (``ckv_scale``/``krope_scale``) raise ``NotImplementedError``."""
-    refuse_int8_latent("mla_ragged_prefill", ckv_scale)
+    computed and dropped.  On a CUDA device ``q`` and ``wkv_b`` are bf16
+    (``wkv_b`` contiguous), the latent pages contiguous bf16 (or int8 with
+    both scale pages, contiguous bf16 [P, ps]), ``tables`` and ``start``
+    contiguous int32, L = 512, nope = 128, R = 64, v = 128 (deepseek-v2)
+    and 16-token pages; anything else raises."""
     if q.device.type == "cpu":
         return mla_ragged_prefill_plain(q, ckv_pages, krope_pages, wkv_b,
-                                        tables, start, nope=nope)
+                                        tables, start, nope=nope,
+                                        ckv_scale=ckv_scale,
+                                        krope_scale=krope_scale)
     dev = q.device
     B, T, H, E = q.shape
-    P, ps, L = ckv_pages.shape
-    R = krope_pages.shape[2]
+    P, ps, L, R = check_latent_pool("mla_ragged_prefill", dev, ckv_pages,
+                                    krope_pages, tables, ckv_scale,
+                                    krope_scale)
     vd = wkv_b.shape[2] - nope
-    for t, name in ((ckv_pages, "ckv_pages"), (krope_pages, "krope_pages"),
-                    (wkv_b, "wkv_b")):
-        check_tensor(t, name, torch.bfloat16, 3, dev)
-    check_tensor(tables, "tables", torch.int32, 2, dev)
+    check_tensor(wkv_b, "wkv_b", torch.bfloat16, 3, dev)
     check_tensor(start, "start", torch.int32, 1, dev)
     if q.dtype != torch.bfloat16 or (L, nope, R, vd) != MLA_DIMS \
             or E != nope + R or ps != 16 \
-            or tuple(krope_pages.shape) != (P, ps, R) \
             or tuple(wkv_b.shape[:2]) != (L, H) or tables.shape[0] != B \
             or start.shape[0] != B:
         raise ValueError(
@@ -258,9 +262,9 @@ def mla_ragged_prefill(q, ckv_pages, krope_pages, wkv_b, tables, start, *,
     out = torch.empty((B, H, Tp, vd), dtype=q.dtype, device=dev)
     rc = entry("mla_ragged_prefill", _MLA_ARGTYPES)(
         qg.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
-        wkv_b.data_ptr(), tables.data_ptr(), start.data_ptr(),
-        out.data_ptr(), B, H, Tp, L, nope, R, vd, ps, tables.shape[1],
-        float(1.0 / math.sqrt(nope + R)),
+        ptr(ckv_scale), ptr(krope_scale), wkv_b.data_ptr(),
+        tables.data_ptr(), start.data_ptr(), out.data_ptr(), B, H, Tp, L,
+        nope, R, vd, ps, tables.shape[1], float(1.0 / math.sqrt(nope + R)),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "mla_ragged_prefill")
     mla_ragged_prefill.launches += 1

@@ -22,11 +22,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --arch starcoder2-7b --speculate-tokens 4 --verify
 
-  # MLA + MoE (deepseek-v2-236b: latent pages; int8 pages and speculation
-  # are refused), and MoE on GQA pages (dbrx-132b)
+  # MLA + MoE (deepseek-v2-236b: latent pages, bf16 or int8, speculation
+  # through the latent verify), and MoE on GQA pages (dbrx-132b)
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --arch deepseek-v2-236b --prefix-cache --prefill-chunk-tokens 32 \
       --verify
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --arch deepseek-v2-236b --kv-dtype int8 --verify
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --arch deepseek-v2-236b --speculate-tokens 4 --verify
 
 The flags are those of ``repro.launch.serve`` for what the port supports,
 plus ``--device`` (``cuda`` by default: without a card the run raises

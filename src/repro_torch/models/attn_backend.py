@@ -11,8 +11,9 @@ that read happens is a *backend* choice:
   ``kernels.paged_attention`` K1 for decode and K3 for speculative verify
   (each also in its sliding-window ring mode), ``kernels.ragged_prefill``
   K2 for chunk prefill and K4 for sliding-window chunk prefill; for MLA
-  latent pages ``kernels.paged_attention`` K5 for decode and
-  ``kernels.ragged_prefill`` K6 for chunk prefill.  All walk the page
+  latent pages ``kernels.paged_attention`` K5 for decode and K7 for
+  speculative verify and ``kernels.ragged_prefill`` K6 for chunk
+  prefill.  All walk the page
   table inside the kernel, so the gather never materializes.
 
 A backend implements the three *attend cores* of the dense decoder
@@ -22,9 +23,9 @@ optional int8 scale pools (``k_scale``/``v_scale`` [P, ps, K] bf16:
 ``f32(q) * f32(s)`` before use).  The family framing (QKV projection,
 RoPE, page-table scatter with write-side quantization, output projection)
 is shared code in ``models.attention``.  MLA layers have their own cores
-(``mla_decode_attend``, ``mla_prefill_attend``; ``mla_verify_attend``
-raises: kernel K7 is ROADMAP queue 1 item 12b) behind the framing of
-``models.mla``.  Model code routes through ``backend.paged_prefill`` /
+(``mla_decode_attend``, ``mla_prefill_attend``, ``mla_verify_attend``,
+each taking optional ``ckv_scale``/``krope_scale`` [P, ps] bf16 for int8
+latent pages) behind the framing of ``models.mla``.  Model code routes through ``backend.paged_prefill`` /
 ``paged_decode`` / ``paged_verify``.
 
 Selection follows ``ServeConfig.attn_backend`` (``auto`` | ``reference`` |
@@ -40,7 +41,9 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.paged_attention import (mla_paged_decode,
-                                      mla_paged_decode_plain, paged_decode,
+                                      mla_paged_decode_plain,
+                                      mla_paged_verify,
+                                      mla_paged_verify_plain, paged_decode,
                                       paged_decode_plain, paged_verify,
                                       paged_verify_plain)
 from ..kernels.ragged_prefill import (mla_ragged_prefill,
@@ -211,8 +214,7 @@ class AttentionBackend:
         draft, padded to Q), ``meta`` the flat metadata from
         ``verify_meta``.  All Q tokens' K/V scatter into their pages first,
         then every query attends the post-write pool under its own causal
-        mask.  Returns (Q outputs [B, d], cache).  MLA raises
-        ``NotImplementedError`` (ROADMAP queue 1 item 12b)."""
+        mask.  Returns (Q outputs [B, d], cache)."""
         block = mla.mla_paged_verify_block if cfg.use_mla \
             else attention.paged_verify_attention_block
         return block(cfg, p, xs, cache, meta, freqs, backend=self)
@@ -271,10 +273,15 @@ class AttentionBackend:
         as in the TPU kernel).  Returns [B, T, H, v]."""
         raise NotImplementedError
 
-    def mla_verify_attend(self, *args, **kwargs):
-        """Small-q absorbed-latent verify (kernel K7): not ported."""
-        raise NotImplementedError(
-            f"MLA speculative verify is not ported yet: {mla.NOT_PORTED}")
+    def mla_verify_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
+                          tables, pos, n_q, *, scale: float, ckv_scale=None,
+                          krope_scale=None):
+        """Small-q absorbed-latent verify: q_eff [B, Q, H, L], q_rope [B, Q,
+        H, R], query j of row b at ``pos[b] + j``, against the
+        *post-write* latent pages, masked ``idx <= pos + j`` and ``j <
+        n_q[b]``; dead query rows return exact zeros on every backend.
+        Returns the latent context [B, Q, H, L]."""
+        raise NotImplementedError
 
 
 @register_backend
@@ -314,14 +321,25 @@ class ReferenceBackend(AttentionBackend):
                           tables, pos, *, scale: float, ckv_scale=None,
                           krope_scale=None):
         return mla_paged_decode_plain(q_eff, q_rope, ckv_pages, krope_pages,
-                                      tables, pos, scale=scale)
+                                      tables, pos, scale=scale,
+                                      ckv_scale=ckv_scale,
+                                      krope_scale=krope_scale)
+
+    def mla_verify_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
+                          tables, pos, n_q, *, scale: float, ckv_scale=None,
+                          krope_scale=None):
+        return mla_paged_verify_plain(q_eff, q_rope, ckv_pages, krope_pages,
+                                      tables, pos, n_q, scale=scale,
+                                      ckv_scale=ckv_scale,
+                                      krope_scale=krope_scale)
 
     def mla_prefill_attend(self, q, ckv_pages, krope_pages, wkv_b, tables,
                            start, n_live, *, nope: int, q_block: int = 512,
                            ckv_scale=None, krope_scale=None):
         return mla_ragged_prefill_plain(q, ckv_pages, krope_pages, wkv_b,
                                         tables, start, nope=nope,
-                                        q_block=q_block)
+                                        q_block=q_block, ckv_scale=ckv_scale,
+                                        krope_scale=krope_scale)
 
 
 def _on_card(q: torch.Tensor) -> None:
@@ -336,8 +354,9 @@ class HopperBackend(AttentionBackend):
     K2 (``ragged_prefill``) for chunk prefill, K3 (``paged_verify``) for
     speculative verify and K4 (``windowed_prefill``) for sliding-window
     chunk prefill, each in its bf16 or int8 mode, K1 and K3 also in their
-    ring mode; for MLA latent pages K5 (``mla_paged_decode``) for decode and
-    K6 (``mla_ragged_prefill``) for chunk prefill, bf16."""
+    ring mode; for MLA latent pages K5 (``mla_paged_decode``) for decode,
+    K7 (``mla_paged_verify``) for speculative verify and K6
+    (``mla_ragged_prefill``) for chunk prefill, bf16 or int8."""
 
     name = "hopper"
 
@@ -375,6 +394,15 @@ class HopperBackend(AttentionBackend):
         _on_card(q_eff)
         return mla_paged_decode(q_eff.contiguous(), q_rope.contiguous(),
                                 ckv_pages, krope_pages, tables, pos,
+                                scale=scale, ckv_scale=ckv_scale,
+                                krope_scale=krope_scale)
+
+    def mla_verify_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
+                          tables, pos, n_q, *, scale: float, ckv_scale=None,
+                          krope_scale=None):
+        _on_card(q_eff)
+        return mla_paged_verify(q_eff.contiguous(), q_rope.contiguous(),
+                                ckv_pages, krope_pages, tables, pos, n_q,
                                 scale=scale, ckv_scale=ckv_scale,
                                 krope_scale=krope_scale)
 

@@ -5,9 +5,7 @@ from ..configs.base import ArchConfig
 from .params import init_tree
 from .transformer import DecoderLM
 
-# where each arch that the port does not build yet arrives (ROADMAP queue 1);
-# int8 MLA latent pages and MLA speculation are refused by the pool
-# (``mla.mla_paged_cache_defs``) and the engine: item 12b
+# where each arch that the port does not build yet arrives (ROADMAP queue 1)
 _NOT_YET = (
     (lambda c: c.family == "ssm" or c.family == "hybrid",
      "state-slot families (mamba2, recurrentgemma) arrive with ROADMAP "

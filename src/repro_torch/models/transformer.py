@@ -227,7 +227,7 @@ class DecoderLM:
                          kv_dtype: str = "bf16"):
         """Defs for the layer-stacked paged pool: [L, P, ps, K, D] K/V
         pages, or [L, P, ps, kv_lora] + [L, P, ps, rope] latent pages for
-        MLA (bf16 only)."""
+        MLA (int8 pools add their [L, P, ps, ...] bf16 scale pages)."""
         per = mla_paged_cache_defs if self.cfg.use_mla else paged_cache_defs
         return stack_tree(per(self.cfg, num_pages, page_size,
                               kv_dtype=kv_dtype), self.cfg.n_layers)
@@ -291,9 +291,10 @@ class DecoderLM:
         there): token j's B rows route as the decode step's group at full
         capacity (``cap = B``), which is the decode step's computation
         whenever the decode step drops nothing (B <= 8 slots), so verify
-        row j still equals the decode step at ``pos + j``.  MLA's verify
-        block (kernel K7) raises ``NotImplementedError`` (ROADMAP queue 1
-        item 12b).  Returns (logits [B, Q, V], kv, state)."""
+        row j still equals the decode step at ``pos + j``.  MLA layers run
+        ``mla.mla_paged_verify_block`` by the same rule (one latent verify
+        attend, kernel K7 on the card).  Returns (logits [B, Q, V], kv,
+        state)."""
         cfg = self.cfg
         xs = [embed_tokens(params["embed"], tokens[:, j])
               for j in range(tokens.shape[1])]                 # Q x [B, d]

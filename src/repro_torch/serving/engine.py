@@ -37,8 +37,7 @@ runs on ``cuda`` unless constructed with ``device="cpu"``.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 queue 1 item: the overlapped ``pump()`` pipeline, fault injection and
-deadline-aware admission control (item 9); speculation and int8 latent
-pages on an MLA arch (item 12b).
+deadline-aware admission control (item 9).
 
 ``generate_static`` is the static-batching baseline kept for verification:
 contiguous per-request KV caches, the whole batch padded together and
@@ -160,11 +159,6 @@ class Engine:
         if self.scfg.admission_control or self.scfg.default_deadline_s \
                 or self.scfg.default_ttft_deadline_s:
             raise _not_in_slice("deadline-aware admission control", "9")
-        if cfg.use_mla and self.scfg.speculate_tokens:
-            # refused, not served without speculation: the latent verify
-            # kernel K7 and its step are the next MLA slice
-            raise _not_in_slice(f"{cfg.name}: MLA speculative decoding",
-                                "12b")
         self.device = resolve_device(device)
         self.model = build_model(cfg)
         self.spec = self.model.cache_spec()

@@ -15,9 +15,10 @@ round to its other bf16 neighbour, moving the row by up to an ulp of its
 larger terms, so an element that cancels to near 0 is not held to its own
 ulp.  K3 (verify) with one live query per row equals K1 (decode) bit for
 bit, bf16 and int8, in ring mode too; K1, K3 and K4 on one window of K/V
-in a ring of n pages and in one of n + 1 give equal bits.  K5 (MLA decode)
-and K6 (MLA prefill) are held to their plain versions by the same one-ulp
-rule.  The hopper engine passes the dual gate against the reference
+in a ring of n pages and in one of n + 1 give equal bits.  K5 (MLA decode),
+K6 (MLA prefill) and K7 (MLA verify), bf16 and int8, are held to their
+plain versions by the same one-ulp rule; K7 with one live query equals K5
+bit for bit.  The hopper engine passes the dual gate against the reference
 engine (``serving.parity``, max |dlogit| <= 0.25), with and without
 speculation and int8 pages, dense, sliding-window and MLA.
 """
@@ -28,8 +29,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import ServeConfig, get_arch, reduced  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    mla_paged_decode, mla_paged_decode_plain, paged_decode,
-    paged_decode_plain, paged_verify, paged_verify_plain)
+    mla_paged_decode, mla_paged_decode_plain, mla_paged_verify,
+    mla_paged_verify_plain, paged_decode, paged_decode_plain, paged_verify,
+    paged_verify_plain)
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
     mla_ragged_prefill, mla_ragged_prefill_plain, ragged_prefill,
     ragged_prefill_plain, windowed_prefill, windowed_prefill_plain)
@@ -562,6 +564,155 @@ def test_hopper_mla_engine_passes_the_dual_gate(cuda):
                for p, tk in zip(prompts, tokens)]
         test = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
                               attn_backend="hopper")
+                for p, tk in zip(prompts, tokens)]
+    rep = dual_gate(ref, test, tokens, tol=0.25)
+    assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}
+
+
+def _int8_latent(ckv, kr):
+    """(ckv, krope, scale kwargs) of the int8 pool quantized from a bf16
+    one by the port's ``quantize_int8``."""
+    (c8, cs), (r8, rs) = quantize_int8(ckv), quantize_int8(kr)
+    return c8, r8, dict(ckv_scale=cs, krope_scale=rs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,ps", [(16, 16), (128, 16), (8, 8)])
+def test_int8_mla_decode_kernel_matches_plain(cuda, H, ps):
+    rng = np.random.RandomState(H + ps + 1)
+    pos = [300, ps - 1, 0, 64, 0]
+    lengths = [p + 1 for p in pos]
+    lengths[-1] = 0                                        # idle row
+    ckv, kr, t = _latent(rng, lengths, ps, 320 // ps, cuda)
+    c8, r8, kw = _int8_latent(ckv, kr)
+    B = len(pos)
+    q_eff = torch.from_numpy(rng.randn(B, H, 512).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    q_rope = torch.from_numpy(rng.randn(B, H, 64).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    args = (q_eff, q_rope, c8, r8, t, pos_t)
+    got = mla_paged_decode(*args, scale=192 ** -0.5, **kw)
+    want = mla_paged_decode_plain(*args, scale=192 ** -0.5, **kw)
+    assert got.dtype == torch.bfloat16
+    assert _within_one_ulp(got, want)
+    with pytest.raises(ValueError, match="come together"):
+        mla_paged_decode(*args, scale=1.0, ckv_scale=kw["ckv_scale"])
+
+
+def _mla_verify_case(rng, H, Q, cuda):
+    pos = [300, 15, 0, 64, 0]
+    n_q = [Q, 1, 1, max(1, Q - 2), 1]
+    lengths = [p + Q for p in pos]
+    lengths[-1] = 0                                        # idle row
+    ckv, kr, t = _latent(rng, lengths, 16, 24, cuda)
+    B = len(pos)
+    q_eff = torch.from_numpy(rng.randn(B, Q, H, 512).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    q_rope = torch.from_numpy(rng.randn(B, Q, H, 64).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    return (q_eff, q_rope, ckv, kr, t,
+            torch.tensor(pos, dtype=torch.int32, device=cuda),
+            torch.tensor(n_q, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("H,Q", [(128, 5), (16, 3), (8, 1)])
+def test_mla_verify_kernel_matches_plain(cuda, H, Q, int8):
+    rng = np.random.RandomState(H + Q + int8)
+    q_eff, q_rope, ckv, kr, t, pos, n_q = _mla_verify_case(rng, H, Q, cuda)
+    kw = {}
+    if int8:
+        ckv, kr, kw = _int8_latent(ckv, kr)
+    args = (q_eff, q_rope, ckv, kr, t, pos, n_q)
+    n0 = mla_paged_verify.launches
+    got = mla_paged_verify(*args, scale=192 ** -0.5, **kw)
+    want = mla_paged_verify_plain(*args, scale=192 ** -0.5, **kw)
+    assert mla_paged_verify.launches == n0 + 1
+    assert _within_one_ulp(got, want)
+    dead = torch.arange(Q, device=cuda)[None, :] >= n_q[:, None]
+    assert not got[dead].float().abs().sum().item()       # exact zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_mla_verify_with_one_live_query_is_decode_bit_for_bit(cuda, int8):
+    rng = np.random.RandomState(90 + int8)
+    q_eff, q_rope, ckv, kr, t, pos, _ = _mla_verify_case(rng, 128, 5, cuda)
+    kw = {}
+    if int8:
+        ckv, kr, kw = _int8_latent(ckv, kr)
+    one = mla_paged_verify(q_eff, q_rope, ckv, kr, t, pos,
+                           torch.ones_like(pos), scale=0.07, **kw)[:, 0]
+    dec = mla_paged_decode(q_eff[:, 0].contiguous(),
+                           q_rope[:, 0].contiguous(), ckv, kr, t, pos,
+                           scale=0.07, **kw)
+    assert torch.equal(one, dec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,T,starts,n_live", [
+    (8, 40, (0, 96, 16), (40, 40, 13)),     # padded q block, a cached prefix
+    (4, 256, (0, 512), (256, 200)),          # two q tiles, a partial chunk
+])
+def test_int8_mla_prefill_kernel_matches_plain(cuda, H, T, starts, n_live):
+    rng = np.random.RandomState(H + T + 1)
+    ckv, kr, t = _latent(rng, [s + n for s, n in zip(starts, n_live)], 16,
+                         -(-(max(starts) + T) // 16), cuda)
+    c8, r8, kw = _int8_latent(ckv, kr)
+    B = len(starts)
+    q = torch.from_numpy(rng.randn(B, T, H, 192).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    w = torch.from_numpy((rng.randn(512, H, 256) / np.sqrt(512)).astype(
+        np.float32)).bfloat16().to(cuda)
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    n0 = mla_ragged_prefill.launches
+    got = mla_ragged_prefill(q, c8, r8, w, t, st, nope=128, **kw)
+    want = mla_ragged_prefill_plain(q, c8, r8, w, t, st, nope=128, **kw)
+    assert mla_ragged_prefill.launches == n0 + 1
+    assert got.shape == want.shape == (B, T, H, 128)
+    assert _within_one_ulp(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype,spec", [("bf16", 4), ("int8", 0),
+                                           ("int8", 4)])
+def test_speculative_and_int8_hopper_mla_engine_pass_the_dual_gate(
+        cuda, kv_dtype, spec):
+    """The small deepseek-v2 of ``test_hopper_mla_engine_passes_the_dual_
+    gate`` served with K = 4 n-gram speculation (K7 for every verify step,
+    K5 never) and/or int8 latent pages, against the reference replay of
+    its pool dtype."""
+    cfg = reduced(get_arch("deepseek-v2-236b"), n_heads=8, d_model=256,
+                  kv_lora_rank=512, rope_head_dim=64, nope_head_dim=128,
+                  v_head_dim=128)
+    params = init_params(cfg, 0, cuda)
+    rng = np.random.RandomState(0)
+    shared = rng.randint(1, cfg.vocab, size=32).tolist()
+    motif = rng.randint(1, cfg.vocab, size=4).tolist()
+    prompts = [shared + rng.randint(1, cfg.vocab, size=n).tolist()
+               for n in (8, 90)] + [(motif * 12)[:40]]
+    kw = dict(page_size=16, max_slots=4, max_len=160, prefix_cache=True,
+              prefill_chunk_tokens=48)
+    scfg = ServeConfig(attn_backend="hopper", kv_dtype=kv_dtype,
+                       speculate_tokens=spec, **kw)
+    with torch.no_grad():
+        mla_paged_decode.launches = mla_paged_verify.launches = 0
+        hop, m = Engine(cfg, scfg, params, device=cuda).run_offline(
+            prompts, 8)
+        steps = m["decode_steps"] * cfg.n_layers
+        if spec:
+            assert mla_paged_verify.launches == steps > 0
+            assert mla_paged_decode.launches == 0
+        else:
+            assert mla_paged_decode.launches == steps > 0
+        tokens = [r.tokens for r in hop]
+        ref = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
+                             attn_backend="reference", kv_dtype=kv_dtype)
+               for p, tk in zip(prompts, tokens)]
+        test = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
+                              attn_backend="hopper", kv_dtype=kv_dtype)
                 for p, tk in zip(prompts, tokens)]
     rep = dual_gate(ref, test, tokens, tol=0.25)
     assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}

@@ -3,7 +3,9 @@
 1. *Kernel plain versions* -- ``mla_paged_decode_plain`` (kernel K5's) and
    ``mla_ragged_prefill_plain`` (kernel K6's) against the Pallas
    ``mla_paged_decode_fwd`` and ``mla_ragged_prefill_fwd`` in interpret
-   mode, on bf16 inputs drawn with numpy: ragged positions over shuffled
+   mode, on bf16 inputs drawn with numpy, and on int8 latent pages
+   quantized from them by the port's ``quantize_int8`` (the same payload
+   and scales on both sides): ragged positions over shuffled
    tables, idle rows (position 0, null table), a cached prefix (chunks at
    ``start > 0``) and a partial chunk (padding rows, computed on both
    sides).  Each output element within one bf16 ulp of the largest
@@ -19,10 +21,10 @@
 3. *Weights* -- ``params_from_numpy`` maps the JAX tree's MLA and MoE
    leaves (``dense_blocks`` and ``blocks`` stacked apart, the router fp32)
    leaf for leaf and back.
-4. *Refusals* -- int8 latent pages and MLA speculation (kernel K7) raise
-   ``NotImplementedError`` naming ROADMAP item 12b.
+
+MLA speculation (kernel K7) and int8 latent pages in the engine are in
+``test_torch_mla_spec``.
 """
-import dataclasses
 import math
 
 import numpy as np
@@ -46,11 +48,9 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
     mla_ragged_prefill, mla_ragged_prefill_plain)
 from repro_torch.launch import serve as tserve  # noqa: E402
-from repro_torch.models.attn_backend import (  # noqa: E402
-    meta_to_device, verify_meta)
+from repro_torch.models.attention import quantize_int8  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
-from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving import (Engine, dual_gate,  # noqa: E402
                                  generate_static, replay_logits)
 from test_torch_engine import seeded_params  # noqa: E402
@@ -74,6 +74,26 @@ def _latent_pool(rng, lengths, ps, L, R, width):
     return _bf16(rng.randn(P, ps, L)), _bf16(rng.randn(P, ps, R)), tables
 
 
+def _int8_pages(pages):
+    """Quantize a torch bf16 latent pool with the port's ``quantize_int8``:
+    ((jax int8 payload, torch int8 payload), (jax bf16 scales, torch bf16
+    scales)), the same values on both sides."""
+    q8, s = quantize_int8(pages)
+    return ((jnp.asarray(q8.numpy()), q8),
+            (jnp.asarray(s.float().numpy(), jnp.bfloat16), s))
+
+
+def _pools(rng, lengths, ps, L, R, width, int8):
+    """(jax, torch) latent pools -- ckv, krope and their scales (None for
+    bf16) -- and the tables."""
+    (cj, ct), (rj, rt), tables = _latent_pool(rng, lengths, ps, L, R, width)
+    if not int8:
+        return (cj, rj, None, None), (ct, rt, None, None), tables
+    (cj, ct), (csj, cst) = _int8_pages(ct)
+    (rj, rt), (rsj, rst) = _int8_pages(rt)
+    return (cj, rj, csj, rsj), (ct, rt, cst, rst), tables
+
+
 DECODE_CASES = [
     # (ps, H, L, R, width): positions 0, a page's last and first slot, the
     # table's last slot, and an idle row
@@ -82,28 +102,30 @@ DECODE_CASES = [
 ]
 
 
+@pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("ps,H,L,R,width", DECODE_CASES)
-def test_mla_decode_plain_matches_pallas(ps, H, L, R, width):
+def test_mla_decode_plain_matches_pallas(ps, H, L, R, width, int8):
     rng = np.random.RandomState(ps + H)
     pos = np.array([0, ps - 1, ps, width * ps - 1, 0], np.int32)
     lengths = list(pos + 1)
     lengths[-1] = 0                                        # idle row
-    (cj, ct), (rj, rt), tables = _latent_pool(rng, lengths, ps, L, R, width)
+    (cj, rj, csj, rsj), (ct, rt, cst, rst), tables = _pools(
+        rng, lengths, ps, L, R, width, int8)
     B = len(pos)
     (qj, qt), (qrj, qrt) = _bf16(rng.randn(B, H, L)), _bf16(rng.randn(B, H, R))
     scale = 1.0 / math.sqrt(48)
     ref = np.asarray(mla_paged_decode_fwd(
         qj, qrj, cj, rj, jnp.asarray(tables), jnp.asarray(pos), scale=scale,
-        interpret=True), np.float32)
-    got = mla_paged_decode_plain(qt, qrt, ct, rt, torch.from_numpy(tables),
-                                 torch.from_numpy(pos), scale=scale)
+        ckv_scale=csj, krope_scale=rsj, interpret=True), np.float32)
+    args = (qt, qrt, ct, rt, torch.from_numpy(tables), torch.from_numpy(pos))
+    kw = dict(scale=scale, ckv_scale=cst, krope_scale=rst)
+    got = mla_paged_decode_plain(*args, **kw)
     assert got.dtype == torch.bfloat16 and got.shape == (B, H, L)
     assert _within_one_ulp(got.float().numpy(), ref)
     # the wrapper runs the plain version for CPU tensors, and counts nothing
     n = mla_paged_decode.launches
-    wrapped = mla_paged_decode(qt, qrt, ct, rt, torch.from_numpy(tables),
-                               torch.from_numpy(pos), scale=scale)
-    assert torch.equal(wrapped, got) and mla_paged_decode.launches == n
+    assert torch.equal(mla_paged_decode(*args, **kw), got)
+    assert mla_paged_decode.launches == n
 
 
 PREFILL_CASES = [
@@ -114,26 +136,29 @@ PREFILL_CASES = [
 ]
 
 
+@pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("ps,H,nope,R,vd,L,T,q_blk,starts,n_live",
                          PREFILL_CASES)
 def test_mla_prefill_plain_matches_pallas(ps, H, nope, R, vd, L, T, q_blk,
-                                          starts, n_live):
+                                          starts, n_live, int8):
     rng = np.random.RandomState(ps + T)
     B = len(starts)
     width = -(-(max(starts) + T) // ps)
-    (cj, ct), (rj, rt), tables = _latent_pool(
-        rng, [s + n for s, n in zip(starts, n_live)], ps, L, R, width)
+    (cj, rj, csj, rsj), (ct, rt, cst, rst), tables = _pools(
+        rng, [s + n for s, n in zip(starts, n_live)], ps, L, R, width, int8)
     qj, qt = _bf16(rng.randn(B, T, H, nope + R))
     wj, wt = _bf16(rng.randn(L, H, nope + vd) / np.sqrt(L))
     st, nl = np.asarray(starts, np.int32), np.asarray(n_live, np.int32)
     ref = np.asarray(mla_ragged_prefill_attend(
         qj, cj, rj, wj, jnp.asarray(tables), jnp.asarray(st),
-        jnp.asarray(nl), nope=nope, q_blk=q_blk, interpret=True), np.float32)
+        jnp.asarray(nl), nope=nope, q_blk=q_blk, ckv_scale=csj,
+        krope_scale=rsj, interpret=True), np.float32)
     args = (qt, ct, rt, wt, torch.from_numpy(tables), torch.from_numpy(st))
-    got = mla_ragged_prefill_plain(*args, nope=nope)
+    kw = dict(nope=nope, ckv_scale=cst, krope_scale=rst)
+    got = mla_ragged_prefill_plain(*args, **kw)
     assert got.dtype == torch.bfloat16 and got.shape == (B, T, H, vd)
     assert _within_one_ulp(got.float().numpy(), ref)
-    assert torch.equal(mla_ragged_prefill(*args, nope=nope), got)
+    assert torch.equal(mla_ragged_prefill(*args, **kw), got)
 
 
 # ------------------------------------------------------------------- engine
@@ -233,34 +258,3 @@ def test_params_from_numpy_maps_mla_and_moe_leaves(setup):
     bad = dict(jtree, blocks=dict(jtree["blocks"], extra=np.zeros(1)))
     with pytest.raises(KeyError, match="extra"):
         params_from_numpy(tcfg, bad)
-
-
-# ----------------------------------------------------------------- refusals
-
-@pytest.mark.parametrize("kw", [dict(kv_dtype="int8"),
-                                dict(speculate_tokens=4)])
-def test_unported_mla_modes_refuse(kw):
-    _, tcfg = _cfgs()
-    scfg = tconfigs.ServeConfig(**{**SCFG, **kw})
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        Engine(tcfg, scfg, device="cpu")
-
-
-def test_mla_verify_and_int8_latent_kernels_refuse(setup):
-    _, tcfg, _, tparams, _, _ = setup
-    model = build_model(tcfg)
-    meta = meta_to_device(verify_meta(tcfg, 8, np.zeros((1, 2), np.int32),
-                                      np.zeros(1, np.int32),
-                                      np.ones(1, np.int32), 2), "cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        model.verify_paged(tparams, {}, {}, meta,
-                           torch.zeros((1, 2), dtype=torch.long))
-    z = torch.zeros((1, 2, 32), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        mla_paged_decode(z, z[..., :16], z, z[..., :16],
-                         torch.zeros((1, 1), dtype=torch.int32),
-                         torch.zeros(1, dtype=torch.int32), scale=1.0,
-                         ckv_scale=z[..., 0], krope_scale=z[..., 0])
-    cfg = dataclasses.replace(tcfg, n_layers=2)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        build_model(cfg).paged_cache_defs(4, 8, kv_dtype="int8")
