@@ -101,6 +101,29 @@ Phases, each printing its own lines; any failed check exits non-zero:
    speculation (K7-int8), each held to the reference replay of its pool
    dtype by the dual gate.
 
+17. K9 (the causal GQA flash attention of the training forward) against
+   its plain version at full-width qwen2-0.5b's training shape (B 8, S
+   1024, 14 / 2 heads of 64) causal in bf16, the same full (causal=False)
+   and in fp32, and minitron-4b's heads (24 / 8 of 128) causal in bf16,
+   each timed beside ``scaled_dot_product_attention`` on K/V repeated to
+   the query heads; and its differentiable form's gradients against
+   autograd through the plain version in fp32 (relative L2 within 1e-5);
+18. the training path: full-width, full-depth qwen2-0.5b (random weights
+   from ``--seed``, AdamW at 3e-4 with linear warmup and cosine) on
+   ``token_batches(vocab, 8, 1024)``: (a) 20 steps on the hopper backend,
+   K9 launched 24 times a step, the mean loss of the last 5 steps below
+   that of the first 5, with step time, tokens/s, peak memory and, from a
+   profiled 3-step rerun, the device's busy share; (b) one step's loss and
+   gradients on hopper and on reference at B 2 (the reference keeps every
+   layer's fp32 probabilities for its backward), |dloss| within 0.01 and
+   every leaf's gradient within 0.1 relative L2 (K9 keeps p in fp32 where
+   the chunked attention rounds it to bf16; on the CPU at 4 layers the
+   two part by 3e-4 and 0.016); (c) one mapreduce step over NCCL at world
+   size 1 equal to the pjit step bit for bit; (d) a checkpoint at step 2
+   and a resume (2 of 24 layers: the checkpoint holds the 136M-entry
+   embedding's fp32 master and moments) whose loss history and final
+   state equal an uninterrupted run's bit for bit.
+
 In phases 7, 10, 13 and 16 a verify step's rows must equal decode steps
 at ``pos + j`` bit for bit, and in 10, 13 and 16 every speculative stream
 must equal the plain stream of its pool dtype.
@@ -117,11 +140,11 @@ flushed before every launch (in serving, the other 23 layers' weights and
 pages pass through L2 between two calls of one layer).  ``bound_ms`` is the
 larger of the bytes the function must move over 3.35 TB/s and its
 operations over 989 TFLOP/s (H100 SXM bf16 dense), counted for this run's
-inputs (K8 in fp32: over 67 TFLOP/s, the H100's fp32 rate without tensor
-cores).  ``library_ms`` times ``scaled_dot_product_attention`` on the
-gathered K/V (dequantized to bf16 for int8 pools; with the verify mask
-for K3), and ``sigmoid(addmm)`` for K8, as a yardstick; the port never
-calls either.
+inputs (K8 and K9 in fp32: over 67 TFLOP/s, the H100's fp32 rate without
+tensor cores).  ``library_ms`` times ``scaled_dot_product_attention`` on
+the gathered K/V (dequantized to bf16 for int8 pools; with the verify mask
+for K3; for K9 on K/V repeated to the query heads, ``is_causal``), and
+``sigmoid(addmm)`` for K8, as a yardstick; the port never calls either.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -1983,6 +2006,293 @@ def phase_paper(torch, seed, n_train=60000, n_test=10000):
         "mapreduce_ws1_bit_equal": ws1_equal}
 
 
+# K9 and the training path: full-width qwen2-0.5b (14 query / 2 KV heads of
+# 64) on token_batches(vocab, 8, 1024), AdamW at 3e-4, linear warmup + cosine
+TR_B, TR_S, TR_STEPS, TR_LR = 8, 1024, 20, 3e-4
+TR_REF_B = 2                   # (b): the reference backward keeps fp32 probs
+TR_CKPT_LAYERS = 2             # (d): depth of the checkpoint/resume run
+K9_FP32_TOL = 1e-5             # K9 vs plain in fp32 (another sum order)
+K9_GRAD_TOL = 1e-5             # K9's backward vs autograd of plain, rel L2
+TR_LOSS_TOL = 1e-2             # (b) |loss hopper - loss reference|
+TR_GRAD_TOL = 0.1              # (b) per-leaf rel L2 of the gradients
+
+
+def k9_bound(B, S, H, K, D, causal, esize):
+    """(bound ms, bound_by, flops, bytes) of one K9 call: 4 B H D flops per
+    (query, key) pair the mask keeps; q, k, v and out read or written
+    once."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * H * D * pairs
+    nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * esize
+    rate = BF16_FLOPS_PER_S if esize == 2 else FP32_FLOPS_PER_S
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+    return (max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations",
+            flops, nbytes)
+
+
+def phase_flash(torch, timer):
+    """K9 against its plain version: qwen2-0.5b's training shape (B 8, S
+    1024, 14 / 2 heads of 64) causal in bf16 (the main path's call), the
+    same full (causal=False) and in fp32, and minitron-4b's heads (24 / 8 of
+    128) causal in bf16; bf16 within one bf16 ulp of the row's max, fp32
+    within ``K9_FP32_TOL``.  Each timed beside the plain version and
+    ``scaled_dot_product_attention`` on K/V repeated to the query heads
+    (the yardstick; the port never calls it).  Then the differentiable
+    form's gradients against autograd through the plain version in fp32.
+    Returns the main shape's numbers with the others under "shapes"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_plain, flash_attention, flash_attention_train)
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    cases = [("qwen2-0.5b causal", 14, 2, 64, True, torch.bfloat16),
+             ("qwen2-0.5b full", 14, 2, 64, False, torch.bfloat16),
+             ("qwen2-0.5b causal", 14, 2, 64, True, torch.float32),
+             ("minitron-4b causal", 24, 8, 128, True, torch.bfloat16)]
+    out = []
+    for label, H, K, D, causal, dt in cases:
+        B, S = TR_B, TR_S
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dt)
+        name = f"K9 flash_attention {label} D={D} {str(dt)[6:]}"
+        got = flash_attention(q, k, v, causal=causal)
+        want = attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            err = (got - want).abs().max().item()
+            ratio = err / K9_FP32_TOL
+            ok = bool(torch.isfinite(got).all().item()) and ratio <= 1.0
+            print(f"[smoke] {name}: max|kernel - plain| = {err:.6g} (tol "
+                  f"{K9_FP32_TOL}) -> {'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{name} disagrees with its plain version")
+        else:
+            err, ratio = check_kernel(torch, name, got, want)
+        ms = timer(lambda: flash_attention(q, k, v, causal=causal))
+        plain_ms = timer(lambda: attention_plain(q, k, v, causal=causal))
+        G = H // K
+        qh = q.transpose(1, 2)
+        kh = k.transpose(1, 2).repeat_interleave(G, 1)
+        vh = v.transpose(1, 2).repeat_interleave(G, 1)
+        library_ms = timer(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal))
+        bms, by, flops, nbytes = k9_bound(B, S, H, K, D, causal,
+                                          q.element_size())
+        print(f"[smoke] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+              f"{flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+        out.append({"shape": f"{label} B={B} S={S} H={H} K={K} D={D}",
+                    "dtype": str(dt)[6:], "max_abs_err": err,
+                    "err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by,
+                    "library_ms": library_ms})
+
+    B, S, H, K, D = 2, TR_S, 14, 2, 64
+    q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((B, S, K, D), generator=gen, device="cuda")
+            for _ in range(2))
+    n0 = flash_attention.launches
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(
+        (flash_attention_train(*qkv, causal=True) * do).sum(), qkv)
+    launched = flash_attention.launches - n0
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        (attention_plain(*qkv, causal=True) * do).sum(), qkv)
+    rel = {n: ((g - w).norm() / w.norm()).item()
+           for n, g, w in zip("qkv", got, want)}
+    ok = max(rel.values()) <= K9_GRAD_TOL and launched == 1
+    print(f"[smoke] K9 gradients (B={B} S={S} 14/2 heads of 64, fp32, "
+          f"causal) vs autograd through the plain version: rel L2 dq "
+          f"{rel['q']:.3g}, dk {rel['k']:.3g}, dv {rel['v']:.3g} (tol "
+          f"{K9_GRAD_TOL}); K9 launched {launched} time(s) for forward + "
+          f"backward -> {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("K9's backward disagrees with autograd of its plain version")
+    return {**out[0], "shapes": out, "grad_rel_l2": rel}
+
+
+def train_batches(cfg, B, S, n, seed):
+    from repro_torch.data import token_batches
+    it = token_batches(cfg.vocab, B, S, seed=seed)
+    return [next(it)["tokens"] for _ in range(n)]
+
+
+def phase_train(torch, seed):
+    """The LM training path: full-width, full-depth qwen2-0.5b with random
+    weights from ``seed``.  (a) ``TR_STEPS`` AdamW steps on the hopper
+    backend (K9 for each layer's attention), the loss, step time, tokens/s,
+    peak memory and K9 launches a step, then 3 more steps under
+    ``torch.profiler`` for the device's busy share; (b) one step's loss and
+    gradients from the same params and batch (B = ``TR_REF_B``) on hopper
+    and on reference; (c) one ``--engine mapreduce`` step over NCCL at world
+    size 1 against the pjit step, bit for bit; (d) a checkpoint and resume
+    (depth cut to ``TR_CKPT_LAYERS``) whose loss history equals an
+    uninterrupted run's.  Returns (K9 launches in (a), report)."""
+    import dataclasses
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.core.mapreduce import value_and_grad
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import local_group
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.registry import build_model, init_params
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.runtime import LoopConfig, TrainLoop
+    cfg = get_arch("qwen2-0.5b")
+    ocfg = OptConfig(lr=TR_LR, schedule="linear_warmup_cosine",
+                     warmup=max(1, TR_STEPS // 10), total_steps=TR_STEPS)
+    params = init_params(cfg, seed, "cuda")
+    state = init_opt_state(params, ocfg)
+    n_params = sum(p.numel() for _, p in tree_leaves(params))
+    batches = [torch.as_tensor(b, device="cuda")
+               for b in train_batches(cfg, TR_B, TR_S, TR_STEPS + 3, seed)]
+    step = make_train_step(cfg, ocfg, attn_backend="hopper")
+    p0, s0 = params, state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    losses, times = [], []
+    for b in batches[:TR_STEPS]:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, {"tokens": b})
+        losses.append(m["loss"].item())           # synchronizes
+        times.append(time.perf_counter() - t0)
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    p50 = sorted(times)[len(times) // 2]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    ok = all(math.isfinite(x) for x in losses) and last < first \
+        and launches == cfg.n_layers * TR_STEPS
+    print(f"[smoke] train: {cfg.name} ({n_params / 1e6:.1f}M params, "
+          f"{cfg.n_layers} layers), B={TR_B} S={TR_S}, AdamW lr {TR_LR} "
+          f"linear warmup + cosine, hopper: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of the first 5 {first:.4f}, of the last "
+          f"5 {last:.4f}); step p50 {p50 * 1e3:.1f} ms (first {times[0] * 1e3:.1f}"
+          f" ms), {TR_B * TR_S / p50:.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; K9 launches {launches} = "
+          f"{launches / TR_STEPS:.1f} a step ({cfg.n_layers} layers) -> "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("train: the loss did not fall, or K9 was not launched once a "
+             "layer a step")
+
+    def more():
+        nonlocal params, state
+        for b in batches[TR_STEPS:]:
+            params, state, m = step(params, state, {"tokens": b})
+            m["loss"].item()
+    busy = None
+    prof = profile_device(torch, more)
+    if prof is not None:
+        busy = print_profile("3 training steps (B=8, S=1024, hopper)", *prof)
+    del params, state
+    torch.cuda.empty_cache()
+
+    # (b) hopper vs reference: one step's loss and gradients
+    batch = {"tokens": batches[0][:TR_REF_B]}
+    (hl, _, hg), (rl, _, rg) = (
+        value_and_grad(build_model(cfg, be).loss, p0, batch)
+        for be in ("hopper", "reference"))
+    rel = {p: ((a.float() - b.float()).norm()
+               / b.float().norm().clamp_min(1e-30)).item()
+           for (p, a), (_, b) in zip(tree_leaves(hg), tree_leaves(rg))}
+    worst = max(rel, key=rel.get)
+    dloss = abs(hl.item() - rl.item())
+    ok = dloss <= TR_LOSS_TOL and rel[worst] <= TR_GRAD_TOL
+    print(f"[smoke] train: one step at B={TR_REF_B}, hopper (K9, fp32 p) vs "
+          f"reference (chunked, bf16 p): loss {hl.item():.6f} vs "
+          f"{rl.item():.6f}, |dloss| {dloss:.3g} (tol {TR_LOSS_TOL}); "
+          f"gradients rel L2 median {np.median(list(rel.values())):.3g}, "
+          f"worst {rel[worst]:.3g} at {worst} (tol {TR_GRAD_TOL}) -> "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("train: hopper and reference gradients part")
+    del hg, rg
+    torch.cuda.empty_cache()
+
+    # (c) the mapreduce engine over NCCL at world size 1 vs the pjit step
+    batch = {"tokens": batches[0]}
+    a = step(p0, s0, batch)
+    groups = local_group(torch.device("cuda"))
+    try:
+        b = make_train_step(cfg, ocfg, engine="mapreduce", groups=groups,
+                            attn_backend="hopper")(p0, s0, batch)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    mr_equal = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        tree_leaves(list(a[:2]) + [a[2]["loss"]]),
+        tree_leaves(list(b[:2]) + [b[2]["loss"]])))
+    print(f"[smoke] train: a step through core.mapreduce (NCCL, world size 1)"
+          f" vs the pjit step: params, optimizer state and loss "
+          f"{'equal bit for bit -> OK' if mr_equal else 'DIFFER'}",
+          flush=True)
+    if not mr_equal:
+        fail("train: the world-size-1 MapReduce step differs from the pjit "
+             "step")
+    del a, b, p0, s0
+    torch.cuda.empty_cache()
+
+    # (d) checkpoint, resume, and the loss history of an uninterrupted run
+    small = dataclasses.replace(cfg, n_layers=TR_CKPT_LAYERS)
+    sstep = make_train_step(small, ocfg, attn_backend="hopper")
+    sp = init_params(small, seed, "cuda")
+    sstate = (sp, init_opt_state(sp, ocfg))
+    data = [{"tokens": b} for b in batches[:4]]
+
+    def loop_step(st, b):
+        p, o, m = sstep(*st, {"tokens": torch.as_tensor(b["tokens"],
+                                                        device="cuda")})
+        return (p, o), m
+    ckpt_dir = os.path.join(ROOT, "build", "smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        full = TrainLoop(loop_step, sstate, iter(data), LoopConfig(
+            log_every=0))
+        full.run(4)
+        lcfg = LoopConfig(ckpt_dir=ckpt_dir, ckpt_every=100, log_every=0)
+        one = TrainLoop(loop_step, sstate, iter(data), lcfg)
+        one.run(2)
+        two = TrainLoop(loop_step, sstate, iter(data), lcfg, device="cuda")
+        resumed_at = two.step
+        two.run(2)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    resume_equal = resumed_at == 2 \
+        and one.history + two.history == full.history \
+        and all(torch.equal(x, y) for (_, x), (_, y) in zip(
+            tree_leaves(full.state), tree_leaves(two.state)))
+    print(f"[smoke] train: checkpoint at step 2 and resume ({small.name} at "
+          f"full width, {TR_CKPT_LAYERS} layers, B={TR_B} S={TR_S}, "
+          f"{time.perf_counter() - t0:.1f} s): loss history "
+          f"{[round(x, 6) for x in one.history + two.history]} vs "
+          f"uninterrupted {[round(x, 6) for x in full.history]}, final state "
+          f"{'equal bit for bit -> OK' if resume_equal else 'DIFFERS'}",
+          flush=True)
+    if not resume_equal:
+        fail("train: the resumed run differs from the uninterrupted run")
+    return launches, {
+        "config": cfg.name, "n_params": n_params, "batch": TR_B,
+        "seq_len": TR_S, "steps": TR_STEPS, "lr": TR_LR, "losses": losses,
+        "loss_first5": first, "loss_last5": last,
+        "step_ms_p50": p50 * 1e3, "tokens_per_s": TR_B * TR_S / p50,
+        "peak_memory_gib": peak / 2**30,
+        "k9_launches_per_step": launches / TR_STEPS, "busy_share": busy,
+        "vs_reference": {"batch": TR_REF_B, "dloss": dloss,
+                         "grad_rel_l2_worst": rel[worst],
+                         "grad_rel_l2_worst_leaf": worst,
+                         "grad_rel_l2_median": float(np.median(list(
+                             rel.values())))},
+        "mapreduce_ws1_bit_equal": mr_equal,
+        "resume_equal": resume_equal}
+
+
 def profile_device(torch, fn):
     """Run ``fn`` under ``torch.profiler``; returns (wall us, kernel rows
     [(name, self device us, calls)] by time, device us over every event),
@@ -2139,6 +2449,7 @@ def main() -> None:
                for q in (False, True))
     k7, k7q = (phase_mla_verify(torch, rng, timer, int8=q)
                for q in (False, True))
+    k9 = phase_flash(torch, timer)
     print(f"[smoke] kernel phases took {time.perf_counter() - t0:.1f} s",
           flush=True)
     cfg = get_arch("qwen2-0.5b")
@@ -2218,6 +2529,11 @@ def main() -> None:
     counts["K8"], paper = phase_paper(torch, args.seed)
     print(f"[smoke] paper's path phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts["K9"], train = phase_train(torch, args.seed)
+    print(f"[smoke] training phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for kid, c in counts.items():
         if c <= 0:
             fail(f"{kid} was never launched on its serving path")
@@ -2275,6 +2591,8 @@ def main() -> None:
               "paged_attention/kernel.py:432", k7),
         entry("K7-int8", "mla_paged_verify", "mla_paged_verify.cu",
               "paged_attention/kernel.py:432", k7q),
+        entry("K9", "flash_attention", "flash_attention.cu",
+              "flash_attention/kernel.py:79", k9),
     ]
     print(json.dumps({"kernels": kernels, "serve": {
         k: report[k] for k in ("max_logit_err", "n_tokens",
@@ -2286,7 +2604,8 @@ def main() -> None:
                                "ref_decode_step_ms_p50")},
         "speculative": spec, "int8": int8, "minitron": minitron,
         "ring_length_bit_equal": ring_lengths, "sliding_window": window,
-        "command_r": command_r, "deepseek": deepseek, "paper": paper}),
+        "command_r": command_r, "deepseek": deepseek, "paper": paper,
+        "train": train}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,11 @@
 The package mirrors ``repro``'s layout module for module and imports
 ``torch``, never ``jax`` and nothing of ``repro`` (framework-free modules
 are kept here as copies, held to their originals by a drift test).  Its
-paged-attention hot loop and the RBM's probabilities run through kernels
-written by hand for Hopper (``kernels/``, CUDA sources in ``csrc/``).  Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``; asking for ``cuda`` on a machine
-without a card raises instead of falling back.
+paged-attention hot loop, the RBM's probabilities and the LM trainer's
+attention run through kernels written by hand for Hopper (``kernels/``,
+CUDA sources in ``csrc/``).  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``; asking for ``cuda`` on a machine without a
+card raises instead of falling back.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ learned stack unrolls into a deep autoencoder (``core.autoencoder``) or a
 classifier (``core.finetune``).  Every hidden and visible probability of
 the CD steps and of the forward-propagation job is one call of kernel K8's
 wrapper (a launch on a CUDA device): three a CD-1 step, one a layer's
-propagation.
+propagation.  ``progressive_stack_lm`` carries the layer-wise idea to the
+LM trainer.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from ..models.params import tree_map
 from .mapreduce import DPGroups, map_reduce_job
 from .rbm import RBMConfig, hidden_probs, make_rbm_step, rbm_init
 
@@ -91,16 +93,24 @@ def forward_stack(stack_params: Sequence[dict], v: torch.Tensor):
 
 
 def progressive_stack_lm(train_fn, grow_schedule: Sequence[int]):
-    """Progressive stacking of LM pre-training (the JAX package's
-    ``progressive_stack_lm``): arrives with the LM trainer."""
-    raise NotImplementedError(
-        "progressive_stack_lm serves the LM trainer, which is not ported "
-        "yet (ROADMAP queue 1 item 15)")
+    """Beyond-paper: the greedy layer-wise idea carried to LM pre-training
+    (progressive stacking).  ``train_fn(n_layers, init_params) -> params`` is
+    invoked per stage; each stage initializes the deeper model by duplicating
+    the shallower stage's stacked layer params (``grow_stacked_params``).
+
+    Returns the final params."""
+    params = None
+    for n_layers in grow_schedule:
+        params = train_fn(n_layers, params)
+    return params
 
 
 def grow_stacked_params(params, n_new: int):
-    """Duplicate stacked [L, ...] block params to depth ``n_new``: arrives
-    with the LM trainer."""
-    raise NotImplementedError(
-        "grow_stacked_params serves the LM trainer, which is not ported yet "
-        "(ROADMAP queue 1 item 15)")
+    """Duplicate stacked [L, ...] block params to depth ``n_new`` (cycled);
+    0-d leaves pass through."""
+    def grow(x):
+        if x.dim() == 0:
+            return x
+        L = x.shape[0]
+        return torch.stack([x[i % L] for i in range(n_new)])
+    return tree_map(grow, params)

@@ -1,5 +1,6 @@
-"""Data for the paper's path: procedural MNIST-like digits and the paper's
-diversity-based dedup (numpy only; copies of ``repro.data``'s modules).
-The LM token pipeline arrives with training (ROADMAP queue 1 item 15)."""
+"""Data: procedural MNIST-like digits and the paper's diversity-based dedup
+for the paper's path, and the deterministic LM token pipeline of the
+trainer (numpy only; copies of ``repro.data``'s modules)."""
 from .synthetic_mnist import dataset, train_test  # noqa: F401
 from .dedup import dedup, duplicate_stats  # noqa: F401
+from .pipeline import Prefetcher, ShardedBatches, token_batches  # noqa: F401

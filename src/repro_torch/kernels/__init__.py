@@ -4,7 +4,7 @@ Every kernel here replaces one Pallas TPU kernel of ``repro.kernels`` and
 follows one shape: a CUDA C++ source in ``repro_torch/csrc/`` with a plain C
 entry point, compiled by ``nvcc`` for ``sm_90a`` into its own shared library
 and loaded with ``ctypes``; a wrapper module (``paged_attention``,
-``ragged_prefill``, ``rbm_cd``) that checks its tensors, allocates the
+``ragged_prefill``, ``rbm_cd``, ``flash_attention``) that checks its tensors, allocates the
 output, launches on PyTorch's current stream and counts its launches; and,
 beside it, the plain PyTorch version of the same function.  A wrapper runs the plain
 version only for tensors that lie on the CPU; for CUDA tensors it launches

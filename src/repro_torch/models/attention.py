@@ -157,15 +157,18 @@ def ring_chunk_attention(q, k, v, k_ring, v_ring, start, n_live, *,
     return torch.cat(outs, dim=1)
 
 
-def full_attention_block(cfg: ArchConfig, p, x, freqs, *, q_block=512):
-    """Causal self-attention over a full sequence (prefill), sliding-window
-    masked for windowed families."""
+def full_attention_block(cfg: ArchConfig, p, x, freqs, *, q_block=512,
+                         attend=chunked_attention):
+    """Causal self-attention over a full sequence (training and the static
+    prefill), sliding-window masked for windowed families.  ``attend(q, k,
+    v, *, scale, q_block, window)`` is the attend core: ``chunked_attention``
+    by default, the backend's ``train_attend`` in the training forward."""
     q, k, v = qkv(cfg, p, x)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q = apply_rope(q, positions, freqs)
     k = apply_rope(k, positions, freqs)
-    o = chunked_attention(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim_),
-                          q_block=q_block, window=cfg.sliding_window)
+    o = attend(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim_),
+               q_block=q_block, window=cfg.sliding_window)
     return out_proj(o, p["wo"])
 
 

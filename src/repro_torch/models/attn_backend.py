@@ -28,6 +28,14 @@ each taking optional ``ckv_scale``/``krope_scale`` [P, ps] bf16 for int8
 latent pages) behind the framing of ``models.mla``.  Model code routes through ``backend.paged_prefill`` /
 ``paged_decode`` / ``paged_verify``.
 
+The training forward has one more core, ``train_attend``: full-causal
+self-attention over a whole sequence, differentiable.  ``reference`` runs
+``models.attention.chunked_attention`` (the port of the JAX training
+attention); ``hopper`` runs kernel K9 (``kernels.flash_attention``, the TPU
+target of that attention) wherever the layer is full-causal GQA, and the
+chunked core for sliding-window layers, where the TPU has no kernel either.
+The static ``prefill`` keeps the chunked core on every backend.
+
 Selection follows ``ServeConfig.attn_backend`` (``auto`` | ``reference`` |
 ``hopper``).  ``auto`` resolves by the device the tensors live on: ``cuda``
 gives ``hopper``, ``cpu`` gives ``reference``; ``hopper`` on the CPU raises.
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels.flash_attention import flash_attention_train
 from ..kernels.paged_attention import (mla_paged_decode,
                                       mla_paged_decode_plain,
                                       mla_paged_verify,
@@ -52,6 +61,7 @@ from ..kernels.ragged_prefill import (mla_ragged_prefill,
                                       windowed_prefill,
                                       windowed_prefill_plain)
 from . import attention, mla
+from .attention import chunked_attention
 
 # ---------------------------------------------------------------- registry
 
@@ -254,6 +264,16 @@ class AttentionBackend:
         backend.  Returns [B, Q, H, D]."""
         raise NotImplementedError
 
+    def train_attend(self, q, k, v, *, scale: float, window: int = 0,
+                     q_block: int = 512):
+        """Differentiable causal self-attention of the training forward:
+        q [B, S, H, D], k, v [B, S, K, D] at positions 0..S-1, scores times
+        ``scale``; ``window > 0`` also masks keys at or before ``q_pos -
+        window``.  ``q_block`` bounds the score memory of the chunked core
+        and of K9's backward.  Returns [B, S, H, D]."""
+        return chunked_attention(q, k, v, scale=scale, q_block=q_block,
+                                 window=window)
+
     def mla_decode_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
                           tables, pos, *, scale: float, ckv_scale=None,
                           krope_scale=None):
@@ -350,15 +370,27 @@ def _on_card(q: torch.Tensor) -> None:
 
 @register_backend
 class HopperBackend(AttentionBackend):
-    """The hand-written Hopper kernels: K1 (``paged_decode``) for decode,
-    K2 (``ragged_prefill``) for chunk prefill, K3 (``paged_verify``) for
-    speculative verify and K4 (``windowed_prefill``) for sliding-window
-    chunk prefill, each in its bf16 or int8 mode, K1 and K3 also in their
-    ring mode; for MLA latent pages K5 (``mla_paged_decode``) for decode,
-    K7 (``mla_paged_verify``) for speculative verify and K6
-    (``mla_ragged_prefill``) for chunk prefill, bf16 or int8."""
+    """The hand-written Hopper kernels: K9 (``flash_attention``) for the
+    full-causal self-attention of the training forward; K1
+    (``paged_decode``) for decode, K2 (``ragged_prefill``) for chunk
+    prefill, K3 (``paged_verify``) for speculative verify and K4
+    (``windowed_prefill``) for sliding-window chunk prefill, each in its
+    bf16 or int8 mode, K1 and K3 also in their ring mode; for MLA latent
+    pages K5 (``mla_paged_decode``) for decode, K7 (``mla_paged_verify``)
+    for speculative verify and K6 (``mla_ragged_prefill``) for chunk
+    prefill, bf16 or int8."""
 
     name = "hopper"
+
+    def train_attend(self, q, k, v, *, scale: float, window: int = 0,
+                     q_block: int = 512):
+        _on_card(q)
+        if window or v.shape[-1] != q.shape[-1]:
+            return chunked_attention(q, k, v, scale=scale, q_block=q_block,
+                                     window=window)
+        return flash_attention_train(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=True,
+                                     scale=scale, q_block=q_block)
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
                       scale: float, window: int = 0, k_scale=None,

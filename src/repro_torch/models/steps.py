@@ -1,15 +1,66 @@
-"""Serve step factories: plain functions over (params, caches, inputs).
+"""Train and serve step factories: plain functions over (params, state,
+inputs).
 
-The JAX package jits these; here they run eagerly and write the paged pool
-in place, returning it so call sites read as they do in ``repro``.
+Two engines build the same training step, both through
+``core.mapreduce.mapreduce_value_and_grad`` (gradients by
+``torch.autograd``, ``n_micro`` microbatches accumulated in fp32):
+  * ``pjit``      — one process, no reduce (the JAX package's
+    sharding-constraint step, on one device);
+  * ``mapreduce`` — the paper's explicit map/combine/reduce over the
+    ``torch.distributed`` groups given, with the selectable reduce mode
+    (allreduce | hierarchical | compressed int8 + error feedback, whose
+    residual rides in the optimizer state as ``comp_err``).
+
+The JAX package jits these; here they run eagerly.  The serve steps write
+the paged pool in place, returning it so call sites read as they do in
+``repro``; the train steps return new parameters and optimizer state
+(``optim.apply_updates`` is out of place).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.mapreduce import DPGroups, mapreduce_value_and_grad
+from ..optim import OptConfig, apply_updates
 from .registry import build_model
 
+
+# ------------------------------------------------------------- train steps
+
+def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
+                    engine: str = "pjit", reduce_mode: str = "allreduce",
+                    n_micro: int = 1, groups: Optional[DPGroups] = None,
+                    attn_backend: str = "reference"):
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; ``batch`` is {"tokens": [B, S] int} on the model's device,
+    ``metrics`` {"loss", "grad_norm", "lr"} as 0-d tensors.  ``groups`` is
+    the mapreduce engine's process layout (None: local evaluation, as a
+    mesh of one device); ``attn_backend`` a concrete backend name
+    (``hopper`` runs the training attention through K9)."""
+    if engine not in ("pjit", "mapreduce"):
+        raise ValueError(f"unknown engine {engine!r} (pjit | mapreduce)")
+    model = build_model(cfg, attn_backend)
+    # on one process the pjit step is the mapper and combiner alone: the
+    # same microbatch loop and fp32 accumulation, with no reduce
+    mr = mapreduce_value_and_grad(
+        model.loss, groups if engine == "mapreduce" else None,
+        reduce_mode=reduce_mode, n_micro=n_micro)
+
+    def step(params, opt_state, batch):
+        loss, grads, new_err, _ = mr(params, batch,
+                                     opt_state.get("comp_err"))
+        inner = {k: v for k, v in opt_state.items() if k != "comp_err"}
+        params, inner, om = apply_updates(params, grads, inner, opt_cfg)
+        if new_err is not None:
+            inner["comp_err"] = new_err
+        return params, inner, {"loss": loss, **om}
+    return step
+
+
+# ------------------------------------------------------------- serve steps
 
 def make_serve_step(cfg: ArchConfig, kind: str,
                     attn_backend: str = "reference"):

@@ -3,12 +3,13 @@ the dense family (full causal or sliding-window attention) and the MoE
 family (``dense_blocks`` of ``first_k_dense`` dense layers, then MoE
 ``blocks``; GQA attention, or MLA latent attention with ``use_mla``).
 
-Parameters keep the JAX package's layer-stacked ``[n_layers, ...]`` leaves;
-the ``jax.lax.scan`` over layers becomes a Python loop over layer views of
-the stacked leaves.  The caches stack every layer, dense lead-in layers
-first, so cache layer ``i`` is the i-th layer run.  Paged caches are
-written in place, so the step functions return the same pool objects they
-were given.
+``loss`` is the LM training objective (next-token CE over the training
+forward ``forward_hidden``).  Parameters keep the JAX package's
+layer-stacked ``[n_layers, ...]`` leaves; the ``jax.lax.scan`` over layers
+becomes a Python loop over layer views of the stacked leaves.  The caches
+stack every layer, dense lead-in layers first, so cache layer ``i`` is the
+i-th layer run.  Paged caches are written in place, so the step functions
+return the same pool objects they were given.
 """
 from __future__ import annotations
 
@@ -32,9 +33,9 @@ from .params import layer, stack_tree
 class DecoderLM:
     """Functional model: all state lives in explicit param / cache dicts.
 
-    ``attn_backend`` selects how the paged serving paths attend (see
-    ``models.attn_backend``): the plain ``reference`` gather+attend or the
-    ``hopper`` kernels.  The static paths are unaffected."""
+    ``attn_backend`` selects how the paged serving paths and the training
+    forward attend (see ``models.attn_backend``): the plain ``reference``
+    cores or the ``hopper`` kernels.  The static paths are unaffected."""
 
     def __init__(self, cfg: ArchConfig, attn_backend: str = "reference"):
         self.cfg = cfg
@@ -123,16 +124,74 @@ class DecoderLM:
     # ------------------------------------------------------- full-seq forward
 
     def forward_hidden(self, params, x):
-        """x: [B, S, d] embedded inputs -> final-normed hidden [B, S, d]."""
+        """The training forward.  x: [B, S, d] embedded inputs -> (final-
+        normed hidden [B, S, d], the MoE layers' summed load-balance loss,
+        fp32).  Dense GQA layers attend through the backend's
+        ``train_attend`` (K9 on ``hopper``); MLA layers through the chunked
+        core.  The JAX package may recompute activations in the backward
+        (``cfg.remat``); this forward keeps them all, which changes memory,
+        not numbers."""
         cfg = self.cfg
         freqs = self._freqs(x.device)
-        block = mla_full_block if cfg.use_mla else full_attention_block
+        aux = []
+
+        def moe(p, h):
+            out, a = moe_apply(cfg, p, h)
+            aux.append(a)
+            return out
+
+        if cfg.use_mla:
+            def attend(pa, h):
+                return mla_full_block(cfg, pa, h, freqs,
+                                      q_block=cfg.attn_q_block)
+        else:
+            def attend(pa, h):
+                return full_attention_block(
+                    cfg, pa, h, freqs, q_block=cfg.attn_q_block,
+                    attend=self.attn_backend.train_attend)
         for p in self._layers(params):
-            x = self._block(
-                p, x, lambda pa, h: block(cfg, pa, h, freqs,
-                                          q_block=cfg.attn_q_block),
-                self._seq_moe)
-        return apply_norm(cfg, params["final_norm"], x)
+            x = self._block(p, x, attend, moe)
+        total = sum(aux, torch.zeros((), dtype=torch.float32,
+                                     device=x.device))
+        return apply_norm(cfg, params["final_norm"], x), total
+
+    # ------------------------------------------------------------------ loss
+
+    def loss(self, params, batch, chunk: int = 0):
+        """Next-token CE, computed in sequence chunks of ``chunk`` (default
+        ``cfg.loss_chunk``) positions so the [*, V] fp32 logits of the
+        whole sequence are never built at once; padded-vocab logits are
+        -1e30, the final position has no label.  Returns (loss, {"nll",
+        "aux", "tokens"}); MoE models add ``router_aux_coef * aux /
+        n_layers`` to the loss."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed_tokens(params["embed"], tokens)
+        hidden, aux = self.forward_hidden(params, x)
+        B, S = tokens.shape
+        labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1)).long()
+        lmask = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
+        lmask[:, -1] = False
+        chunk = min(chunk or cfg.loss_chunk, S)
+        vocab_mask = torch.arange(cfg.vocab_padded,
+                                  device=hidden.device) >= cfg.vocab
+        tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, S, chunk):
+            logits = lm_logits(cfg, params["embed"],
+                               hidden[:, c0:c0 + chunk]).float()
+            logits = logits.masked_fill(vocab_mask, -1e30)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels[:, c0:c0 + chunk, None])[..., 0]
+            m = lmask[:, c0:c0 + chunk]
+            nll = torch.where(m, lse - gold, 0.0)
+            tot = tot + nll.sum()
+            cnt = cnt + m.sum()
+        nll = tot / torch.clamp(cnt, min=1.0)
+        loss = nll
+        if cfg.is_moe:
+            loss = loss + cfg.router_aux_coef * aux / max(1, cfg.n_layers)
+        return loss, {"nll": nll, "aux": aux, "tokens": cnt}
 
     # -------------------------------------------------------- static caches
 

@@ -18,7 +18,11 @@ bit, bf16 and int8, in ring mode too; K1, K3 and K4 on one window of K/V
 in a ring of n pages and in one of n + 1 give equal bits.  K5 (MLA decode),
 K6 (MLA prefill) and K7 (MLA verify), bf16 and int8, are held to their
 plain versions by the same one-ulp rule; K7 with one live query equals K5
-bit for bit.  The hopper engine passes the dual gate against the reference
+bit for bit.  K9 (the training forward's causal flash attention) is held
+to its plain version by the one-ulp rule in bf16 and within 1e-5 in fp32,
+its backward (torch ops) to autograd through the plain version within
+1e-5 relative L2, and a small fp32 qwen2-0.5b's loss and gradients on the
+hopper backend to the reference backend's within 1e-5 and 1e-4.  The hopper engine passes the dual gate against the reference
 engine (``serving.parity``, max |dlogit| <= 0.25), with and without
 speculation and int8 pages, dense, sliding-window and MLA.
 """
@@ -716,3 +720,91 @@ def test_speculative_and_int8_hopper_mla_engine_pass_the_dual_gate(
                 for p, tk in zip(prompts, tokens)]
     rep = dual_gate(ref, test, tokens, tol=0.25)
     assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}
+
+
+# ------------------------------------------------------- K9 (training)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,G,D,S", [
+    ("bfloat16", True, 7, 64, 1000), ("bfloat16", False, 3, 128, 333),
+    ("float32", True, 1, 32, 200), ("float32", False, 6, 64, 129)])
+def test_flash_kernel_matches_plain(cuda, dtype, causal, G, D, S):
+    """K9 against its plain version (one fp32 softmax over every key): bf16
+    within one bf16 ulp of the row's max, fp32 within 1e-5; S is never a
+    multiple of the kernel's 64-row tiles, so the masked tail runs."""
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention)
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    K = 2
+    q = torch.randn((2, S, K * G, D), generator=gen, device=cuda)
+    k = torch.randn((2, S, K, D), generator=gen, device=cuda)
+    v = torch.randn((2, S, K, D), generator=gen, device=cuda)
+    q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+    if dtype == "float32":
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert _within_one_ulp(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gradients_match_autograd_of_plain(cuda, causal):
+    """``flash_attention_train``'s backward (torch ops by query block, no
+    second launch of K9) against autograd through the plain version, fp32:
+    within 1e-5 relative L2 (fp32 sums in another order)."""
+    from repro_torch.kernels.flash_attention import (
+        attention_plain, flash_attention, flash_attention_train)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    S, K, G, D = 300, 2, 7, 64
+    q = torch.randn((2, S, K * G, D), generator=gen, device=cuda)
+    k = torch.randn((2, S, K, D), generator=gen, device=cuda)
+    v = torch.randn((2, S, K, D), generator=gen, device=cuda)
+    do = torch.randn((2, S, K * G, D), generator=gen, device=cuda)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = flash_attention.launches
+    o = flash_attention_train(*qkv, causal=causal, q_block=128)
+    got = torch.autograd.grad((o * do).sum(), qkv)
+    assert flash_attention.launches == n0 + 1
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        (attention_plain(*qkv, causal=causal) * do).sum(), qkv)
+    for name, g, w in zip("qkv", got, want):
+        rel = ((g - w).norm() / w.norm()).item()
+        assert rel <= 1e-5, (name, rel)
+
+
+@pytest.mark.cuda
+def test_hopper_training_step_matches_reference(cuda):
+    """A small qwen2-0.5b (fp32 parameters) on the hopper backend (K9 once a
+    layer in the forward) and on the reference backend (the chunked
+    attention, fp32 here): the loss within 1e-5 and every gradient within
+    1e-4 relative L2 (the same fp32 math, summed in another order); a
+    ``make_train_step`` step on hopper launches K9 once a layer."""
+    from repro_torch.core.mapreduce import value_and_grad
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg = reduced(get_arch("qwen2-0.5b"))
+    params = tree_map(lambda t: t.float(), init_params(cfg, 0, cuda))
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (4, 100), device=cuda,
+        generator=torch.Generator(device="cuda").manual_seed(0))}
+    (hl, _, hg), (rl, _, rg) = (
+        value_and_grad(build_model(cfg, b).loss, params, batch)
+        for b in ("hopper", "reference"))
+    assert abs(hl.item() - rl.item()) <= 1e-5
+    for (p, a), (_, b) in zip(tree_leaves(hg), tree_leaves(rg)):
+        assert ((a - b).norm() / b.norm().clamp_min(1e-30)).item() <= 1e-4, p
+    ocfg = OptConfig(lr=1e-3)
+    n0 = flash_attention.launches
+    make_train_step(cfg, ocfg, attn_backend="hopper")(
+        params, init_opt_state(params, ocfg), batch)
+    assert flash_attention.launches - n0 == cfg.n_layers

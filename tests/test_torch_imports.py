@@ -41,6 +41,8 @@ COPIES = {
     "serving/admission.py": ("serving/admission.py", set(), False),
     "data/synthetic_mnist.py": ("data/synthetic_mnist.py", set(), True),
     "data/dedup.py": ("data/dedup.py", set(), True),
+    "data/pipeline.py": ("data/pipeline.py", set(), True),
+    "runtime/elastic.py": ("runtime/elastic.py", {"restore_on_mesh"}, True),
     **{f"configs/{a}.py": (f"configs/{a}.py", set(), True)
        for a in ARCH_FILES},
 }

@@ -218,7 +218,34 @@ def test_weight_bridge_refuses_a_wrong_tree(pretrained):
 
 
 def test_lm_stacking_waits_for_the_trainer():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        dbn.progressive_stack_lm(lambda n, p: p, [1, 2])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        dbn.grow_stacked_params({}, 2)
+    """Progressive stacking raised until the LM trainer was ported; now
+    each stage of ``progressive_stack_lm`` starts from the last stage's
+    layers cycled to its depth (``grow_stacked_params``) and trains a
+    step."""
+    import dataclasses
+    from repro_torch.configs import reduced
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import OptConfig, init_opt_state
+    base = reduced(get_arch("qwen2-0.5b"))
+    ocfg = OptConfig(lr=1e-3)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, base.vocab, (2, 16)))
+    losses = []
+
+    def train_fn(n_layers, prev):
+        cfg = dataclasses.replace(base, n_layers=n_layers)
+        params = init_params(cfg, 0, "cpu")
+        if prev is not None:
+            params["blocks"] = dbn.grow_stacked_params(prev["blocks"],
+                                                       n_layers)
+            for name, t in params["blocks"]["attn"].items():
+                assert torch.equal(t[-1], prev["blocks"]["attn"][name][
+                    (n_layers - 1) % prev["blocks"]["attn"][name].shape[0]])
+        params, _, m = make_train_step(cfg, ocfg)(
+            params, init_opt_state(params, ocfg), {"tokens": toks})
+        losses.append(float(m["loss"]))
+        return params
+    out = dbn.progressive_stack_lm(train_fn, [1, 2, 4])
+    assert out["blocks"]["mlp"]["up"].shape[0] == 4
+    assert len(losses) == 3 and all(np.isfinite(losses))
