@@ -11,13 +11,15 @@ Phases, each printing its own lines; any failed check exits non-zero:
    qwen2-0.5b shapes: B=8, 2 KV heads, 7 query heads each, head dim 64,
    16-token pages, ragged positions up to 2047 over shuffled page tables;
 3. K2 (ragged prefill) the same way: 256-token chunks starting at
-   0, 256, ..., 1792;
+   0, 256, ..., 1792; and the same chunks cut in two at token 96, whose
+   rows must equal the one-chunk rows bit for bit;
 4. K3 (speculative verify) the same way: B=8, Q=5 queries per row (four
    drafts), positions up to 2043, ragged live-query counts 1..5 and idle
    rows (pos 0, null table); and K3 with one live query per row against
    K1 on the same inputs, bit for bit;
 5. the int8 modes of K1, K2 and K3 against their plain versions, on pools
-   quantized from the same bf16 data by the port's ``quantize_int8``;
+   quantized from the same bf16 data by the port's ``quantize_int8``
+   (K2-int8 with phase 3's chunk split, bit for bit);
 6. the port's main path: full-width qwen2-0.5b (24 layers, random weights
    from ``--seed``) served by the continuous-batching engine on the
    ``hopper`` backend — 8 requests of 128 to 1024 prompt tokens sharing a
@@ -57,16 +59,18 @@ Phases, each printing its own lines; any failed check exits non-zero:
    against the bf16 run; each speculative stream must equal the plain
    stream of its pool dtype token for token;
 11. K2 at head dim 128 (minitron-4b: 8 KV x 3 query heads of 128, the 8
-   chunks of phase 3), bf16 and int8; K3 in ring mode at command-r-plus-104b
-   shapes (8 KV x 12 query heads of 128: Q=5 is 60 rows per (request, KV
-   head), split over two blocks), B=4 at positions up to 6000, bf16 and
+   chunks of phase 3), bf16 and int8, each with phase 3's chunk split; K3
+   in ring mode at command-r-plus-104b shapes (8 KV x 12 query heads of
+   128: Q=5 is 60 rows per (request, KV head), split over two blocks),
+   B=4 at positions up to 6000, bf16 and
    int8, and at one live query against K1-ring bit for bit; K8 (the RBM's
    fused GEMM + sigmoid) at every layer's positive, negative and
    forward-propagation shapes of mnist-dbn, fp32 within 1e-5, and layer
    0's positive phase in bf16;
 12. full-width, full-depth minitron-4b (32 layers) served as phase 6 serves
-   qwen2-0.5b (K2 at D=128 for every prefill chunk), bf16 and int8, each
-   held to the dual gate;
+   qwen2-0.5b (K2 at D=128 for every prefill chunk, a profiled rerun with
+   K2's share of the device time), bf16 and int8, each held to the dual
+   gate;
 13. command-r-plus-104b at full width, its depth cut to 4 of 64 layers
    (full depth is ~210 GB): phase 10's four runs, the speculative ones
    through K3's 60-row ring mode; gate 1 of its dual gates holds each
@@ -354,6 +358,20 @@ def phase_prefill(torch, rng, timer, int8=False, K=2, G=7, D=64,
     want = ragged_prefill_plain(q, k, v, tables, st, **kw)
     torch.cuda.synchronize()
     err, ratio = check_kernel(torch, f"{name} ragged_prefill", got, want)
+    # the same chunks cut in two at token 96: each row's result depends
+    # only on its q, its keys and its position, so the bits are the same
+    cut = 96
+    two = torch.cat([ragged_prefill(q[:, :cut].contiguous(), k, v, tables,
+                                    st, **kw),
+                     ragged_prefill(q[:, cut:].contiguous(), k, v, tables,
+                                    st + cut, **kw)], dim=1)
+    split_equal = torch.equal(got, two)
+    print(f"[smoke] {name} ragged_prefill chunk split: the {B} chunks of {T} "
+          f"prefilled as [0, {cut}) + [{cut}, {T}) give the one-chunk rows "
+          f"bit for bit -> {'OK' if split_equal else 'FAIL'}", flush=True)
+    if not split_equal:
+        fail(f"{name}: a row's result depends on how its prompt was cut "
+             "into chunks")
     ms = timer(lambda: ragged_prefill(q, k, v, tables, st, **kw))
     plain_ms = timer(lambda: ragged_prefill_plain(q, k, v, tables, st,
                                                   **kw))
@@ -374,7 +392,7 @@ def phase_prefill(torch, rng, timer, int8=False, K=2, G=7, D=64,
           f"{nbytes / 1e6:.2f} MB)", flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "chunk_split_bit_equal": split_equal}
 
 
 def verify_inputs(torch, rng):
@@ -1037,7 +1055,8 @@ def phase_serve(torch, cfg, seed, profile=True):
         tokens = [r.tokens for r in results]
         print(f"[smoke] hopper serve: {m['n_requests']} requests, "
               f"{m['new_tokens']} tokens in {m['wall_s']:.3f} s = "
-              f"{m['tokens_per_s']:.1f} tok/s, decode step p50 "
+              f"{m['tokens_per_s']:.1f} tok/s, TTFT p50 "
+              f"{m['ttft_p50_s'] * 1e3:.1f} ms, decode step p50 "
               f"{m['decode_step_ms_p50']:.3f} ms over {m['decode_steps']} "
               f"steps, {m['prefill_steps']} prefill steps "
               f"({m['chunked_prefill_steps']} continuation chunks), prefix "
@@ -1081,6 +1100,7 @@ def phase_serve(torch, cfg, seed, profile=True):
         report.update(engine_tokens_equal=same, engine_tokens=total,
                       identical_requests=identical,
                       tokens_per_s=m["tokens_per_s"],
+                      ttft_p50_ms=m["ttft_p50_s"] * 1e3,
                       decode_step_ms_p50=m["decode_step_ms_p50"],
                       ref_tokens_per_s=rm["tokens_per_s"],
                       ref_decode_step_ms_p50=rm["decode_step_ms_p50"])
@@ -1216,7 +1236,8 @@ def spec_report(label, m, counts, tokens, base_tokens, n_layers,
           f"{m['spec_accept_rate']:.3f}), {per_row:.3f} tokens per row and "
           f"{emitted / max(steps, 1):.3f} per step over {steps} verify "
           f"steps, "
-          f"{m['tokens_per_s']:.1f} tok/s, step p50 "
+          f"{m['tokens_per_s']:.1f} tok/s, TTFT p50 "
+          f"{m['ttft_p50_s'] * 1e3:.1f} ms, step p50 "
           f"{m['decode_step_ms_p50']:.3f} ms, {same}/{m['new_tokens']} tokens "
           f"equal the non-speculative hopper run (per request "
           f"{per_request}); launches "
@@ -1362,7 +1383,8 @@ def phase_int8_serve(torch, cfg, params, prompts, replay, spec=(0, 4)):
             quant = dual_gate(replay("reference", "bf16", tokens), ref8,
                               tokens, tol=LOGIT_TOL)
             print(f"[smoke] {label} serve: {m['new_tokens']} tokens, "
-                  f"{m['tokens_per_s']:.1f} tok/s, decode step p50 "
+                  f"{m['tokens_per_s']:.1f} tok/s, TTFT p50 "
+                  f"{m['ttft_p50_s'] * 1e3:.1f} ms, decode step p50 "
                   f"{m['decode_step_ms_p50']:.3f} ms, pool {bpt:.0f} B per "
                   f"token; launches K1 {c['K1']}, K2 {c['K2']}, K3 "
                   f"{c['K3']}", flush=True)
@@ -1580,7 +1602,8 @@ def phase_mla_serve(torch, seed):
         bpt = eng.pool.kv_bytes_per_token
         print(f"[smoke] {cfg.name} hopper serve: {m['n_requests']} requests, "
               f"{m['new_tokens']} tokens in {m['wall_s']:.3f} s = "
-              f"{m['tokens_per_s']:.1f} tok/s, decode step p50 "
+              f"{m['tokens_per_s']:.1f} tok/s, TTFT p50 "
+              f"{m['ttft_p50_s'] * 1e3:.1f} ms, decode step p50 "
               f"{m['decode_step_ms_p50']:.3f} ms over {m['decode_steps']} "
               f"steps, {m['prefill_steps']} prefill steps "
               f"({m['chunked_prefill_steps']} continuation chunks), prefix "
@@ -2343,8 +2366,9 @@ def print_profile(what, wall_us, kernels, every_us):
 def profile_rerun(torch, eng, prompts, n_new=8):
     """Where the time goes: rerun the requests (prefixes now cached) for
     ``n_new`` tokens under ``torch.profiler`` and print the device's busy
-    share of the wall time and its top kernels by self device time.
-    Returns the busy share (None: not measured)."""
+    share of the wall time, its top kernels by self device time and, where
+    K2 ran, K2's share of the device time.  Returns the busy share (None:
+    not measured)."""
     reg = eng.metrics
     steps0 = (reg.value("engine.prefill_steps"),
               reg.get("engine.decode_step_s").count)
@@ -2353,9 +2377,17 @@ def profile_rerun(torch, eng, prompts, n_new=8):
         return None
     prefill_steps = reg.value("engine.prefill_steps") - steps0[0]
     decode_steps = reg.get("engine.decode_step_s").count - steps0[1]
-    return print_profile(f"a rerun of {len(prompts)} requests for {n_new} "
+    busy = print_profile(f"a rerun of {len(prompts)} requests for {n_new} "
                          f"tokens ({decode_steps} decode steps, "
                          f"{prefill_steps} prefill steps)", *res)
+    k2 = [(t, n) for key, t, n in res[1] if "ragged_prefill_kernel" in key]
+    if k2:
+        k2_us = sum(t for t, _ in k2)
+        print(f"[smoke] K2 in that rerun: {k2_us / 1e3:.3f} ms over "
+              f"{sum(n for _, n in k2)} calls = "
+              f"{k2_us / sum(t for _, t, _ in res[1]):.3f} of device time",
+              flush=True)
+    return busy
 
 
 def print_ptxas(stem, log_path) -> None:
@@ -2478,7 +2510,7 @@ def main() -> None:
     t0 = time.perf_counter()
     mcfg = get_arch("minitron-4b")
     mc, mreport, params, prompts, _, cache = phase_serve(
-        torch, mcfg, args.seed, profile=False)
+        torch, mcfg, args.seed)
     m8c, m8 = phase_int8_serve(torch, mcfg, params, prompts,
                                Replays(mcfg, params, prompts, cache),
                                spec=(0,))
@@ -2488,7 +2520,8 @@ def main() -> None:
     minitron = {**{k: mreport[k] for k in (
         "max_logit_err", "n_tokens", "greedy_equal_tokens",
         "high_margin_tokens", "high_margin_mismatches", "tokens_per_s",
-        "decode_step_ms_p50", "ref_tokens_per_s", "ref_decode_step_ms_p50")},
+        "ttft_p50_ms", "decode_step_ms_p50", "ref_tokens_per_s",
+        "ref_decode_step_ms_p50")},
         "int8": m8["int8"]}
     del params, cache
     torch.cuda.empty_cache()
@@ -2600,6 +2633,7 @@ def main() -> None:
                                "high_margin_mismatches",
                                "engine_tokens_equal", "engine_tokens",
                                "identical_requests", "tokens_per_s",
+                               "ttft_p50_ms",
                                "decode_step_ms_p50", "ref_tokens_per_s",
                                "ref_decode_step_ms_p50")},
         "speculative": spec, "int8": int8, "minitron": minitron,

@@ -8,42 +8,66 @@
 // bf16 per-token-per-head scales.  Contract: repro/kernels/README.md "The
 // ragged-prefill contract" and "Scale-operand layout".
 //
-// What bounds it: the TPU body banks a [q_blk * G, n_pages * ps] fp32 score
-// matrix in VMEM (kernel.py:189) -- 128 * 7 * 2048 * 4 bytes = 7.3 MB at
-// q_blk 128, G 7 and 2048 keys, far above the 227 KB of shared memory a
-// Hopper block can hold (NVIDIA's data sheet).  Here the
-// work is 4 * T * keys * H * D flops against (keys * K * D * 2 + 2 * T * H
-// * D) * 2 bytes: compute-bound for chunks of a few hundred tokens, and
-// this first version runs the dot products on the fp32 CUDA cores, not the
-// tensor cores (see PERF.md for its time against its bound).
+// What bounds it: operations.  The work is 4 * pairs * H * D flops for the
+// causal (query, key) pairs against (keys * K * D * 2 + 2 * T * H * D) * 2
+// bytes: at a 256-token chunk over a few thousand keys that is far above
+// the H100's 295 flops a byte, so the products belong on the tensor cores
+// (989 TFLOP/s bf16 dense, NVIDIA's data sheet).  The TPU body banks a
+// [q_blk * G, n_pages * ps] fp32 score matrix in VMEM (kernel.py:189), far
+// above the 227 KB of shared memory a Hopper block holds; here the scores
+// are recomputed instead (two sweeps, below), so the tensor cores do 1.5x
+// the function's products.
 //
-// Design.  One block per (q-tile, KV head, request), one thread per query
-// row of the tile (a row is a (token, query head) pair of the GQA group, so
-// each K/V page is read once per block for all G heads), the row's query
-// (as bf16 pairs, exact: q is bf16) and fp32 accumulator in registers.
-// Head dims 32, 64 and 128: at 128 the query pairs and the accumulator take
-// 192 registers a thread, the treatment K4 (windowed_ragged_prefill.cu)
-// gives the same row at D = 128; ptxas's registers and spills per
-// instantiation are kept beside the built library and printed by
-// chip_smoke.py.  Instead of banking the scores, the
-// block sweeps the row's live pages three times, recomputing every fp32
-// score with the same instruction sequence each time:
-//   pass 1: the row's true max m over all keys;
-//   pass 2: l = sum(exp(s - m));
-//   pass 3: p = exp(s - m) / l, rounded to bf16 and back (the reference's
-//           a.astype(v.dtype)), acc += p * v in fp32.  With int8 pages the
-//           values are dequantized to fp32, so p stays fp32 (the Pallas
-//           body's v_dtype=float32, kernel.py:156-161).
-// int8 pages are dequantized to f32(q) * f32(s) as each page is staged in
-// shared memory, before the dot and before PV, as the Pallas body and the
-// plain gather do.
-// This is the single softmax at the row's true max that keeps the kernel
-// exact against the reference (kernel.py:30-36) -- it must not become an
-// online softmax.  Masked keys take the finite -1e30 of the reference
-// (kernel.py:52): they add exp(-1e30 - m) = 0 to l and nothing to acc, so
-// pages past the tile's last query are skipped outright.  Queries past
-// n_live (chunk padding) are computed like any other and discarded by the
-// caller; queries past T are not computed.  One bf16 cast at the output.
+// Design.  One warpgroup (128 threads) per (64-row query tile, KV head,
+// request).  A row is a (token, group head) pair, token-major, so all G
+// heads of a KV head share every K/V tile and a token's G rows may straddle
+// two tiles (G <= 128).  Keys go in tiles of whole pages, kt = (64 / ps) *
+// ps keys in a 64-slot tile (slots past kt are masked), anchored at
+// absolute key 0; tiles wholly past the query tile's last query are
+// skipped, and only tiles that reach past its first query (or hold padding
+// slots or keys past the table) are masked, element by element.  K and V
+// tiles are staged in shared memory in their own width by 16-byte cp.async
+// copies, two stages deep, so the next tile's copies (the block reads its
+// own page-table row) overlap this tile's products; bf16 rows land in
+// 128-byte-swizzled 64-column halves (D = 128 is two halves; D = 32 fills
+// half of one), the layout `wgmma` reads without bank conflicts.  int8
+// tiles land raw and are widened to bf16 in shared memory (exact: |k8| <=
+// 127 fits bf16's 8 significant bits) before the products, their bf16
+// scales beside them.  QK^T is `wgmma.m64n64k16` (bf16 in, fp32 out) with
+// Q and the K tile from shared memory; PV is `wgmma.m64n64k16` with p as A
+// from registers (the score accumulator's own layout) and the V tile as an
+// MN-major B from shared memory, into fp32 accumulators.
+//
+// The contract (kernel.py:30-36 and :66-72): fp32 scores with the scale
+// applied after the dot; one softmax at each row's *true* max, never an
+// online softmax of the output; masked keys at -1e30; p = exp(s - m) / l,
+// rounded to bf16 for bf16 pages, fp32 for int8 pages (kernel.py:156-161);
+// PV accumulated in fp32; one bf16 cast at the output.  Two sweeps:
+//   sweep 1: each tile's scores, the row max m and the normalizer l; only
+//            l is rescaled online when m grows, l * exp(m_old - m_new) +
+//            sum exp(s - m_new) (tiles fully masked for a row add exactly
+//            0 and leave m, so a row's l does not depend on the tile count);
+//   sweep 2: the scores again (the same instructions, so the same bits), p
+//            at the true m and final l, and PV on the tensor cores.
+// int8 pages: the score is (q . k8) * ks[key] * scale in fp32, where the
+// reference takes q . (f32(k8) * f32(ks)) * scale: f32(k8) * f32(ks) is
+// exact, so the two differ only in fp32 rounding.  p stays fp32; its V
+// scale is folded in as p' = p * vs[key] (fp32), and p' is split into two
+// bf16 terms h1 = bf16(p'), h2 = bf16(p' - h1): h1 + h2 carries 16
+// significant bits of p' (|p' - h1 - h2| <= 2^-17 |p'|), and each term
+// times the int8-as-bf16 V tile is one exact product into the same fp32
+// accumulator.  Two terms, not three: the difference from the reference's
+// fp32 p * f32(v) products is then at most 2^-17 of sum |p v|, far below
+// the one-bf16-ulp row bound (2^-8 of the row's largest output), and a
+// third term would add a third of the PV products.
+//
+// A row's result depends only on its own q, its keys and its position: the
+// key tiles are anchored at 0, a row's sums run over its own tiles in key
+// order (each thread's 16 columns in order, then a fixed shuffle tree over
+// the 4 threads of the row), and the tensor cores' sum for one output
+// element reads only its own row.  So it is the same, bit for bit, however
+// the prompt was cut into chunks and wherever the row lands in a tile.
+// Queries past T (the last tile's padding) are computed and not written.
 //
 // Numerics: IEEE expf and division (build without --use_fast_math).
 
@@ -54,51 +78,276 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // query rows per block
+constexpr int kRows = 64;       // query rows a block: the wgmma M
+constexpr int kSlots = 64;      // key slots a tile: QK^T's N, PV's 4 x k16
+constexpr int kThreads = 128;   // one warpgroup
 constexpr int kMaxPs = 32;      // tokens per page
+constexpr int kMaxG = 128;      // query heads per KV head
+constexpr int kHalf = 64 * 128; // bytes of one 128-byte-swizzled 64-row half
 constexpr float kMaskValue = -1e30f;
 
-// fp32 dot product of a bf16 query row (kept as bf16 pairs: exact, and half
-// the registers of an fp32 copy, which D = 128 needs beside its fp32
-// accumulator) with an fp32 key row, in ascending d, scaled after the dot
-// as the reference does.  The same instruction sequence as K4's score.
-template <int D>
-__device__ __forceinline__ float score(const __nv_bfloat162 (&qr)[D / 2],
-                                       const float* __restrict__ k_row,
-                                       float scale) {
-  float s = 0.f;
-#pragma unroll
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 k = reinterpret_cast<const float4*>(k_row)[d4];
-    const float2 q01 = __bfloat1622float2(qr[2 * d4]);
-    const float2 q23 = __bfloat1622float2(qr[2 * d4 + 1]);
-    s = fmaf(q01.x, k.x, s);
-    s = fmaf(q01.y, k.y, s);
-    s = fmaf(q23.x, k.z, s);
-    s = fmaf(q23.y, k.w, s);
-  }
-  return s * scale;
+// Shared-memory layout of one instantiation, in bytes from a 1024-aligned
+// base.  bf16: Q, then two stages of K and of V.  int8: Q, one bf16 K and
+// one bf16 V tile (widened from the raw stage), two raw stages of K and of
+// V, two stages of scale words (the aligned 32-bit word holding a token's
+// bf16 scale) and which half of the word it is, and the tile's scales as
+// fp32.
+template <int D, bool kInt8>
+struct Layout {
+  static constexpr int kHalves = (D + 63) / 64;
+  static constexpr int kTile = kHalves * kHalf;        // a [64][D] bf16 tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;                     // + stage * kTile
+  static constexpr int kV = kInt8 ? 2 * kTile : 3 * kTile;
+  static constexpr int kRawK = 3 * kTile;              // + stage * 64 * D
+  static constexpr int kRawV = kRawK + 2 * kSlots * D;
+  static constexpr int kWords = kRawV + 2 * kSlots * D;   // [2][2][64] u32
+  static constexpr int kSel = kWords + 2 * 2 * kSlots * 4;  // [2][2][64] u8
+  static constexpr int kScaleF = kSel + 2 * 2 * kSlots;     // [2][64] f32
+  static constexpr int kBytes = kInt8 ? kScaleF + 2 * kSlots * 4 : 5 * kTile;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Stage token rows of one page for one KV head in shared memory as fp32:
-// bf16 values as they are, int8 values as f32(q) * f32(s) with the token's
-// scale.  ``page`` is the physical page id, ``kh`` the KV head.
-template <int D, bool kInt8>
-__device__ __forceinline__ void load_page(float (*dst)[D],
-                                          const void* __restrict__ pages,
-                                          const __nv_bfloat16* __restrict__ scales,
-                                          int page, int kh, int ps, int K) {
-  const size_t base = ((size_t)page * ps * K + kh) * D;
-  for (int e = threadIdx.x; e < ps * D; e += blockDim.x) {
-    const int t = e / D, d = e % D;
-    const size_t at = base + (size_t)t * K * D + d;
-    if constexpr (kInt8) {
-      const float s = __bfloat162float(scales[((size_t)page * ps + t) * K + kh]);
-      dst[t][d] = __fmul_rn((float)static_cast<const int8_t*>(pages)[at], s);
-    } else {
-      dst[t][d] = __bfloat162float(static_cast<const __nv_bfloat16*>(pages)[at]);
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory (cp.async, st.shared) made visible
+// to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(lbo >> 4) << 16)
+         | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads of an accumulator across the wait
+__device__ __forceinline__ void pin(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define ACC32(d)                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
+  "+f"(d[31])
+#define REGS32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d (+)= A B, m64n64k16, bf16 in, fp32 out; A and B K-major in shared
+// memory.  ``accumulate`` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// d += A B, m64n64k16: A (bf16 pairs) from registers in the accumulator's
+// row layout, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// byte offset of 16-byte chunk c (8 bf16 columns) of row r in a swizzled
+// tile: 64-column halves of 64 rows x 128 bytes, chunk index XOR row % 8
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * kHalf + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Copy the block's 64 query rows (zeros past T) into the swizzled Q tile.
+template <int D>
+__device__ __forceinline__ void issue_q(uint32_t dst,
+                                        const __nv_bfloat16* __restrict__ q,
+                                        int b, int tile, int T, int H, int G,
+                                        int kh) {
+  constexpr int kC = D / 8;
+  for (int e = threadIdx.x; e < kRows * kC; e += kThreads) {
+    const int r = e / kC, c = e % kC;
+    const int row = tile * kRows + r, t = row / G;
+    const bool ok = t < T;
+    const __nv_bfloat16* src =
+        q + (((size_t)b * T + (ok ? t : 0)) * H + kh * G + row % G) * D
+        + c * 8;
+    cp_async16(dst + swz(r, c), src, ok ? 16 : 0);
+  }
+}
+
+// The slots of a key tile this thread copies, the same in every tile: its
+// copy ``it`` is 16 bytes of slot r = (tid + 128 it) / kC (kC copies a
+// row), kept as the slot's page in the tile and token in the page; page -1
+// for slots past kt.
+template <int kC>
+struct Slots {
+  static constexpr int kIt = kSlots * kC / kThreads;
+  int page[kIt], tok[kIt];
+  __device__ __forceinline__ Slots(int ps, int kt) {
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int r = (threadIdx.x + it * kThreads) / kC;
+      page[it] = r < kt ? r / ps : -1;
+      tok[it] = r % ps;
     }
   }
+};
+
+template <int D, bool kInt8>
+using KvSlots = Slots<D * (kInt8 ? 1 : 2) / 16>;
+
+// Copy key tile ``i`` (its kt = ppt * ps token rows, zeros past the table)
+// of one pool into a stage: bf16 rows swizzled, int8 rows raw [64][D].
+template <int D, bool kInt8>
+__device__ __forceinline__ void issue_kv(uint32_t dst,
+                                         const void* __restrict__ pages,
+                                         const int32_t* __restrict__ tb,
+                                         const KvSlots<D, kInt8>& sl, int i,
+                                         int ppt, int ps, int K, int kh,
+                                         int n_pages) {
+  constexpr int kE = kInt8 ? 1 : 2, kC = D * kE / 16;
+  const char* base = static_cast<const char*>(pages);
+#pragma unroll
+  for (int it = 0; it < KvSlots<D, kInt8>::kIt; ++it) {
+    if (sl.page[it] < 0) continue;
+    const int e = threadIdx.x + it * kThreads, r = e / kC, c = e % kC;
+    const int pi = i * ppt + sl.page[it];
+    const bool ok = pi < n_pages;
+    const char* src =
+        base + (((size_t)(ok ? __ldg(tb + pi) : 0) * ps + sl.tok[it]) * K
+                + kh) * D * kE + c * 16;
+    cp_async16(dst + (kInt8 ? r * D + c * 16 : swz(r, c)), src,
+               ok ? 16 : 0);
+  }
+}
+
+// Copy the aligned 32-bit word that holds the bf16 scale of tile ``i``'s
+// slot (its page in the tile and token in the page given) into ``word``,
+// and note which half of the word it is (cp.async copies 4 bytes at
+// least; the word's other half lies inside the allocation, which PyTorch
+// rounds up to 512 bytes, even past the pool's last scale).
+__device__ __forceinline__ void issue_scale(uint32_t word, uint8_t* sel,
+                                            const __nv_bfloat16* __restrict__ scales,
+                                            const int32_t* __restrict__ tb,
+                                            int i, int ppt, int page, int tok,
+                                            int ps, int K, int kh,
+                                            int n_pages) {
+  const int pi = i * ppt + page;
+  const bool ok = pi < n_pages;
+  const size_t at = ((size_t)(ok ? __ldg(tb + pi) : 0) * ps + tok) * K + kh;
+  cp_async4(word, reinterpret_cast<const uint32_t*>(scales) + at / 2,
+            ok ? 4 : 0);
+  *sel = static_cast<uint8_t>(at & 1);
+}
+
+// Widen a raw int8 stage into the swizzled bf16 tile (rows past kt as
+// zeros) and its scale words into fp32 (thread r: slot r of ``first``'s
+// pool).
+template <int D>
+__device__ __forceinline__ void widen(uint8_t* tile, const int8_t* raw,
+                                      int kt, const uint32_t* words,
+                                      const uint8_t* sel, float* scale_f,
+                                      int first) {
+  constexpr int kC = D / 16;
+#pragma unroll
+  for (int it = 0; it < kSlots * kC / kThreads; ++it) {
+    const int e = threadIdx.x + it * kThreads, r = e / kC, c = e % kC;
+    int4 x = make_int4(0, 0, 0, 0);
+    if (r < kt) x = *reinterpret_cast<const int4*>(raw + r * D + c * 16);
+    const int8_t* v = reinterpret_cast<const int8_t*>(&x);
+    uint32_t w[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      w[j] = pack_bf16(static_cast<float>(v[2 * j]),
+                       static_cast<float>(v[2 * j + 1]));
+    *reinterpret_cast<uint4*>(tile + swz(r, 2 * c)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<uint4*>(tile + swz(r, 2 * c + 1)) =
+        make_uint4(w[4], w[5], w[6], w[7]);
+  }
+  const int r = threadIdx.x - first;
+  if (r >= 0 && r < kSlots) {
+    const uint32_t word = words[r];
+    const uint16_t half = sel[r] ? static_cast<uint16_t>(word >> 16)
+                                 : static_cast<uint16_t>(word & 0xFFFF);
+    scale_f[r] = __bfloat162float(__ushort_as_bfloat16(half));
+  }
+}
+
+// S = Q K^T over D / 16 k-steps: Q and K K-major, 32-byte steps within a
+// 128-byte swizzled row, the second half at D = 128.
+template <int D>
+__device__ __forceinline__ void qk(float (&s)[32], uint32_t q, uint32_t k) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * kHalf + (kk & 3) * 32;
+    wgmma_ss(s, desc(q + off, 16, 1024), desc(k + off, 16, 1024), kk > 0);
+  }
+  wg_commit_wait();
+  pin(s);
+}
+
+// O += P V over the tile's 4 k16 steps of 16 keys; V MN-major, one
+// 64-column half per instruction (a half is one swizzle atom wide, so the
+// leading offset is never stepped: both offsets are the 8-key stride).
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[(D + 63) / 64][32],
+                                   const uint32_t (&a)[4][4], uint32_t v) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int h = 0; h < (D + 63) / 64; ++h)
+      wgmma_rs(o[h], a[kk], desc(v + h * kHalf + kk * 2048, 1024, 1024));
+  wg_commit_wait();
+#pragma unroll
+  for (int h = 0; h < (D + 63) / 64; ++h) pin(o[h]);
 }
 
 template <int D, bool kInt8>
@@ -111,80 +360,223 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
                       const int32_t* __restrict__ tables,         // [B, n_pages]
                       const int32_t* __restrict__ start,          // [B]
                       __nv_bfloat16* __restrict__ out,            // [B, T, H, D]
-                      int T, int H, int K, int ps, int n_pages, int qt,
+                      int T, int H, int K, int ps, int n_pages,
                       float scale) {
-  __shared__ __align__(16) float kv_s[kMaxPs][D];   // K page (passes 1-3)
-  __shared__ __align__(16) float v_s[kMaxPs][D];    // V page (pass 3)
-  const int tile = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  using L = Layout<D, kInt8>;
+  constexpr int kH = L::kHalves;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_addr(sm);
+
+  // a request's later query tiles attend more keys: start them first
+  const int tile = gridDim.x - 1 - blockIdx.x, kh = blockIdx.y,
+            b = blockIdx.z;
   const int G = H / K;
-  const int r = threadIdx.x;
-  const int tt = r / G, g = r % G;
-  const int t = tile * qt + tt;
-  const bool active = tt < qt && t < T;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int st = start[b];
-  const int q_abs = st + t;
-  const int t_last = min(tile * qt + qt, T) - 1;
-  int n_live = (st + t_last) / ps + 1;           // pages with i*ps <= last q
-  if (n_live > n_pages) n_live = n_pages;
   const int32_t* tb = tables + (size_t)b * n_pages;
+  const int ppt = kSlots / ps, kt = ppt * ps;
+  const int row_last = min(tile * kRows + kRows, T * G) - 1;
+  const int q_first = st + tile * kRows / G, q_last = st + row_last / G;
+  const int n = min(q_last / kt + 1, (n_pages + ppt - 1) / ppt);
+  const int n_keys = n_pages * ps;
 
-  __nv_bfloat162 qr[D / 2];
-  const size_t q_off = (((size_t)b * T + (active ? t : 0)) * H + kh * G + g) * D;
-  {
-    const auto* src = reinterpret_cast<const __nv_bfloat162*>(q + q_off);
+  // this thread's two accumulator rows and their positions
+  int q_abs[2];
 #pragma unroll
-    for (int d = 0; d < D / 2; ++d)
-      qr[d] = active ? src[d] : __floats2bfloat162_rn(0.f, 0.f);
-  }
+  for (int e = 0; e < 2; ++e)
+    q_abs[e] = st + (tile * kRows + 16 * warp + (lane >> 2) + 8 * e) / G;
 
-  // pass 1: row max over every key (masked keys hold -1e30)
-  float m = kMaskValue;
-  for (int i = 0; i < n_live; ++i) {
-    __syncthreads();
-    load_page<D, kInt8>(kv_s, k_pages, k_scale, tb[i], kh, ps, K);
-    __syncthreads();
-    for (int j = 0; j < ps; ++j)
-      if (i * ps + j <= q_abs) m = fmaxf(m, score<D>(qr, kv_s[j], scale));
-  }
-  // pass 2: the normalizer at the true max
-  float l = 0.f;
-  for (int i = 0; i < n_live; ++i) {
-    __syncthreads();
-    load_page<D, kInt8>(kv_s, k_pages, k_scale, tb[i], kh, ps, K);
-    __syncthreads();
-    for (int j = 0; j < ps; ++j)
-      if (i * ps + j <= q_abs) l += expf(score<D>(qr, kv_s[j], scale) - m);
-  }
-  // pass 3: bf16-rounded probabilities times V, accumulated in fp32
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int i = 0; i < n_live; ++i) {
-    __syncthreads();
-    load_page<D, kInt8>(kv_s, k_pages, k_scale, tb[i], kh, ps, K);
-    load_page<D, kInt8>(v_s, v_pages, v_scale, tb[i], kh, ps, K);
-    __syncthreads();
-    for (int j = 0; j < ps; ++j) {
-      float p = 0.f;
-      if (i * ps + j <= q_abs) {
-        p = expf(score<D>(qr, kv_s[j], scale) - m) / l;
-        if (!kInt8) p = __bfloat162float(__float2bfloat16(p));
+  // zeros everywhere first: slots past kt, D = 32's unused columns and the
+  // int8 tiles' pad are never copied, and must not hold NaN bits for PV
+  for (int e = tid; e < L::kBytes / 16; e += kThreads)
+    reinterpret_cast<uint4*>(sm)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  // steps 0 .. n-1 are sweep 1 (K only), n .. 2n-1 sweep 2 (K and V)
+  const KvSlots<D, kInt8> slots(ps, kt);
+  const int s_slot = tid & 63;            // the scale this thread copies
+  const int s_page = s_slot < kt ? s_slot / ps : -1, s_tok = s_slot % ps;
+  auto issue = [&](int step) {
+    const int i = step < n ? step : step - n, stage = step & 1;
+    const bool with_v = step >= n;
+    if constexpr (kInt8) {
+      uint32_t* words = reinterpret_cast<uint32_t*>(sm + L::kWords) + stage * 128;
+      uint8_t* sel = sm + L::kSel + stage * 128;
+      issue_kv<D, true>(base + L::kRawK + stage * kSlots * D, k_pages, tb,
+                        slots, i, ppt, ps, K, kh, n_pages);
+      if (tid < 64 && s_page >= 0)
+        issue_scale(smem_addr(words + s_slot), sel + s_slot, k_scale, tb, i,
+                    ppt, s_page, s_tok, ps, K, kh, n_pages);
+      if (with_v) {
+        issue_kv<D, true>(base + L::kRawV + stage * kSlots * D, v_pages, tb,
+                          slots, i, ppt, ps, K, kh, n_pages);
+        if (tid >= 64 && s_page >= 0)
+          issue_scale(smem_addr(words + 64 + s_slot), sel + 64 + s_slot,
+                      v_scale, tb, i, ppt, s_page, s_tok, ps, K, kh,
+                      n_pages);
       }
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 v = reinterpret_cast<const float4*>(v_s[j])[d4];
-        acc[4 * d4] = fmaf(p, v.x, acc[4 * d4]);
-        acc[4 * d4 + 1] = fmaf(p, v.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, v.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, v.w, acc[4 * d4 + 3]);
-      }
+    } else {
+      issue_kv<D, false>(base + L::kK + stage * L::kTile, k_pages, tb, slots,
+                         i, ppt, ps, K, kh, n_pages);
+      if (with_v)
+        issue_kv<D, false>(base + L::kV + stage * L::kTile, v_pages, tb,
+                           slots, i, ppt, ps, K, kh, n_pages);
     }
-  }
-  if (active) {
-    __nv_bfloat16* o = out + q_off;
+  };
+
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  float o[kH][32];
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = __float2bfloat16(acc[d]);
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[h][j] = 0.f;
+  float s[32];
+
+  issue_q<D>(base + L::kQ, q, b, tile, T, H, G, kh);
+  issue(0);
+  cp_async_commit();
+  for (int step = 0; step < 2 * n; ++step) {
+    const int i = step < n ? step : step - n, stage = step & 1;
+    const bool sweep2 = step >= n;
+    if (step + 1 < 2 * n) issue(step + 1);
+    cp_async_commit();
+    cp_async_wait1();
+    fence_async_smem();
+    __syncthreads();
+
+    uint32_t k_tile, v_tile;
+    const float* ks = nullptr;
+    const float* vs = nullptr;
+    if constexpr (kInt8) {
+      const uint32_t* words =
+          reinterpret_cast<const uint32_t*>(sm + L::kWords) + stage * 128;
+      const uint8_t* sel = sm + L::kSel + stage * 128;
+      float* scale_f = reinterpret_cast<float*>(sm + L::kScaleF);
+      widen<D>(sm + L::kK, reinterpret_cast<const int8_t*>(
+                   sm + L::kRawK + stage * kSlots * D),
+               kt, words, sel, scale_f, 0);
+      if (sweep2)
+        widen<D>(sm + L::kV, reinterpret_cast<const int8_t*>(
+                     sm + L::kRawV + stage * kSlots * D),
+                 kt, words + 64, sel + 64, scale_f + 64, 64);
+      fence_async_smem();
+      __syncthreads();
+      k_tile = base + L::kK;
+      v_tile = base + L::kV;
+      ks = scale_f;
+      vs = scale_f + 64;
+    } else {
+      k_tile = base + L::kK + stage * L::kTile;
+      v_tile = base + L::kV + stage * L::kTile;
+    }
+
+    qk<D>(s, base + L::kQ, k_tile);
+    // fp32 scores: the scale after the dot (int8: the key's scale first),
+    // then the mask where the tile reaches past the first query
+    const bool masked = kt < kSlots || (i + 1) * kt - 1 > q_first
+                        || (i + 1) * ppt > n_pages;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+      float x = s[j];
+      if constexpr (kInt8) x = x * ks[col];
+      x = x * scale;
+      if (masked) {
+        const int key = i * kt + col;
+        if (col >= kt || key > q_abs[(j >> 1) & 1] || key >= n_keys)
+          x = kMaskValue;
+      }
+      s[j] = x;
+    }
+
+    if (!sweep2) {
+      // sweep 1: the row max, and l rescaled to it
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mx = kMaskValue;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          if (((j >> 1) & 1) == e) mx = fmaxf(mx, s[j]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[e], mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          if (((j >> 1) & 1) == e) sum += expf(s[j] - m_new);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[e] = l[e] * expf(m[e] - m_new) + sum;
+        m[e] = m_new;
+      }
+    } else {
+      // sweep 2: p at the true max, then PV on the tensor cores
+      uint32_t a[4][4];
+      uint32_t a2[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = 8 * kk + 2 * r, e = r & 1;
+          float p0 = expf(s[j] - m[e]) / l[e];
+          float p1 = expf(s[j + 1] - m[e]) / l[e];
+          if constexpr (kInt8) {
+            const int col = 8 * (j >> 2) + 2 * (lane & 3);
+            p0 = p0 * vs[col];
+            p1 = p1 * vs[col + 1];
+            const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+            a[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+            a2[kk][r] = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+          } else {
+            a[kk][r] = pack_bf16(p0, p1);
+          }
+        }
+      pv<D>(o, a, v_tile);
+      if constexpr (kInt8) pv<D>(o, a2, v_tile);
+    }
+    __syncthreads();     // the stage is refilled by the next step's copies
   }
+
+  // one bf16 cast; rows past T are not written
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = tile * kRows + 16 * warp + (lane >> 2) + 8 * e;
+    const int t = row / G;
+    if (t >= T) continue;
+    __nv_bfloat16* dst =
+        out + (((size_t)b * T + t) * H + kh * G + row % G) * D;
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int d = 64 * h + 8 * c + 2 * (lane & 3);
+        if (d < D)
+          *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(
+              o[h][4 * c + 2 * e], o[h][4 * c + 2 * e + 1]);
+      }
+  }
+}
+
+template <int D, bool kInt8>
+int launch(const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
+           const void* k_pages, const void* v_pages,
+           const __nv_bfloat16* k_scale, const __nv_bfloat16* v_scale,
+           const int32_t* tables, const int32_t* start, __nv_bfloat16* out,
+           int T, int H, int K, int ps, int n_pages, float scale) {
+  auto* kernel = ragged_prefill_kernel<D, kInt8>;
+  constexpr int kSmem = Layout<D, kInt8>::kBytes + 1024;   // + alignment
+  static bool opted_in = false;       // internal linkage: one per library
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  kernel<<<grid, kThreads, kSmem, st>>>(q, k_pages, v_pages, k_scale,
+                                        v_scale, tables, start, out, T, H, K,
+                                        ps, n_pages, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -199,14 +591,12 @@ extern "C" int ragged_prefill(const void* q, const void* k_pages,
                               const void* start, void* out, int B, int T,
                               int H, int K, int D, int ps, int n_pages,
                               float scale, void* stream) {
-  if (B < 1 || T < 1 || K < 1 || H % K != 0 || H / K > kThreads || ps < 1 ||
+  if (B < 1 || T < 1 || K < 1 || H % K != 0 || H / K > kMaxG || ps < 1 ||
       ps > kMaxPs || n_pages < 1 ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int G = H / K;
-  const int qt = kThreads / G;                   // query tokens per block
-  const dim3 grid((T + qt - 1) / qt, K, B);
-  const dim3 block(kThreads);
+  const dim3 grid((T * G + kRows - 1) / kRows, K, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* ksp = static_cast<const __nv_bfloat16*>(k_scale);
@@ -214,18 +604,16 @@ extern "C" int ragged_prefill(const void* q, const void* k_pages,
   const auto* tp = static_cast<const int32_t*>(tables);
   const auto* sp = static_cast<const int32_t*>(start);
   auto* op = static_cast<__nv_bfloat16*>(out);
-#define PREFILL_LAUNCH(DIM, INT8)                                           \
-  ragged_prefill_kernel<DIM, INT8><<<grid, block, 0, st>>>(                 \
-      qp, k_pages, v_pages, ksp, vsp, tp, sp, op, T, H, K, ps, n_pages, qt, \
-      scale)
+#define PREFILL_LAUNCH(DIM, INT8)                                          \
+  return launch<DIM, INT8>(grid, st, qp, k_pages, v_pages, ksp, vsp, tp,  \
+                           sp, op, T, H, K, ps, n_pages, scale)
   const bool int8 = k_scale != nullptr;
   if (D == 32 && !int8) PREFILL_LAUNCH(32, false);
-  else if (D == 32) PREFILL_LAUNCH(32, true);
-  else if (D == 64 && !int8) PREFILL_LAUNCH(64, false);
-  else if (D == 64) PREFILL_LAUNCH(64, true);
-  else if (D == 128 && !int8) PREFILL_LAUNCH(128, false);
-  else if (D == 128) PREFILL_LAUNCH(128, true);
-  else return (int)cudaErrorInvalidValue;
+  if (D == 32) PREFILL_LAUNCH(32, true);
+  if (D == 64 && !int8) PREFILL_LAUNCH(64, false);
+  if (D == 64) PREFILL_LAUNCH(64, true);
+  if (D == 128 && !int8) PREFILL_LAUNCH(128, false);
+  if (D == 128) PREFILL_LAUNCH(128, true);
 #undef PREFILL_LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

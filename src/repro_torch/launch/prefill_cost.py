@@ -1,0 +1,161 @@
+"""Time K2 (the ragged paged prefill) and dense serving of one tree on the
+card, to compare two trees in one call.
+
+    PYTHONPATH=src python3 src/repro_torch/launch/prefill_cost.py --part kernels
+    PYTHONPATH=<other tree>/src python3 src/repro_torch/launch/prefill_cost.py --part serve
+
+It imports ``repro_torch`` by absolute name before anything else, so it
+measures whichever tree is first on the path (its kernels built from that
+tree's sources into that tree's ``build/``); the phase functions, the
+workload and the timer come from this checkout's ``chip_smoke.py``.
+
+``--part kernels``: ``chip_smoke.phase_prefill`` for K2 and K2-int8
+(qwen2-0.5b's 2 / 7 heads of 64) and K2-D128 and K2-D128-int8
+(minitron-4b's 8 / 3 heads of 128), each on 8 chunks of 256 tokens at
+starts 0, 256, ..., 1792: kernel, plain and SDPA times, the bound and the
+worst error in row ulps; and the registers and spills ``ptxas`` reported
+for the tree's ``ragged_prefill`` library.
+
+``--part serve``: qwen2-0.5b (bf16, n-gram speculation with K = 4, int8
+pages) and minitron-4b (bf16, int8 pages), each served on the ``hopper``
+backend with the smoke's workload (8 requests of 128..1024 prompt tokens
+sharing a 64-token prefix, 256-token chunks, 32 new tokens) by a fresh
+engine: tok/s, TTFT p50 and p95, prefill steps and K2 launches; then the
+same requests by another fresh engine under ``torch.profiler``, tracing
+the device alone: the device's busy share of the wall time and K2's share
+of the device time.
+
+The last line is one JSON object with the numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[3]      # the checkout holding chip_smoke.py
+K2_KERNEL = "ragged_prefill_kernel"
+
+
+def kernels(smoke) -> dict:
+    from repro_torch.kernels import build_all
+    _, libs = build_all()
+    smoke.print_ptxas("ragged_prefill",
+                      libs["ragged_prefill"].with_suffix(".log"))
+    rng = np.random.RandomState(0)
+    timer = smoke.Timer(torch)
+    out = {}
+    for label, kw in (("K2", {}), ("K2-D128", dict(K=8, G=3, D=128))):
+        for int8 in (False, True):
+            name = label + ("-int8" if int8 else "")
+            out[name] = smoke.phase_prefill(torch, rng, timer, int8=int8,
+                                            label=label, **kw)
+    return out
+
+
+def device_profile(fn) -> dict:
+    """Run ``fn`` under ``torch.profiler`` tracing the device alone (no
+    host ops, whose recording would slow the host-bound engine several
+    times over): the kernels' summed device time over the wall time, and
+    K2's share of that device time; None where no device time was
+    recorded (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(a.key, getattr(a, "self_device_time_total", 0.0))
+            for a in prof.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t in rows)
+    if not busy:
+        return {"busy_share": None, "k2_share_of_device": None}
+    k2 = sum(t for key, t in rows if K2_KERNEL in key)
+    return {"busy_share": busy / wall_us, "k2_share_of_device": k2 / busy,
+            "k2_device_ms": k2 / 1e3, "device_busy_ms": busy / 1e3,
+            "profiled_wall_ms": wall_us / 1e3}
+
+
+def serve_one(smoke, cfg, params, prompts, kv_dtype, spec) -> dict:
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels.ragged_prefill import ragged_prefill
+    from repro_torch.serving import Engine
+    scfg = ServeConfig(attn_backend="hopper", kv_dtype=kv_dtype,
+                       speculate_tokens=spec, **smoke.serve_kwargs())
+    ragged_prefill.launches = 0
+    eng = Engine(cfg, scfg, params, seed=0, device="cuda")
+    _, m = eng.run_offline(prompts, smoke.GEN_TOKENS)
+    torch.cuda.synchronize()
+    row = {"tokens_per_s": m["tokens_per_s"],
+           "ttft_p50_ms": m["ttft_p50_s"] * 1e3,
+           "ttft_p95_ms": m["ttft_p95_s"] * 1e3,
+           "prefill_steps": m["prefill_steps"],
+           "k2_launches": ragged_prefill.launches}
+    del eng
+    eng = Engine(cfg, scfg, params, seed=0, device="cuda")
+    row.update(device_profile(lambda: eng.run_offline(prompts,
+                                                      smoke.GEN_TOKENS)))
+    del eng
+    print(f"[prefill_cost] {cfg.name} {kv_dtype}"
+          f"{f' speculate {spec}' if spec else ''}: "
+          f"{row['tokens_per_s']:.1f} tok/s, TTFT p50 "
+          f"{row['ttft_p50_ms']:.1f} ms (p95 {row['ttft_p95_ms']:.1f}), "
+          f"{row['prefill_steps']} prefill steps, K2 {row['k2_launches']}; "
+          f"profiled run: busy {row['busy_share']}, K2 "
+          f"{row['k2_share_of_device']} of device time", flush=True)
+    return row
+
+
+def serve(smoke) -> dict:
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import init_params
+    out = {}
+    for arch, modes in (("qwen2-0.5b", (("bf16", 0), ("bf16", 4),
+                                        ("int8", 0))),
+                        ("minitron-4b", (("bf16", 0), ("int8", 0)))):
+        cfg = get_arch(arch)
+        prompts = smoke.serving_workload(np.random.RandomState(0), cfg.vocab)
+        with torch.no_grad():
+            params = init_params(cfg, 0, "cuda")
+            for kv_dtype, spec in modes:
+                key = f"{arch} {kv_dtype}" + (f" spec{spec}" if spec else "")
+                out[key] = serve_one(smoke, cfg, params, prompts, kv_dtype,
+                                     spec)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--part", choices=("kernels", "serve"), required=True)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("prefill_cost: needs an NVIDIA card")
+    import repro_torch               # the tree under test, before chip_smoke
+    sys.path.append(str(ROOT))
+    import chip_smoke as smoke
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    numbers = kernels(smoke) if args.part == "kernels" else serve(smoke)
+    res = {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
+           "part": args.part, "device": smi,
+           "seconds": time.perf_counter() - t0, args.part: numbers}
+    print(json.dumps(res), flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

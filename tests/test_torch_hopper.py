@@ -77,28 +77,70 @@ def _pool(rng, lengths, ps, K, D, width, device):
             torch.from_numpy(tables).to(device))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("G,D", [(7, 64), (2, 32), (3, 128)])
-def test_kernels_match_plain(cuda, G, D):
-    rng = np.random.RandomState(G)
-    ps, K = 16, 2
-    k, v, t = _pool(rng, [300, 17, 1, 64], ps, K, D, 19, cuda)
-    q = torch.from_numpy(rng.randn(4, K * G, D).astype(np.float32)) \
-        .bfloat16().to(cuda)
-    pos = torch.tensor([299, 16, 0, 63], dtype=torch.int32, device=cuda)
-    n0 = paged_decode.launches
-    got = paged_decode(q, k, v, t, pos, scale=D ** -0.5)
-    want = paged_decode_plain(q, k, v, t, pos, scale=D ** -0.5)
-    assert paged_decode.launches == n0 + 1
-    assert _within_one_ulp(got, want)
+# K2's shapes: (G, D, page size); K1 takes pages of up to 16 tokens
+K2_CASES = [(7, 64, 16), (2, 32, 16), (3, 128, 16), (1, 64, 8),
+            (12, 128, 32), (12, 64, 8), (1, 32, 32)]
+
+
+def _prefill_matches_plain(rng, k, v, t, G, D, kw, device):
+    """K2 on 24-token chunks at starts 270 (mid-page), 0, 0 and 40, and on
+    a 1-token chunk at start 0, against its plain version."""
+    K = k.shape[2]
     qp = torch.from_numpy(rng.randn(4, 24, K * G, D).astype(np.float32)) \
-        .bfloat16().to(cuda)
-    st = torch.tensor([270, 0, 0, 40], dtype=torch.int32, device=cuda)
+        .bfloat16().to(device)
+    st = torch.tensor([270, 0, 0, 40], dtype=torch.int32, device=device)
     m0 = ragged_prefill.launches
-    got = ragged_prefill(qp, k, v, t, st, scale=D ** -0.5)
-    want = ragged_prefill_plain(qp, k, v, t, st, scale=D ** -0.5)
+    got = ragged_prefill(qp, k, v, t, st, **kw)
+    want = ragged_prefill_plain(qp, k, v, t, st, **kw)
     assert ragged_prefill.launches == m0 + 1
     assert _within_one_ulp(got, want)
+    q1, st0 = qp[:1, :1].contiguous(), st[1:2].contiguous()
+    assert _within_one_ulp(ragged_prefill(q1, k, v, t[:1], st0, **kw),
+                           ragged_prefill_plain(q1, k, v, t[:1], st0, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D,ps", K2_CASES)
+def test_kernels_match_plain(cuda, G, D, ps):
+    rng = np.random.RandomState(G)
+    K = 2
+    k, v, t = _pool(rng, [300, 17, 1, 64], ps, K, D, -(-320 // ps), cuda)
+    if ps <= 16:
+        q = torch.from_numpy(rng.randn(4, K * G, D).astype(np.float32)) \
+            .bfloat16().to(cuda)
+        pos = torch.tensor([299, 16, 0, 63], dtype=torch.int32, device=cuda)
+        n0 = paged_decode.launches
+        got = paged_decode(q, k, v, t, pos, scale=D ** -0.5)
+        want = paged_decode_plain(q, k, v, t, pos, scale=D ** -0.5)
+        assert paged_decode.launches == n0 + 1
+        assert _within_one_ulp(got, want)
+    _prefill_matches_plain(rng, k, v, t, G, D, dict(scale=D ** -0.5), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("int8", [False, True])
+def test_prefill_rows_equal_across_a_chunk_split(cuda, D, int8):
+    """A 300-token prompt's rows from K2 as one chunk equal, bit for bit,
+    the same rows from chunks [0, 96) and [96, 300) over the same pool:
+    a row's result depends only on its q, its keys and its position."""
+    rng = np.random.RandomState(D + int8)
+    K, G, ps = 2, 7, 16
+    k, v, t = _pool(rng, [300], ps, K, D, 20, cuda)
+    kw = dict(scale=D ** -0.5)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+    q = torch.from_numpy(rng.randn(1, 300, K * G, D).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    at = lambda s: torch.tensor([s], dtype=torch.int32, device=cuda)  # noqa
+    one = ragged_prefill(q, k, v, t, at(0), **kw)
+    two = torch.cat([ragged_prefill(q[:, :96].contiguous(), k, v, t, at(0),
+                                    **kw),
+                     ragged_prefill(q[:, 96:].contiguous(), k, v, t, at(96),
+                                    **kw)], dim=1)
+    assert torch.equal(one, two)
+    assert _within_one_ulp(one, ragged_prefill_plain(q, k, v, t, at(0),
+                                                     **kw))
 
 
 @pytest.mark.cuda
@@ -193,23 +235,20 @@ def test_verify_with_one_live_query_is_decode_bit_for_bit(cuda, int8):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,D", [(7, 64), (2, 32), (3, 128)])
-def test_int8_kernels_match_plain(cuda, G, D):
+@pytest.mark.parametrize("G,D,ps", K2_CASES)
+def test_int8_kernels_match_plain(cuda, G, D, ps):
     rng = np.random.RandomState(G + 1)
-    ps, K = 16, 2
-    k, v, t = _pool(rng, [300, 17, 1, 64], ps, K, D, 19, cuda)
+    K = 2
+    k, v, t = _pool(rng, [300, 17, 1, 64], ps, K, D, -(-320 // ps), cuda)
     k8, v8, ks, vs = _int8(k, v)
     kw = dict(scale=D ** -0.5, k_scale=ks, v_scale=vs)
-    q = torch.from_numpy(rng.randn(4, K * G, D).astype(np.float32)) \
-        .bfloat16().to(cuda)
-    pos = torch.tensor([299, 16, 0, 63], dtype=torch.int32, device=cuda)
-    assert _within_one_ulp(paged_decode(q, k8, v8, t, pos, **kw),
-                           paged_decode_plain(q, k8, v8, t, pos, **kw))
-    qp = torch.from_numpy(rng.randn(4, 24, K * G, D).astype(np.float32)) \
-        .bfloat16().to(cuda)
-    st = torch.tensor([270, 0, 0, 40], dtype=torch.int32, device=cuda)
-    assert _within_one_ulp(ragged_prefill(qp, k8, v8, t, st, **kw),
-                           ragged_prefill_plain(qp, k8, v8, t, st, **kw))
+    if ps <= 16:
+        q = torch.from_numpy(rng.randn(4, K * G, D).astype(np.float32)) \
+            .bfloat16().to(cuda)
+        pos = torch.tensor([299, 16, 0, 63], dtype=torch.int32, device=cuda)
+        assert _within_one_ulp(paged_decode(q, k8, v8, t, pos, **kw),
+                               paged_decode_plain(q, k8, v8, t, pos, **kw))
+    _prefill_matches_plain(rng, k8, v8, t, G, D, kw, cuda)
 
 
 @pytest.mark.cuda
