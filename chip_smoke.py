@@ -9,14 +9,17 @@ Phases, each printing its own lines; any failed check exits non-zero:
    Hopper kernel from ``src/repro_torch/csrc`` with ``nvcc`` for sm_90a;
 2. K1 (paged decode) against its plain PyTorch version at full-width
    qwen2-0.5b shapes: B=8, 2 KV heads, 7 query heads each, head dim 64,
-   16-token pages, ragged positions up to 2047 over shuffled page tables;
+   16-token pages, ragged positions up to 2047 over shuffled page tables
+   (1023 and 1024 on both sides of a 256-key split boundary); and each
+   request alone, whose rows must equal its rows in the batch bit for bit;
 3. K2 (ragged prefill) the same way: 256-token chunks starting at
    0, 256, ..., 1792; and the same chunks cut in two at token 96, whose
    rows must equal the one-chunk rows bit for bit;
 4. K3 (speculative verify) the same way: B=8, Q=5 queries per row (four
    drafts), positions up to 2043, ragged live-query counts 1..5 and idle
    rows (pos 0, null table); and K3 with one live query per row against
-   K1 on the same inputs, bit for bit;
+   K1 on the same inputs, bit for bit, and each request alone against its
+   rows in the batch, bit for bit;
 5. the int8 modes of K1, K2 and K3 against their plain versions, on pools
    quantized from the same bf16 data by the port's ``quantize_int8``
    (K2-int8 with phase 3's chunk split, bit for bit);
@@ -141,7 +144,10 @@ their last bit, a probability can round to its other bf16 neighbour, which
 moves the whole row by up to an ulp of its larger terms, so an element that
 cancels to near 0 cannot be held to its own ulp.  Times are CUDA-event medians with the 50 MB L2
 flushed before every launch (in serving, the other 23 layers' weights and
-pages pass through L2 between two calls of one layer).  ``bound_ms`` is the
+pages pass through L2 between two calls of one layer) and the stream held
+by a ~0.1 ms device spin meanwhile, so that the host's enqueue of a call
+is not timed (without it, a call shorter on the device than its wrapper
+on the host reads as the host's time).  ``bound_ms`` is the
 larger of the bytes the function must move over 3.35 TB/s and its
 operations over 989 TFLOP/s (H100 SXM bf16 dense), counted for this run's
 inputs (K8 and K9 in fp32: over 67 TFLOP/s, the H100's fp32 rate without
@@ -192,7 +198,13 @@ def fail(msg: str) -> None:
 
 
 class Timer:
-    """Median CUDA-event time of a callable, L2 flushed before each run."""
+    """Median CUDA-event time of a callable, L2 flushed before each run.
+    A device-side spin of ``HOLD_CYCLES`` after the flush keeps the stream
+    busy while the host enqueues the call, so a call whose wrapper takes
+    longer on the host than its kernels on the device is timed by its
+    kernels, not by the host."""
+
+    HOLD_CYCLES = 200_000          # ~0.1 ms at the H100's 1.98 GHz
 
     def __init__(self, torch, iters: int = 20):
         self.torch = torch
@@ -207,6 +219,7 @@ class Timer:
         pairs = []
         for _ in range(self.iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -267,6 +280,21 @@ def check_kernel(torch, name, got, want):
     return err, ratio
 
 
+def rows_alone(torch, name, got, call):
+    """Hold each request's rows alone (``call(b)``: the kernel on request b
+    by itself) to its rows in the batch's output ``got``, bit for bit: K1
+    and K3 split a row's keys over blocks and merge the partials in split
+    order, so no row may depend on the rest of its batch."""
+    equal = all(torch.equal(call(b), got[b:b + 1])
+                for b in range(got.shape[0]))
+    print(f"[smoke] {name}: each of the {got.shape[0]} requests alone gives "
+          f"its rows in the batch bit for bit "
+          f"{'-> OK' if equal else '-> DIFFER'}", flush=True)
+    if not equal:
+        fail(f"{name}: a row's result depends on the rest of its batch")
+    return equal
+
+
 def sdpa_ms(torch, timer, q4, kg, vg, mask, scale, G):
     """Time one ``scaled_dot_product_attention`` call on gathered K/V
     (``[B, S, K, D]``, head-repeated to the query heads) — the yardstick of
@@ -312,6 +340,9 @@ def phase_decode(torch, rng, timer, int8=False):
     want = paged_decode_plain(q, k, v, tables, pos_t, **kw)
     torch.cuda.synchronize()
     err, ratio = check_kernel(torch, f"{name} paged_decode", got, want)
+    alone = rows_alone(torch, f"{name} paged_decode", got, lambda b: (
+        paged_decode(q[b:b + 1], k, v, tables[b:b + 1], pos_t[b:b + 1],
+                     **kw)))
     ms = timer(lambda: paged_decode(q, k, v, tables, pos_t, **kw))
     plain_ms = timer(lambda: paged_decode_plain(q, k, v, tables, pos_t,
                                                 **kw))
@@ -331,7 +362,7 @@ def phase_decode(torch, rng, timer, int8=False):
           flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "row_alone_bit_equal": alone}
 
 
 def phase_prefill(torch, rng, timer, int8=False, K=2, G=7, D=64,
@@ -456,6 +487,9 @@ def phase_verify(torch, rng, timer, int8=False):
           flush=True)
     if not bit_equal:
         fail(f"{name} at n_q = 1 differs from K1")
+    alone = rows_alone(torch, f"{name} paged_verify", got, lambda b: (
+        paged_verify(q[b:b + 1], k, v, tables[b:b + 1], pos[b:b + 1],
+                     n_q[b:b + 1], scale=scale, **kw)))
     ms = timer(lambda: paged_verify(q, k, v, tables, pos, n_q, scale=scale,
                                     **kw))
     plain_ms = timer(lambda: paged_verify_plain(q, k, v, tables, pos, n_q,
@@ -476,7 +510,8 @@ def phase_verify(torch, rng, timer, int8=False):
           flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "n_q1_bit_equal_k1": bit_equal}
+            "library_ms": library_ms, "n_q1_bit_equal_k1": bit_equal,
+            "row_alone_bit_equal": alone}
 
 
 # starcoder2-7b's attention at full width: 4 KV heads x 9 query heads of
@@ -2316,14 +2351,17 @@ def phase_train(torch, seed):
         "resume_equal": resume_equal}
 
 
-def profile_device(torch, fn):
+def profile_device(torch, fn, device_only=False):
     """Run ``fn`` under ``torch.profiler``; returns (wall us, kernel rows
     [(name, self device us, calls)] by time, device us over every event),
     or None when the profiler's own start fails (tracing refused) or it
-    records no device time: both print "not measured".  A failure of
-    ``fn`` propagates."""
+    records no device time: both print "not measured".  ``device_only``
+    traces the device alone, without the host ops, whose recording slows
+    a host-bound engine several times over.  A failure of ``fn``
+    propagates."""
     from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA] if device_only else
+                   [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
         prof.__enter__()
     except RuntimeError as e:

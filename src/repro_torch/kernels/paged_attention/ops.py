@@ -9,11 +9,14 @@ bf16 scale pages (``k_scale``/``v_scale``), and each with the TPU kernels'
 sliding-window ring mode (``window > 0``: the table is a ring of ``n_pages
 * ps`` token slots and each slot's absolute position is recovered from the
 ring layout); no softcap.  Both kernels are instances of one CUDA body
-(``csrc/paged_attention.cuh``, design and bound in its note): K1 is its
-one-query case, so K3 with one live query per row reproduces K1 bit for
-bit, ring mode included.  For CPU tensors each wrapper runs its plain
-PyTorch version, which is also the reference backend's core and the
-kernel's oracle on the card.
+(``csrc/paged_attention.cuh``, design and bound in its note): a row's keys
+split over blocks at 16 absolute pages, each split's partial written to a
+workspace the wrapper allocates (``split_workspace``) and merged in split
+order by a second kernel of the same call.  K1 is its one-query case, so
+K3 with one live query per row reproduces K1 bit for bit, ring mode
+included.  For CPU tensors each wrapper runs its plain PyTorch version,
+which is also the reference backend's core and the kernel's oracle on
+the card.
 
 ``mla_paged_decode`` (kernel K5) replaces ``mla_paged_attention_decode``
 (Pallas ``kernel.py::mla_paged_decode_fwd``) and ``mla_paged_verify``
@@ -68,14 +71,27 @@ def paged_verify_plain(q, k_pages, v_pages, tables, pos, n_q, *,
     return o.to(q.dtype)
 
 
-# decode: q, k, v, k_scale, v_scale, tables, pos, out, then B, K, G, D, ps,
-# n_pages, window, scale, stream; verify adds n_q after pos and Q after B
-_DECODE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-    + [ctypes.c_float, ctypes.c_void_p]
-_VERIFY_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
-    + [ctypes.c_float, ctypes.c_void_p]
+# decode: q, k, v, k_scale, v_scale, tables, pos, out, workspace, its
+# bytes, then B, K, G, D, ps, n_pages, window, scale, stream; verify adds
+# n_q after pos and Q after B
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] \
+    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_VERIFY_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] \
+    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 MAX_ROWS = {"paged_decode": 16, "paged_verify": 48}   # csrc kMaxRows
 HEAD_DIMS = (32, 64, 128)                              # csrc launch()
+SPLIT_PAGES = 16                                       # csrc kSplitPages
+
+
+def split_workspace(B: int, Q: int, K: int, G: int, D: int, n_pages: int,
+                    window: int, device) -> torch.Tensor:
+    """The scratch K1 and K3 write their split partials to: for each of
+    the ``ceil(n_pages / 16)`` key splits (one more in a ring) and each of
+    the ``B * K * Q * G`` rows, fp32 (m, l) and a D-wide fp32 accumulator
+    (``csrc/paged_attention.cuh``, ``launch``)."""
+    n_splits = -(-n_pages // SPLIT_PAGES) + (1 if window else 0)
+    return torch.empty(B * K * n_splits * Q * G * (D + 2) * 4,
+                       dtype=torch.uint8, device=device)
 
 
 def check_verify_shapes(q_shape, page_shape, tables_shape, pos_shape,
@@ -124,11 +140,12 @@ def paged_decode(q, k_pages, v_pages, tables, pos, *, scale: float,
             f"{tuple(k_pages.shape)}, tables {tuple(tables.shape)}, pos "
             f"{tuple(pos.shape)}")
     out = torch.empty_like(q)
+    ws = split_workspace(B, 1, K, H // K, D, tables.shape[1], window, dev)
     rc = entry("paged_decode", _DECODE_ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale),
-        ptr(v_scale), tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B,
-        K, H // K, D, ps, tables.shape[1], int(window), float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(v_scale), tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), ws.numel(), B, K, H // K, D, ps, tables.shape[1],
+        int(window), float(scale), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "paged_decode")
     paged_decode.launches += 1
     return out
@@ -164,11 +181,13 @@ def paged_verify(q, k_pages, v_pages, tables, pos, n_q, *, scale: float,
     check_verify_shapes(q.shape, k_pages.shape, tables.shape, pos.shape,
                         n_q.shape, window)
     out = torch.empty_like(q)
+    ws = split_workspace(B, Q, K, H // K, D, tables.shape[1], window, dev)
     rc = entry("paged_verify", _VERIFY_ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale),
         ptr(v_scale), tables.data_ptr(), pos.data_ptr(), n_q.data_ptr(),
-        out.data_ptr(), B, Q, K, H // K, D, ps, tables.shape[1], int(window),
-        float(scale), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), ws.data_ptr(), ws.numel(), B, Q, K, H // K, D, ps,
+        tables.shape[1], int(window), float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "paged_verify")
     paged_verify.launches += 1
     return out

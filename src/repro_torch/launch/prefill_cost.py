@@ -59,25 +59,16 @@ def kernels(smoke) -> dict:
     return out
 
 
-def device_profile(fn) -> dict:
-    """Run ``fn`` under ``torch.profiler`` tracing the device alone (no
-    host ops, whose recording would slow the host-bound engine several
-    times over): the kernels' summed device time over the wall time, and
-    K2's share of that device time; None where no device time was
-    recorded (not measured)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(a.key, getattr(a, "self_device_time_total", 0.0))
-            for a in prof.key_averages()
-            if a.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(t for _, t in rows)
-    if not busy:
+def device_profile(smoke, fn) -> dict:
+    """Run ``fn`` under ``chip_smoke.profile_device`` tracing the device
+    alone: the kernels' summed device time over the wall time, and K2's
+    share of that device time; None where it was not measured."""
+    prof = smoke.profile_device(torch, fn, device_only=True)
+    if prof is None:
         return {"busy_share": None, "k2_share_of_device": None}
-    k2 = sum(t for key, t in rows if K2_KERNEL in key)
+    wall_us, rows, _ = prof
+    busy = sum(t for _, t, _ in rows)
+    k2 = sum(t for key, t, _ in rows if K2_KERNEL in key)
     return {"busy_share": busy / wall_us, "k2_share_of_device": k2 / busy,
             "k2_device_ms": k2 / 1e3, "device_busy_ms": busy / 1e3,
             "profiled_wall_ms": wall_us / 1e3}
@@ -100,8 +91,8 @@ def serve_one(smoke, cfg, params, prompts, kv_dtype, spec) -> dict:
            "k2_launches": ragged_prefill.launches}
     del eng
     eng = Engine(cfg, scfg, params, seed=0, device="cuda")
-    row.update(device_profile(lambda: eng.run_offline(prompts,
-                                                      smoke.GEN_TOKENS)))
+    row.update(device_profile(smoke, lambda: eng.run_offline(
+        prompts, smoke.GEN_TOKENS)))
     del eng
     print(f"[prefill_cost] {cfg.name} {kv_dtype}"
           f"{f' speculate {spec}' if spec else ''}: "

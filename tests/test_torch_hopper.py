@@ -15,7 +15,8 @@ round to its other bf16 neighbour, moving the row by up to an ulp of its
 larger terms, so an element that cancels to near 0 is not held to its own
 ulp.  K3 (verify) with one live query per row equals K1 (decode) bit for
 bit, bf16 and int8, in ring mode too; K1, K3 and K4 on one window of K/V
-in a ring of n pages and in one of n + 1 give equal bits.  K5 (MLA decode),
+in a ring of n pages and in one of n + 1 give equal bits; K1's and K3's
+rows of one request alone equal its rows in the batch.  K5 (MLA decode),
 K6 (MLA prefill) and K7 (MLA verify), bf16 and int8, are held to their
 plain versions by the same one-ulp rule; K7 with one live query equals K5
 bit for bit.  K9 (the training forward's causal flash attention) is held
@@ -232,6 +233,43 @@ def test_verify_with_one_live_query_is_decode_bit_for_bit(cuda, int8):
     got = paged_verify(q, k, v, t, pos, ones, **kw)
     dec = paged_decode(q[:, 0].contiguous(), k, v, t, pos, **kw)
     assert torch.equal(got[:, 0], dec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_rows_alone_equal_rows_in_the_batch(cuda, window, int8):
+    """K1 and K3 split a row's keys over blocks (256-key splits of 16
+    absolute pages) and merge the partials in split order, so a request's
+    rows alone equal its rows in the batch bit for bit; positions 255 and
+    256 sit on both sides of a split boundary, 300 and 330 span two
+    splits (causal; window 64 over a 6-page ring of 96 slots)."""
+    rng = np.random.RandomState(17 + int8 + window)
+    ps, K, G, D, Q = 16, 2, 7, 64, 5
+    pos = [255, 256, 300 if not window else 330, 17]
+    if window:
+        k, v, t = _ring_inputs(rng, 4, 6, ps, K, D, cuda)
+    else:
+        k, v, t = _pool(rng, [p + Q for p in pos], ps, K, D, 24, cuda)
+    kw = dict(scale=D ** -0.5, window=window)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+    q = torch.from_numpy(rng.randn(4, Q, K * G, D).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    n_q = torch.tensor([1, 5, 3, 2], dtype=torch.int32, device=cuda)
+    q1 = q[:, 0].contiguous()
+    ver = paged_verify(q, k, v, t, pos_t, n_q, **kw)
+    dec = paged_decode(q1, k, v, t, pos_t, **kw)
+    assert _within_one_ulp(ver, paged_verify_plain(q, k, v, t, pos_t, n_q,
+                                                   **kw))
+    assert _within_one_ulp(dec, paged_decode_plain(q1, k, v, t, pos_t, **kw))
+    for b in range(4):
+        one = slice(b, b + 1)
+        assert torch.equal(paged_verify(q[one], k, v, t[one], pos_t[one],
+                                        n_q[one], **kw), ver[one])
+        assert torch.equal(paged_decode(q1[one], k, v, t[one], pos_t[one],
+                                        **kw), dec[one])
 
 
 @pytest.mark.cuda
