@@ -284,7 +284,8 @@ def rows_alone(torch, name, got, call):
     """Hold each request's rows alone (``call(b)``: the kernel on request b
     by itself) to its rows in the batch's output ``got``, bit for bit: K1
     and K3 split a row's keys over blocks and merge the partials in split
-    order, so no row may depend on the rest of its batch."""
+    order, and K4 anchors its key tiles at absolute pages and chunk token
+    0, so no row may depend on the rest of its batch."""
     equal = all(torch.equal(call(b), got[b:b + 1])
                 for b in range(got.shape[0]))
     print(f"[smoke] {name}: each of the {got.shape[0]} requests alone gives "
@@ -533,18 +534,26 @@ def ring_pool(torch, rng, B, n_ring, K, D, ps):
     return k, v, tables.cuda()
 
 
-def phase_windowed_prefill(torch, rng, timer, int8=False):
+SC_CHUNKS = ((0, 256), (3840, 256), (4352, 256), (5888, 200))
+
+
+def phase_windowed_prefill(torch, rng, timer, int8=False, chunks=SC_CHUNKS,
+                           label="K4"):
     """K4 against its plain version at full-width starcoder2-7b chunk
-    shapes: B=4 chunks of 256 at starts 0, 3840, 4352 and 5888 (the last
-    one with 200 live tokens) over 257-page pre-write rings: one chunk
-    starts on an empty ring, two read a wrapped ring, and those two cross
-    the window; ``int8``: int8 ring pages, the fresh K/V bf16."""
+    shapes: by default B=4 chunks of 256 at starts 0, 3840, 4352 and 5888
+    (the last one with 200 live tokens) over 257-page pre-write rings: one
+    chunk starts on an empty ring, two read a wrapped ring, and those two
+    cross the window; ``chunks``: other (start, live tokens) pairs, one a
+    request; ``int8``: int8 ring pages, the fresh K/V bf16.  Padding rows
+    must be exact zeros, and each request alone must give its rows in the
+    batch bit for bit."""
     from repro_torch.kernels.ragged_prefill import (windowed_prefill,
                                                     windowed_prefill_plain)
     from repro_torch.models.attention import gather_kv, ring_chunk_mask
     from repro_torch.models.cache_spec import window_pages
-    B, K, G, D, ps, T, window = 4, SC_K, SC_G, SC_D, PAGE, 256, SC_WINDOW
-    H, name = K * G, "K4-int8" if int8 else "K4"
+    B, K, G, D, ps, T, window = len(chunks), SC_K, SC_G, SC_D, PAGE, 256, \
+        SC_WINDOW
+    H, name = K * G, label + ("-int8" if int8 else "")
     n_ring = window_pages(window, ps)
     k, v, tables = ring_pool(torch, rng, B, n_ring, K, D, ps)
     kw = dict(scale=1.0 / math.sqrt(D), window=window)
@@ -554,21 +563,25 @@ def phase_windowed_prefill(torch, rng, timer, int8=False):
     q = torch.randn((B, T, H, D), generator=gen, device="cuda").bfloat16()
     kn = torch.randn((B, T, K, D), generator=gen, device="cuda").bfloat16()
     vn = torch.randn((B, T, K, D), generator=gen, device="cuda").bfloat16()
-    st = torch.tensor([0, 3840, 4352, 5888], dtype=torch.int32,
+    st = torch.tensor([c[0] for c in chunks], dtype=torch.int32,
                       device="cuda")
-    nl = torch.tensor([T, T, T, 200], dtype=torch.int32, device="cuda")
+    nl = torch.tensor([c[1] for c in chunks], dtype=torch.int32,
+                      device="cuda")
     args = (q, kn, vn, k, v, tables, st, nl)
     got = windowed_prefill(*args, **kw)
     want = windowed_prefill_plain(*args, **kw)
     torch.cuda.synchronize()
     err, ratio = check_kernel(torch, f"{name} windowed_prefill", got, want)
-    if bool((got[3, 200:] != 0).any().item()):
+    live = torch.arange(T, device="cuda")[None, :] < nl[:, None]
+    if bool((got[~live] != 0).any().item()):
         fail(f"{name}: padding rows are not exact zeros")
+    alone = rows_alone(torch, f"{name} windowed_prefill", got, lambda b: (
+        windowed_prefill(*(x[b:b + 1] for x in (q, kn, vn)), k, v,
+                         tables[b:b + 1], st[b:b + 1], nl[b:b + 1], **kw)))
     ms = timer(lambda: windowed_prefill(*args, **kw))
     plain_ms = timer(lambda: windowed_prefill_plain(*args, **kw))
     n = n_ring * ps
     seen = ring_chunk_mask(st, nl, n, T, window)
-    live = torch.arange(T, device="cuda")[None, :] < nl[:, None]
     kr, vr = gather_kv(k, v, tables, kw.get("k_scale"), kw.get("v_scale"))
     kc = torch.cat([kr.bfloat16(), kn], 1)
     vc = torch.cat([vr.bfloat16(), vn], 1)
@@ -586,7 +599,7 @@ def phase_windowed_prefill(torch, rng, timer, int8=False):
           f"(query, key) pairs, {nbytes / 1e6:.2f} MB)", flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "row_alone_bit_equal": alone}
 
 
 # starcoder2-7b's ring cases: K1 at B=4 over 257-page rings at positions 15

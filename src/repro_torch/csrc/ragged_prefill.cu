@@ -69,22 +69,16 @@
 // the prompt was cut into chunks and wherever the row lands in a tile.
 // Queries past T (the last tile's padding) are computed and not written.
 //
+// The machinery K2 shares with K4 (copies, descriptors, swizzle, wgmma
+// calls, the two sweeps' row reductions, the launch) is in
+// ragged_prefill.cuh; the pool's staging and the int8 widening into
+// separate bf16 tiles are K2's own (K4 widens in place: its note says why).
+//
 // Numerics: IEEE expf and division (build without --use_fast_math).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "ragged_prefill.cuh"
 
 namespace {
-
-constexpr int kRows = 64;       // query rows a block: the wgmma M
-constexpr int kSlots = 64;      // key slots a tile: QK^T's N, PV's 4 x k16
-constexpr int kThreads = 128;   // one warpgroup
-constexpr int kMaxPs = 32;      // tokens per page
-constexpr int kMaxG = 128;      // query heads per KV head
-constexpr int kHalf = 64 * 128; // bytes of one 128-byte-swizzled 64-row half
-constexpr float kMaskValue = -1e30f;
 
 // Shared-memory layout of one instantiation, in bytes from a 1024-aligned
 // base.  bf16: Q, then two stages of K and of V.  int8: Q, one bf16 K and
@@ -106,140 +100,6 @@ struct Layout {
   static constexpr int kScaleF = kSel + 2 * 2 * kSlots;     // [2][64] f32
   static constexpr int kBytes = kInt8 ? kScaleF + 2 * kSlots * 4 : 5 * kTile;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-// generic-proxy writes to shared memory (cp.async, st.shared) made visible
-// to the async proxy that wgmma reads through
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>(lbo >> 4) << 16)
-         | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads of an accumulator across the wait
-__device__ __forceinline__ void pin(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define ACC32(d)                                                            \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
-  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
-  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
-  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
-  "+f"(d[31])
-#define REGS32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-
-// d (+)= A B, m64n64k16, bf16 in, fp32 out; A and B K-major in shared
-// memory.  ``accumulate`` 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-// d += A B, m64n64k16: A (bf16 pairs) from registers in the accumulator's
-// row layout, B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// byte offset of 16-byte chunk c (8 bf16 columns) of row r in a swizzled
-// tile: 64-column halves of 64 rows x 128 bytes, chunk index XOR row % 8
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (c >> 3) * kHalf + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// Copy the block's 64 query rows (zeros past T) into the swizzled Q tile.
-template <int D>
-__device__ __forceinline__ void issue_q(uint32_t dst,
-                                        const __nv_bfloat16* __restrict__ q,
-                                        int b, int tile, int T, int H, int G,
-                                        int kh) {
-  constexpr int kC = D / 8;
-  for (int e = threadIdx.x; e < kRows * kC; e += kThreads) {
-    const int r = e / kC, c = e % kC;
-    const int row = tile * kRows + r, t = row / G;
-    const bool ok = t < T;
-    const __nv_bfloat16* src =
-        q + (((size_t)b * T + (ok ? t : 0)) * H + kh * G + row % G) * D
-        + c * 8;
-    cp_async16(dst + swz(r, c), src, ok ? 16 : 0);
-  }
-}
-
-// The slots of a key tile this thread copies, the same in every tile: its
-// copy ``it`` is 16 bytes of slot r = (tid + 128 it) / kC (kC copies a
-// row), kept as the slot's page in the tile and token in the page; page -1
-// for slots past kt.
-template <int kC>
-struct Slots {
-  static constexpr int kIt = kSlots * kC / kThreads;
-  int page[kIt], tok[kIt];
-  __device__ __forceinline__ Slots(int ps, int kt) {
-#pragma unroll
-    for (int it = 0; it < kIt; ++it) {
-      const int r = (threadIdx.x + it * kThreads) / kC;
-      page[it] = r < kt ? r / ps : -1;
-      tok[it] = r % ps;
-    }
-  }
-};
-
-template <int D, bool kInt8>
-using KvSlots = Slots<D * (kInt8 ? 1 : 2) / 16>;
 
 // Copy key tile ``i`` (its kt = ppt * ps token rows, zeros past the table)
 // of one pool into a stage: bf16 rows swizzled, int8 rows raw [64][D].
@@ -317,37 +177,6 @@ __device__ __forceinline__ void widen(uint8_t* tile, const int8_t* raw,
                                  : static_cast<uint16_t>(word & 0xFFFF);
     scale_f[r] = __bfloat162float(__ushort_as_bfloat16(half));
   }
-}
-
-// S = Q K^T over D / 16 k-steps: Q and K K-major, 32-byte steps within a
-// 128-byte swizzled row, the second half at D = 128.
-template <int D>
-__device__ __forceinline__ void qk(float (&s)[32], uint32_t q, uint32_t k) {
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk >> 2) * kHalf + (kk & 3) * 32;
-    wgmma_ss(s, desc(q + off, 16, 1024), desc(k + off, 16, 1024), kk > 0);
-  }
-  wg_commit_wait();
-  pin(s);
-}
-
-// O += P V over the tile's 4 k16 steps of 16 keys; V MN-major, one
-// 64-column half per instruction (a half is one swizzle atom wide, so the
-// leading offset is never stepped: both offsets are the 8-key stride).
-template <int D>
-__device__ __forceinline__ void pv(float (&o)[(D + 63) / 64][32],
-                                   const uint32_t (&a)[4][4], uint32_t v) {
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int h = 0; h < (D + 63) / 64; ++h)
-      wgmma_rs(o[h], a[kk], desc(v + h * kHalf + kk * 2048, 1024, 1024));
-  wg_commit_wait();
-#pragma unroll
-  for (int h = 0; h < (D + 63) / 64; ++h) pin(o[h]);
 }
 
 template <int D, bool kInt8>
@@ -492,46 +321,12 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
 
     if (!sweep2) {
       // sweep 1: the row max, and l rescaled to it
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float mx = kMaskValue;
-#pragma unroll
-        for (int j = 0; j < 32; ++j)
-          if (((j >> 1) & 1) == e) mx = fmaxf(mx, s[j]);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[e], mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 32; ++j)
-          if (((j >> 1) & 1) == e) sum += expf(s[j] - m_new);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        l[e] = l[e] * expf(m[e] - m_new) + sum;
-        m[e] = m_new;
-      }
+      row_max_sum<false>(s, m, l);
     } else {
       // sweep 2: p at the true max, then PV on the tensor cores
       uint32_t a[4][4];
       uint32_t a2[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int j = 8 * kk + 2 * r, e = r & 1;
-          float p0 = expf(s[j] - m[e]) / l[e];
-          float p1 = expf(s[j + 1] - m[e]) / l[e];
-          if constexpr (kInt8) {
-            const int col = 8 * (j >> 2) + 2 * (lane & 3);
-            p0 = p0 * vs[col];
-            p1 = p1 * vs[col + 1];
-            const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-            a[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
-            a2[kk][r] = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
-          } else {
-            a[kk][r] = pack_bf16(p0, p1);
-          }
-        }
+      probs<kInt8>(s, m, l, vs, lane, a, a2);
       pv<D>(o, a, v_tile);
       if constexpr (kInt8) pv<D>(o, a2, v_tile);
     }
@@ -564,19 +359,9 @@ int launch(const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
            const __nv_bfloat16* k_scale, const __nv_bfloat16* v_scale,
            const int32_t* tables, const int32_t* start, __nv_bfloat16* out,
            int T, int H, int K, int ps, int n_pages, float scale) {
-  auto* kernel = ragged_prefill_kernel<D, kInt8>;
-  constexpr int kSmem = Layout<D, kInt8>::kBytes + 1024;   // + alignment
-  static bool opted_in = false;       // internal linkage: one per library
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
-  }
-  kernel<<<grid, kThreads, kSmem, st>>>(q, k_pages, v_pages, k_scale,
-                                        v_scale, tables, start, out, T, H, K,
-                                        ps, n_pages, scale);
-  return (int)cudaGetLastError();
+  return launch_kernel<ragged_prefill_kernel<D, kInt8>>(
+      grid, Layout<D, kInt8>::kBytes + 1024, st, q, k_pages, v_pages,
+      k_scale, v_scale, tables, start, out, T, H, K, ps, n_pages, scale);
 }
 
 }  // namespace

@@ -1,8 +1,8 @@
 // Kernel K4: sliding-window ragged chunk prefill for Hopper (sm_90a).  A
 // batch of prompt chunks, row b holding T queries at absolute positions
 // start[b] + t (the first n_live[b] real, the rest padding), each attending
-// two key sources at once: the row's page ring as it stood *before* the
-// chunk's writes, and the chunk's own fresh K/V.
+// two key sources in one softmax: the row's page ring as it stood *before*
+// the chunk's writes, and the chunk's own fresh K/V.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ragged_prefill/kernel.py::
 // windowed_ragged_prefill_fwd (_windowed_ragged_prefill_kernel), bf16 ring
@@ -10,121 +10,258 @@
 // K/V are bf16 in both modes (never quantized).  Contract:
 // repro/kernels/README.md "The ragged-prefill contract" (pre-write pool,
 // window > 0) and "Scale-operand layout".  Masks (kernel.py:236-262):
-//   ring slot i (ring = n_ring * ps slots) holds k_abs = last - ((last % ring
-//     - i) mod ring) with last = start - 1, the last position written before
-//     the chunk; at start == 0 every slot is negative.  Seen iff k_abs >= 0
-//     and k_abs > q_abs - window;
+//   ring slot idx (ring = n_ring * ps slots) holds k_abs = last - ((last %
+//     ring - idx) mod ring) with last = start - 1, the last position written
+//     before the chunk; at start == 0 every slot is negative.  Seen iff
+//     k_abs >= 0 and k_abs > q_abs - window;
 //   fresh token f (k_abs = start + f) is seen iff f <= t, f < n_live and
 //     k_abs > q_abs - window.
 // Rows t >= n_live (chunk padding, discarded by the caller) are written as
 // exact zeros; the plain version zeroes them too.
 //
-// What bounds it: the TPU body banks a [q_blk * G, (n_ring + n_fresh) * ps]
-// fp32 score matrix in VMEM (kernel.py:327) -- 128 * 9 * 4368 * 4 bytes =
-// 20 MB at q_blk 128, G 9 and a 258-page ring plus 16 fresh pages, far
-// above the 227 KB of shared memory a Hopper block can hold (NVIDIA's data
-// sheet).  The work is 4 * keys * H * D flops per query row against a few
-// MB of ring and chunk: compute-bound, and this first version runs the dot
-// products on the fp32 CUDA cores, not the tensor cores (PERF.md has its
-// time against its bound).
+// What bounds it: operations.  Each (live row, seen key) pair costs 4 * D
+// flops (QK^T and PV); at the smoke's shape (starcoder2-7b: B 4 chunks of
+// 256, 36 query / 4 KV heads of 128, window 4096, 257-page rings) that is
+// 53.8 GFLOP against about 50 MB of ring K/V, q, fresh K/V and out: 0.0544
+// ms of bf16 tensor-core time (989 TFLOP/s dense, NVIDIA's data sheet)
+// against about 0.015 ms of HBM time (3.35 TB/s), so the products belong on
+// the tensor cores.  The TPU body banks a [q_blk * G, (n_ring + n_fresh) *
+// ps] fp32 score matrix in VMEM (kernel.py:349), 20 MB at that shape, far
+// above the 227 KB of shared memory a Hopper block holds; here the scores
+// are recomputed instead (two sweeps), so the tensor cores do 1.5x the
+// function's products.
 //
-// Design: K2's (csrc/ragged_prefill.cu).  One block per (q-tile, KV head,
-// request), one thread per query row of the tile (a row is a (token, query
-// head) pair of the GQA group, so each staged key page serves all G
-// heads).  The row's query lives in registers as bf16 pairs (exact: q is
-// bf16) and its fp32 accumulator in registers.  Instead of banking the
-// scores the block sweeps the key pages three times -- the ring's pages,
-// then the chunk's fresh pages -- recomputing every fp32 score with the
-// same instruction sequence each time:
-//   pass 1: the row's true max m over every key it sees;
-//   pass 2: l = sum(exp(s - m));
-//   pass 3: p = exp(s - m) / l, rounded to bf16 and back with bf16 pages
-//           (the reference's a.astype(v.dtype)), kept fp32 with int8 pages
-//           (the reference promotes the fresh K/V to fp32 next to the
-//           dequantized ring, attn_backend.py:391-396); acc += p * v in
-//           fp32.
-// The two sources are two tile types staged into one fp32 tile: a ring page
-// through the page table (int8 dequantized to f32(q) * f32(s) as it is
-// staged), or ps rows of the fresh chunk.  The ring's pages are swept in
-// the order of their absolute positions, oldest first, then the fresh
-// pages, so the ring's length does not change the order of any sum (a ring
-// with the speculative pool's slack page equals the plain ring bit for
-// bit).  Before a page is staged the block computes its slots' absolute
-// positions once (threads < ps) and skips the page when no row of the tile
-// sees any of them -- ring pages that aged out of every row's window, fresh
-// pages past the tile's last live row.  This is the single softmax at the
-// row's true max that keeps the kernel exact against the reference -- it
-// must not become an online softmax.  Unseen keys take no part (the
-// reference's -1e30 entries add exp(-1e30 - m) = 0).  One bf16 cast at the
-// output.
+// Design: K2's (ragged_prefill.cu; the machinery is ragged_prefill.cuh).
+// One warpgroup (128 threads) per (64-row query tile, KV head, request); a
+// row is a (token, group head) pair, token-major, so all G heads of a KV
+// head share every K/V tile and a token's G rows may straddle two tiles (G
+// <= 128).  A tile whose first token is at or past n_live writes zeros and
+// exits.  Keys come in 64-slot tiles from two sources, in one key order:
+//   ring tiles, anchored at absolute pages: ring tile r holds absolute pages
+//     [r * ppt, (r + 1) * ppt) (ppt = 64 / ps pages, kt = ppt * ps slots;
+//     slots past kt are zero-filled), page a read from ring slot-page a %
+//     n_ring (the row's tables[b, a % n_ring]).  Only pages a in [a_lo,
+//     a_hi] are staged, a_hi = (start - 1) / ps and a_lo = max(0, a_hi -
+//     n_ring + 1): n_ring consecutive pages, each slot-page once.  A tile's
+//     pages below a_lo are zero-filled (cp.async with source size 0): their
+//     slot-pages hold pages a + n_ring, whose keys would otherwise count
+//     twice.  Each staged slot is masked by the TPU kernel's formula on its
+//     slot index, never by a * ps + j: the last page is partial, and its
+//     slots past last % ps hold keys one ring older, which only the formula
+//     and the window exclude;
+//   fresh tiles, anchored at chunk token 0: fresh tile f holds tokens [64 f,
+//     64 f + 64) of k_new/v_new [B, T, K, D] (rows at or past n_live are
+//     zero-filled).
+// Each tile's 64 key positions (a sentinel for zero-filled slots) are
+// computed once as it is staged; a slot is seen by a row iff its position
+// is in (q_abs - window, q_abs].  Tiles that no live row of the query tile
+// sees are skipped: ring pages older than the window of the tile's first
+// token, fresh tiles past its last live token.  Only tiles that cross an
+// edge -- the window's lower edge (which falls among the fresh keys when
+// the window is shorter than the chunk), the fresh diagonal, n_live, the
+// ring's partial last page, zero-filled slots -- are masked, element by
+// element.  K and V go in shared memory by 16-byte cp.async copies two
+// stages deep, so the next tile's copies overlap this tile's products; bf16
+// rows land in 128-byte-swizzled 64-column halves.  int8 ring rows land
+// raw at the end of their stage's bf16 tile and are widened in place
+// (read, the readers meet, write; exact: |k8| <= 127 fits bf16's 8
+// significant bits), their bf16 scales beside them: unlike K2, which
+// widens into separate tiles, K4's int8 mode needs its stages in bf16 for
+// the fresh tiles too, and widening in place keeps it at the bf16 layout's
+// 82 KB at D = 128, two blocks an SM.  QK^T is `wgmma.m64n64k16` with Q and
+// the K tile from shared memory; PV is `wgmma.m64n64k16` with p from
+// registers and V MN-major.
+//
+// Rounding: one softmax at each row's *true* max, never an online softmax
+// of the output (kernel.py:30-36).  Sweep 1 computes every tile's fp32
+// scores, the row max m and the normalizer l, rescaling only l; a tile
+// fully masked for a row adds exactly 0 to l and leaves m, also before the
+// row's first seen key (masked keys never become the row's max).  Sweep 2
+// recomputes the scores with the same instructions (the same bits), forms
+// p = exp(s - m) / l at the true m and final l, and does PV into fp32.
+//   bf16 ring: scores (q . k) * scale, the scale after the dot; p rounded to
+//     bf16 (the value dtype, kernel.py:313).
+//   int8 ring: the ring score is (q . k8) * ks * scale, where the reference
+//     takes q . (f32(k8) * f32(ks)) * scale (f32(k8) * f32(ks) is exact, so
+//     the two differ only in fp32 rounding); p stays fp32 and goes to the
+//     tensor cores as p' = p * vs split into h1 = bf16(p') and h2 = bf16(p'
+//     - h1), each times the int8-as-bf16 V tile an exact product into the
+//     same fp32 sum (|p' - h1 - h2| <= 2^-17 |p'|, K2's rule).  The fresh
+//     K/V are bf16 and the reference promotes them to fp32 beside the
+//     dequantized ring (ops.py:70-71), so fresh tiles take ks = vs = 1,
+//     which is exact, down the same path.
+// One bf16 cast at the output.
+//
+// Why the ring's length changes no sum: a row's tiles are anchored at
+// absolute pages and fresh tokens, and its sums run over them in key order
+// (each thread's 16 columns in order, then a fixed shuffle tree over the 4
+// threads of the row).  A ring with more pages holding the same window
+// stages the same keys at the same slots of the same tiles, plus older
+// pages that no row sees: masked, they add exactly 0.  So a ring with the
+// speculative pool's slack page equals the plain ring bit for bit, and a
+// row's result depends only on its q, its keys and its position, never on
+// the rest of its batch.
 //
 // Numerics: IEEE expf and division (build without --use_fast_math).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "ragged_prefill.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // query rows per block
-constexpr int kMaxPs = 32;      // tokens per page
+constexpr int kNoKey = -2147483647 - 1;   // a zero-filled slot: seen by none
 
-// Stage one key page for KV head kh as fp32 rows of ``dst``: ring page
-// ``kp`` (< n_ring) through the row's table, bf16 or int8 dequantized with
-// the token's scale; or fresh page kp - n_ring, rows [f0, f0 + ps) of the
-// chunk's K or V (rows at or past n_live are not read and stage zeros).
+// Shared-memory layout of one instantiation, in bytes from a 1024-aligned
+// base: Q, two stages of K and of V (bf16, swizzled; an int8 ring tile
+// lands raw in the last 64 * D bytes of its stage's tile), two stages of
+// the tiles' key positions; int8 adds two stages of scale words (the
+// aligned 32-bit word holding a token's bf16 scale) and which half of the
+// word it is, and the tile's K and V scales as fp32.
 template <int D, bool kInt8>
-__device__ __forceinline__ void stage_page(
-    float (*dst)[D], const void* __restrict__ pages,
-    const __nv_bfloat16* __restrict__ scales,
-    const __nv_bfloat16* __restrict__ fresh, const int32_t* __restrict__ tb,
-    int b, int kp, int n_ring, int kh, int ps, int K, int T, int nl) {
-  if (kp < n_ring) {
-    const int page = tb[kp];
-    const size_t base = ((size_t)page * ps * K + kh) * D;
-    for (int e = threadIdx.x; e < ps * D; e += blockDim.x) {
-      const int t = e / D, d = e % D;
-      const size_t at = base + (size_t)t * K * D + d;
-      if constexpr (kInt8) {
-        const float s =
-            __bfloat162float(scales[((size_t)page * ps + t) * K + kh]);
-        dst[t][d] = __fmul_rn((float)static_cast<const int8_t*>(pages)[at], s);
-      } else {
-        dst[t][d] =
-            __bfloat162float(static_cast<const __nv_bfloat16*>(pages)[at]);
-      }
-    }
-  } else {
-    const int f0 = (kp - n_ring) * ps;
-    for (int e = threadIdx.x; e < ps * D; e += blockDim.x) {
-      const int t = e / D, d = e % D;
-      const int f = f0 + t;
-      dst[t][d] = f < nl ? __bfloat162float(
-                               fresh[(((size_t)b * T + f) * K + kh) * D + d])
-                         : 0.f;
-    }
+struct WLayout {
+  static constexpr int kHalves = (D + 63) / 64;
+  static constexpr int kTile = kHalves * kHalf;        // a [64][D] bf16 tile
+  static constexpr int kRaw = kTile - kSlots * D;      // raw int8 in a tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;                     // + stage * kTile
+  static constexpr int kV = 3 * kTile;                 // + stage * kTile
+  static constexpr int kPos = 5 * kTile;               // [2][64] int32
+  static constexpr int kWords = kPos + 2 * kSlots * 4;      // [2][2][64] u32
+  static constexpr int kSel = kWords + 2 * 2 * kSlots * 4;  // [2][2][64] u8
+  static constexpr int kScaleF = kSel + 2 * 2 * kSlots;     // [2][64] f32
+  static constexpr int kBytes = kInt8 ? kScaleF + 2 * kSlots * 4 : kWords;
+};
+
+// The ring's geometry for one request: absolute pages a_lo..a_hi are staged
+// (none at start 0), page a at slot-page lo_sp + (a - a_lo), wrapped.
+struct Ring {
+  int last, n_ring, ring, last_slot, a_lo, a_hi, lo_sp;
+  __device__ __forceinline__ Ring(int st, int ps, int n) {
+    last = st - 1;
+    n_ring = n;
+    ring = n * ps;
+    last_slot = last >= 0 ? last % ring : 0;
+    a_hi = last >= 0 ? last / ps : -1;
+    a_lo = max(0, a_hi - n + 1);
+    lo_sp = a_lo % n;
+  }
+  __device__ __forceinline__ bool staged(int a) const {
+    return a >= a_lo && a <= a_hi;
+  }
+  __device__ __forceinline__ int slot_page(int a) const {  // a staged
+    const int sp = lo_sp + (a - a_lo);
+    return sp >= n_ring ? sp - n_ring : sp;
+  }
+  // the TPU kernel's position of slot j of staged page a, kNoKey if < 0
+  __device__ __forceinline__ int position(int a, int j, int ps) const {
+    int back = last_slot - (slot_page(a) * ps + j);
+    if (back < 0) back += ring;
+    const int k_abs = last - back;
+    return k_abs >= 0 ? k_abs : kNoKey;
+  }
+};
+
+// Copy ring tile ``r`` of one pool into a stage: staged pages through the
+// row's table, every other slot zero-filled; bf16 rows swizzled, int8 rows
+// raw [64][D] at the tile's end.
+template <int D, bool kInt8>
+__device__ __forceinline__ void issue_ring(uint32_t dst,
+                                           const void* __restrict__ pages,
+                                           const int32_t* __restrict__ tb,
+                                           const KvSlots<D, kInt8>& sl,
+                                           const Ring& rg, int r, int ppt,
+                                           int ps, int K, int kh) {
+  constexpr int kE = kInt8 ? 1 : 2, kC = D * kE / 16;
+  const char* base = static_cast<const char*>(pages);
+#pragma unroll
+  for (int it = 0; it < KvSlots<D, kInt8>::kIt; ++it) {
+    const int e = threadIdx.x + it * kThreads, row = e / kC, c = e % kC;
+    const int a = r * ppt + sl.page[it];
+    const bool ok = sl.page[it] >= 0 && rg.staged(a);
+    const char* src =
+        base + (((size_t)(ok ? __ldg(tb + rg.slot_page(a)) : 0) * ps
+                 + sl.tok[it]) * K + kh) * D * kE + c * 16;
+    cp_async16(dst + (kInt8 ? WLayout<D, true>::kRaw + row * D + c * 16
+                            : swz(row, c)),
+               src, ok ? 16 : 0);
   }
 }
 
-// fp32 dot product of a bf16 query row (as pairs) with an fp32 key row, in
-// ascending d, scaled after the dot as the reference does.
+// Copy fresh tile rows [f0, f0 + 64) of k_new or v_new (zeros at or past
+// n_live) into a stage, swizzled.
 template <int D>
-__device__ __forceinline__ float score(const __nv_bfloat162 (&qr)[D / 2],
-                                       const float* __restrict__ k_row,
-                                       float scale) {
-  float s = 0.f;
+__device__ __forceinline__ void issue_fresh(uint32_t dst,
+                                            const __nv_bfloat16* __restrict__ fresh,
+                                            int b, int f0, int nl, int T,
+                                            int K, int kh) {
+  constexpr int kC = D / 8;
 #pragma unroll
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 k = reinterpret_cast<const float4*>(k_row)[d4];
-    const float2 q01 = __bfloat1622float2(qr[2 * d4]);
-    const float2 q23 = __bfloat1622float2(qr[2 * d4 + 1]);
-    s = fmaf(q01.x, k.x, s);
-    s = fmaf(q01.y, k.y, s);
-    s = fmaf(q23.x, k.z, s);
-    s = fmaf(q23.y, k.w, s);
+  for (int it = 0; it < kSlots * kC / kThreads; ++it) {
+    const int e = threadIdx.x + it * kThreads, r = e / kC, c = e % kC;
+    const int f = f0 + r;
+    const bool ok = f < nl;
+    const __nv_bfloat16* src =
+        fresh + (((size_t)b * T + (ok ? f : 0)) * K + kh) * D + c * 8;
+    cp_async16(dst + swz(r, c), src, ok ? 16 : 0);
   }
-  return s * scale;
+}
+
+// Copy the aligned 32-bit word that holds the bf16 scale of slot ``slot``
+// of ring tile ``r`` into ``word`` and note which half of the word it is
+// (cp.async copies 4 bytes at least; the word's other half lies inside the
+// allocation, which PyTorch rounds up to 512 bytes).  Zero-filled slots
+// get scale 0.
+__device__ __forceinline__ void issue_ring_scale(
+    uint32_t word, uint8_t* sel, const __nv_bfloat16* __restrict__ scales,
+    const int32_t* __restrict__ tb, const Ring& rg, int r, int slot,
+    int ppt, int kt, int ps, int K, int kh) {
+  const int a = r * ppt + slot / ps;
+  const bool ok = slot < kt && rg.staged(a);
+  const size_t at = ((size_t)(ok ? __ldg(tb + rg.slot_page(a)) : 0) * ps
+                     + slot % ps) * K + kh;
+  cp_async4(word, reinterpret_cast<const uint32_t*>(scales) + at / 2,
+            ok ? 4 : 0);
+  *sel = static_cast<uint8_t>(at & 1);
+}
+
+// Widen the raw int8 rows at the end of a stage's K tile (and V tile, if
+// given) into the swizzled bf16 tile they sit in: every thread reads its
+// chunks, the readers of every raw row meet, then every thread writes.  At
+// D = 128 raw row r is exactly the bytes of the second half's row r, which
+// only the 8 threads that read raw row r write (one warp), so the warp
+// meets; at D = 32 and 64 raw rows fall in other warps' rows: the block.
+template <int D>
+__device__ __forceinline__ void widen_in_place(uint8_t* k, uint8_t* v) {
+  constexpr int kC = D / 16, kIt = kSlots * kC / kThreads;
+  constexpr int kRaw = WLayout<D, true>::kRaw;
+  int4 xk[kIt], xv[kIt];
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    const int e = threadIdx.x + it * kThreads, r = e / kC, c = e % kC;
+    xk[it] = *reinterpret_cast<const int4*>(k + kRaw + r * D + c * 16);
+    if (v) xv[it] = *reinterpret_cast<const int4*>(v + kRaw + r * D + c * 16);
+  }
+  if constexpr (kRaw == kHalf && kC == 8)
+    __syncwarp();
+  else
+    __syncthreads();
+  auto store = [&](uint8_t* tile, int r, int c, const int4& x) {
+    const int8_t* s = reinterpret_cast<const int8_t*>(&x);
+    uint32_t w[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      w[j] = pack_bf16(static_cast<float>(s[2 * j]),
+                       static_cast<float>(s[2 * j + 1]));
+    *reinterpret_cast<uint4*>(tile + swz(r, 2 * c)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<uint4*>(tile + swz(r, 2 * c + 1)) =
+        make_uint4(w[4], w[5], w[6], w[7]);
+  };
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    const int e = threadIdx.x + it * kThreads, r = e / kC, c = e % kC;
+    store(k, r, c, xk[it]);
+    if (v) store(v, r, c, xv[it]);
+  }
 }
 
 template <int D, bool kInt8>
@@ -141,140 +278,220 @@ windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D
                         const int32_t* __restrict__ n_live,       // [B]
                         __nv_bfloat16* __restrict__ out,          // [B, T, H, D]
                         int T, int H, int K, int ps, int n_ring, int window,
-                        int qt, float scale) {
-  __shared__ __align__(16) float k_s[kMaxPs][D];
-  __shared__ __align__(16) float v_s[kMaxPs][D];
-  __shared__ int kabs_s[kMaxPs];      // the staged page's slot positions
-  const int tile = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+                        float scale) {
+  using L = WLayout<D, kInt8>;
+  constexpr int kH = L::kHalves;
+  // a request's later query tiles are the longer ones: start them first
+  const int tile = gridDim.x - 1 - blockIdx.x, kh = blockIdx.y,
+            b = blockIdx.z;
   const int G = H / K;
-  const int tt = threadIdx.x / G, g = threadIdx.x % G;
-  const int t0 = tile * qt;
-  const int t = t0 + tt;
-  const bool active = tt < qt && t < T;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int st = start[b];
   const int nl = min(n_live[b], T);
-  const size_t q_off =
-      (((size_t)b * T + (active ? t : 0)) * H + kh * G + g) * D;
-  __nv_bfloat16* o = out + q_off;
-  if (t0 >= nl) {                        // the whole tile is chunk padding
-    if (active)
-      for (int d = 0; d < D; ++d) o[d] = __float2bfloat16(0.f);
+  const int t_first = tile * kRows / G;
+  if (t_first >= nl) {                 // the whole tile is chunk padding
+    constexpr int kC = D / 8;
+    for (int e = tid; e < kRows * kC; e += kThreads) {
+      const int row = tile * kRows + e / kC;
+      if (row >= T * G) continue;
+      *reinterpret_cast<uint4*>(
+          out + (((size_t)b * T + row / G) * H + kh * G + row % G) * D
+          + (e % kC) * 8) = make_uint4(0, 0, 0, 0);
+    }
     return;
   }
-  const bool live = active && t < nl;
-  const int q_abs = st + t;
-  const int q_lo = st + t0;                            // tile's first row
-  const int q_hi = st + min(min(t0 + qt, T), nl) - 1;  // last live row
-  const int ring = n_ring * ps;
-  const int last = st - 1;
-  // Key pages in the order of their absolute positions, oldest first: the
-  // ring's absolute pages a_lo..a_hi (page a at ring slot a % n_ring; none
-  // at start == 0), then the fresh pages.  Iterating by absolute page, not
-  // by ring slot, makes the sums independent of the ring's length: a ring
-  // of n_ring + 1 pages holding the same window adds only its oldest page,
-  // which no row sees.
-  const int a_hi = last >= 0 ? last / ps : -1;
-  const int a_lo = max(0, a_hi - n_ring + 1);
-  const int n_ring_kp = a_hi - a_lo + 1;               // 0 at start == 0
-  const int n_kp = n_ring_kp + (nl + ps - 1) / ps;     // ring + fresh pages
-  auto kp_of = [&](int it) {                           // sweep step -> page
-    return it < n_ring_kp ? (a_lo + it) % n_ring : n_ring + it - n_ring_kp;
-  };
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_addr(sm);
+
+  const int row_last = min(tile * kRows + kRows, T * G) - 1;
+  const int t_last = min(row_last / G, nl - 1);       // last live token
+  const int q_first = st + t_first, q_last = st + t_last;
+  const int lo_key = q_first - window + 1;   // oldest key a live row sees
+  const int ppt = kSlots / ps, kt = ppt * ps;
+  const Ring rg(st, ps, n_ring);
+  // ring tiles r0 .. r0 + n_r - 1 (pages older than lo_key skipped), then
+  // fresh tiles f0 .. t_last / 64 (tokens past the last live one skipped)
+  const int p_lo = max(rg.a_lo, max(lo_key, 0) / ps);
+  const int r0 = p_lo / ppt;
+  const int n_r = p_lo <= rg.a_hi ? rg.a_hi / ppt - r0 + 1 : 0;
+  const int f0 = max(lo_key - st, 0) / kSlots;
+  const int n = n_r + t_last / kSlots - f0 + 1;
   const int32_t* tb = tables + (size_t)b * n_ring;
 
-  __nv_bfloat162 qr[D / 2];
-  {
-    const auto* src = reinterpret_cast<const __nv_bfloat162*>(q + q_off);
+  // this thread's two accumulator rows: their positions and window edges
+  int q_abs[2], q_lo[2];
 #pragma unroll
-    for (int d = 0; d < D / 2; ++d)
-      qr[d] = live ? src[d] : __floats2bfloat162_rn(0.f, 0.f);
+  for (int e = 0; e < 2; ++e) {
+    q_abs[e] = st + (tile * kRows + 16 * warp + (lane >> 2) + 8 * e) / G;
+    q_lo[e] = q_abs[e] - window;
   }
 
-  // Slot positions of key page kp, then whether any row of the tile sees
-  // one (uniform across the block: every thread reads the same kabs_s).
-  auto positions = [&](int it) -> bool {
-    const int kp = kp_of(it);
-    __syncthreads();                     // earlier readers of the tiles
-    for (int j = threadIdx.x; j < ps; j += blockDim.x) {
-      int ka = -1;
-      if (kp < n_ring) {
-        if (last >= 0) {
-          int back = (last % ring - (kp * ps + j)) % ring;
-          if (back < 0) back += ring;
-          ka = last - back;
+  // zeros everywhere first: D = 32's unused columns are never copied, and
+  // must not hold NaN bits for PV
+  for (int e = tid; e < L::kBytes / 16; e += kThreads)
+    reinterpret_cast<uint4*>(sm)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  // steps 0 .. n-1 are sweep 1 (K only), n .. 2n-1 sweep 2 (K and V)
+  const KvSlots<D, kInt8> slots(ps, kt);
+  int* kpos = reinterpret_cast<int*>(sm + L::kPos);
+  auto issue = [&](int step) {
+    const int i = step < n ? step : step - n, stage = step & 1;
+    const bool with_v = step >= n;
+    const uint32_t k_dst = base + L::kK + stage * L::kTile;
+    const uint32_t v_dst = base + L::kV + stage * L::kTile;
+    if (i < n_r) {
+      const int r = r0 + i;
+      if (tid < kSlots) {
+        const int a = r * ppt + tid / ps;
+        kpos[stage * kSlots + tid] =
+            tid < kt && rg.staged(a) ? rg.position(a, tid % ps, ps) : kNoKey;
+      }
+      issue_ring<D, kInt8>(k_dst, k_pages, tb, slots, rg, r, ppt, ps, K, kh);
+      if (with_v)
+        issue_ring<D, kInt8>(v_dst, v_pages, tb, slots, rg, r, ppt, ps, K,
+                             kh);
+      if constexpr (kInt8) {
+        uint32_t* words =
+            reinterpret_cast<uint32_t*>(sm + L::kWords) + stage * 128;
+        uint8_t* sel = sm + L::kSel + stage * 128;
+        if (tid < 64 || with_v)
+          issue_ring_scale(smem_addr(words + tid), sel + tid,
+                           tid < 64 ? k_scale : v_scale, tb, rg, r, tid & 63,
+                           ppt, kt, ps, K, kh);
+      }
+    } else {
+      const int f = (f0 + i - n_r) * kSlots;
+      if (tid < kSlots)
+        kpos[stage * kSlots + tid] = f + tid < nl ? st + f + tid : kNoKey;
+      issue_fresh<D>(k_dst, k_new, b, f, nl, T, K, kh);
+      if (with_v) issue_fresh<D>(v_dst, v_new, b, f, nl, T, K, kh);
+    }
+  };
+
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  float o[kH][32];
+#pragma unroll
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[h][j] = 0.f;
+  float s[32];
+
+  issue_q<D>(base + L::kQ, q, b, tile, T, H, G, kh);
+  issue(0);
+  cp_async_commit();
+  for (int step = 0; step < 2 * n; ++step) {
+    const int i = step < n ? step : step - n, stage = step & 1;
+    const bool sweep2 = step >= n, ring = i < n_r;
+    if (step + 1 < 2 * n) issue(step + 1);
+    cp_async_commit();
+    cp_async_wait1();
+    fence_async_smem();
+    __syncthreads();
+
+    const uint32_t k_tile = base + L::kK + stage * L::kTile;
+    const uint32_t v_tile = base + L::kV + stage * L::kTile;
+    const float* ks = nullptr;
+    const float* vs = nullptr;
+    if constexpr (kInt8) {
+      float* scale_f = reinterpret_cast<float*>(sm + L::kScaleF);
+      if (ring) {
+        const uint32_t* words =
+            reinterpret_cast<const uint32_t*>(sm + L::kWords) + stage * 128;
+        const uint8_t* sel = sm + L::kSel + stage * 128;
+        if (tid < 64 || sweep2) {
+          const uint32_t word = words[tid];
+          const uint16_t half = sel[tid] ? static_cast<uint16_t>(word >> 16)
+                                         : static_cast<uint16_t>(word & 0xFFFF);
+          scale_f[tid] = __bfloat162float(__ushort_as_bfloat16(half));
         }
+        widen_in_place<D>(sm + L::kK + stage * L::kTile,
+                          sweep2 ? sm + L::kV + stage * L::kTile : nullptr);
       } else {
-        const int f = (kp - n_ring) * ps + j;
-        if (f < nl) ka = st + f;
+        scale_f[tid] = 1.f;          // fresh keys: ks = vs = 1, exact
       }
-      kabs_s[j] = ka;
+      fence_async_smem();
+      __syncthreads();
+      ks = scale_f;
+      vs = scale_f + 64;
     }
-    __syncthreads();
-    bool needed = false;
-    for (int j = 0; j < ps; ++j) {
-      const int ka = kabs_s[j];
-      needed |= ka >= 0 && ka <= q_hi && ka > q_lo - window;
-    }
-    return needed;
-  };
-  auto sees = [&](int j) {
-    const int ka = kabs_s[j];
-    return ka >= 0 && ka <= q_abs && ka > q_abs - window;
-  };
 
-  // pass 1: the row's max over every key it sees
-  float m = -INFINITY;
-  for (int it = 0; it < n_kp; ++it) {
-    if (!positions(it)) continue;
-    const int kp = kp_of(it);
-    stage_page<D, kInt8>(k_s, k_pages, k_scale, k_new, tb, b, kp, n_ring, kh,
-                         ps, K, T, nl);
-    __syncthreads();
-    for (int j = 0; j < ps; ++j)
-      if (sees(j)) m = fmaxf(m, score<D>(qr, k_s[j], scale));
-  }
-  // pass 2: the normalizer at the true max
-  float l = 0.f;
-  for (int it = 0; it < n_kp; ++it) {
-    if (!positions(it)) continue;
-    const int kp = kp_of(it);
-    stage_page<D, kInt8>(k_s, k_pages, k_scale, k_new, tb, b, kp, n_ring, kh,
-                         ps, K, T, nl);
-    __syncthreads();
-    for (int j = 0; j < ps; ++j)
-      if (sees(j)) l += expf(score<D>(qr, k_s[j], scale) - m);
-  }
-  // pass 3: probabilities (bf16-rounded with bf16 pages) times V, in fp32
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int it = 0; it < n_kp; ++it) {
-    if (!positions(it)) continue;
-    const int kp = kp_of(it);
-    stage_page<D, kInt8>(k_s, k_pages, k_scale, k_new, tb, b, kp, n_ring, kh,
-                         ps, K, T, nl);
-    stage_page<D, kInt8>(v_s, v_pages, v_scale, v_new, tb, b, kp, n_ring, kh,
-                         ps, K, T, nl);
-    __syncthreads();
-    for (int j = 0; j < ps; ++j) {
-      if (!sees(j)) continue;
-      float p = expf(score<D>(qr, k_s[j], scale) - m) / l;
-      if (!kInt8) p = __bfloat162float(__float2bfloat16(p));
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 v = reinterpret_cast<const float4*>(v_s[j])[d4];
-        acc[4 * d4] = fmaf(p, v.x, acc[4 * d4]);
-        acc[4 * d4 + 1] = fmaf(p, v.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, v.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, v.w, acc[4 * d4 + 3]);
-      }
+    qk<D>(s, base + L::kQ, k_tile);
+    // fp32 scores: the scale after the dot (int8: the key's scale first),
+    // then the mask where the tile crosses an edge for some live row
+    bool masked;
+    if (ring) {
+      const int a0 = (r0 + i) * ppt;        // the tile's first page
+      masked = kt < kSlots || a0 < rg.a_lo || a0 + ppt > rg.a_hi
+               || a0 * ps <= q_last - window;
+    } else {
+      const int f = (f0 + i - n_r) * kSlots;
+      masked = f + kSlots - 1 > t_first || f + kSlots > nl
+               || st + f <= q_last - window;
     }
-  }
-  if (active) {
+    const int* kp = kpos + stage * kSlots;
 #pragma unroll
-    for (int d = 0; d < D; ++d)
-      o[d] = __float2bfloat16(live ? acc[d] : 0.f);
+    for (int j = 0; j < 32; ++j) {
+      const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+      float x = s[j];
+      if constexpr (kInt8) x = x * ks[col];
+      x = x * scale;
+      if (masked) {
+        const int e = (j >> 1) & 1, pos = kp[col];
+        if (!(pos <= q_abs[e] && pos > q_lo[e])) x = kMaskValue;
+      }
+      s[j] = x;
+    }
+
+    if (!sweep2) {
+      // sweep 1: the row max, and l rescaled to it
+      row_max_sum<true>(s, m, l);
+    } else {
+      // sweep 2: p at the true max, then PV on the tensor cores
+      uint32_t a[4][4];
+      uint32_t a2[4][4];
+      probs<kInt8>(s, m, l, vs, lane, a, a2);
+      pv<D>(o, a, v_tile);
+      if constexpr (kInt8) pv<D>(o, a2, v_tile);
+    }
+    __syncthreads();     // the stage is refilled by the next step's copies
   }
+
+  // one bf16 cast; rows past n_live are zeros, rows past T not written
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = tile * kRows + 16 * warp + (lane >> 2) + 8 * e;
+    const int t = row / G;
+    if (t >= T) continue;
+    const bool live = t < nl;
+    __nv_bfloat16* dst =
+        out + (((size_t)b * T + t) * H + kh * G + row % G) * D;
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int d = 64 * h + 8 * c + 2 * (lane & 3);
+        if (d < D)
+          *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(
+              live ? o[h][4 * c + 2 * e] : 0.f,
+              live ? o[h][4 * c + 2 * e + 1] : 0.f);
+      }
+  }
+}
+
+template <int D, bool kInt8>
+int launch(const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
+           const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
+           const void* k_pages, const void* v_pages,
+           const __nv_bfloat16* k_scale, const __nv_bfloat16* v_scale,
+           const int32_t* tables, const int32_t* start,
+           const int32_t* n_live, __nv_bfloat16* out, int T, int H, int K,
+           int ps, int n_ring, int window, float scale) {
+  return launch_kernel<windowed_prefill_kernel<D, kInt8>>(
+      grid, WLayout<D, kInt8>::kBytes + 1024, st, q, k_new, v_new, k_pages,
+      v_pages, k_scale, v_scale, tables, start, n_live, out, T, H, K, ps,
+      n_ring, window, scale);
 }
 
 }  // namespace
@@ -291,13 +508,12 @@ extern "C" int windowed_ragged_prefill(
     const void* tables, const void* start, const void* n_live, void* out,
     int B, int T, int H, int K, int D, int ps, int n_ring, int window,
     float scale, void* stream) {
-  if (B < 1 || T < 1 || K < 1 || H % K != 0 || H / K > kThreads || ps < 1 ||
+  if (B < 1 || T < 1 || K < 1 || H % K != 0 || H / K > kMaxG || ps < 1 ||
       ps > kMaxPs || n_ring < 1 || window < 1 ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int G = H / K;
-  const int qt = kThreads / G;                   // query tokens per block
-  const dim3 grid((T + qt - 1) / qt, K, B);
+  const dim3 grid((T * G + kRows - 1) / kRows, K, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* knp = static_cast<const __nv_bfloat16*>(k_new);
@@ -308,18 +524,17 @@ extern "C" int windowed_ragged_prefill(
   const auto* sp = static_cast<const int32_t*>(start);
   const auto* np = static_cast<const int32_t*>(n_live);
   auto* op = static_cast<__nv_bfloat16*>(out);
-#define WINDOWED_LAUNCH(DIM, INT8)                                            \
-  windowed_prefill_kernel<DIM, INT8><<<grid, kThreads, 0, st>>>(              \
-      qp, knp, vnp, k_pages, v_pages, ksp, vsp, tp, sp, np, op, T, H, K, ps,  \
-      n_ring, window, qt, scale)
+#define WINDOWED_LAUNCH(DIM, INT8)                                          \
+  return launch<DIM, INT8>(grid, st, qp, knp, vnp, k_pages, v_pages, ksp,   \
+                           vsp, tp, sp, np, op, T, H, K, ps, n_ring, window, \
+                           scale)
   const bool int8 = k_scale != nullptr;
   if (D == 32 && !int8) WINDOWED_LAUNCH(32, false);
-  else if (D == 32) WINDOWED_LAUNCH(32, true);
-  else if (D == 64 && !int8) WINDOWED_LAUNCH(64, false);
-  else if (D == 64) WINDOWED_LAUNCH(64, true);
-  else if (D == 128 && !int8) WINDOWED_LAUNCH(128, false);
-  else if (D == 128) WINDOWED_LAUNCH(128, true);
-  else return (int)cudaErrorInvalidValue;
+  if (D == 32) WINDOWED_LAUNCH(32, true);
+  if (D == 64 && !int8) WINDOWED_LAUNCH(64, false);
+  if (D == 64) WINDOWED_LAUNCH(64, true);
+  if (D == 128 && !int8) WINDOWED_LAUNCH(128, false);
+  if (D == 128) WINDOWED_LAUNCH(128, true);
 #undef WINDOWED_LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,11 @@
-"""Time K2 (the ragged paged prefill) and dense serving of one tree on the
-card, to compare two trees in one call.
+"""Time K2 (the ragged paged prefill), K4 (the sliding-window chunk
+prefill) and the serving runs they carry, for one tree on the card, to
+compare two trees in one call.
 
     PYTHONPATH=src python3 src/repro_torch/launch/prefill_cost.py --part kernels
     PYTHONPATH=<other tree>/src python3 src/repro_torch/launch/prefill_cost.py --part serve
+    PYTHONPATH=src python3 src/repro_torch/launch/prefill_cost.py --part window-kernels
+    PYTHONPATH=src python3 src/repro_torch/launch/prefill_cost.py --part window-serve
 
 It imports ``repro_torch`` by absolute name before anything else, so it
 measures whichever tree is first on the path (its kernels built from that
@@ -25,6 +28,22 @@ same requests by another fresh engine under ``torch.profiler``, tracing
 the device alone: the device's busy share of the wall time and K2's share
 of the device time.
 
+``--part window-kernels``: ``chip_smoke.phase_windowed_prefill`` for K4
+and K4-int8 at starcoder2-7b's shape (B 4 chunks of 256 at starts 0,
+3840, 4352 and 5888, 36 / 4 heads of 128, 257-page rings): kernel, plain
+and SDPA times, the bound, the worst error in row ulps and the
+request-alone equality; the same for one chunk alone (B 1, start 5888,
+256 live tokens); and the ``ptxas`` lines of the tree's
+``windowed_ragged_prefill`` library.
+
+``--part window-serve``: starcoder2-7b cut to 16 of 32 layers, bf16 and
+int8 ring pages, each served on the ``hopper`` backend with
+``chip_smoke.phase_window_serve``'s workload (4 requests of 1024..6144
+prompt tokens, 256-token chunks, 32 new tokens) by a fresh engine:
+tok/s, TTFT p50 and p95, prefill steps and K4 launches; then by another
+fresh engine under ``torch.profiler``: the device's busy share and K4's
+share of the device time.
+
 The last line is one JSON object with the numbers.
 """
 from __future__ import annotations
@@ -41,6 +60,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[3]      # the checkout holding chip_smoke.py
 K2_KERNEL = "ragged_prefill_kernel"
+K4_KERNEL = "windowed_prefill_kernel"
+WINDOW_LAYERS = 16                 # chip_smoke's depth cut of starcoder2-7b
 
 
 def kernels(smoke) -> dict:
@@ -59,18 +80,36 @@ def kernels(smoke) -> dict:
     return out
 
 
-def device_profile(smoke, fn) -> dict:
+def window_kernels(smoke) -> dict:
+    from repro_torch.kernels import build_all
+    _, libs = build_all()
+    smoke.print_ptxas("windowed_ragged_prefill",
+                      libs["windowed_ragged_prefill"].with_suffix(".log"))
+    rng = np.random.RandomState(0)
+    timer = smoke.Timer(torch)
+    out = {}
+    for int8 in (False, True):
+        out["K4" + ("-int8" if int8 else "")] = smoke.phase_windowed_prefill(
+            torch, rng, timer, int8=int8)
+    out["K4-one-chunk"] = smoke.phase_windowed_prefill(
+        torch, rng, timer, chunks=((5888, 256),), label="K4-one-chunk")
+    return out
+
+
+def device_profile(smoke, fn, kid="k2", kernel=K2_KERNEL) -> dict:
     """Run ``fn`` under ``chip_smoke.profile_device`` tracing the device
-    alone: the kernels' summed device time over the wall time, and K2's
-    share of that device time; None where it was not measured."""
+    alone: the kernels' summed device time over the wall time, and the
+    share of that device time of the kernels named ``kernel`` (K2's by
+    default; keys start with ``kid``); None where it was not measured."""
     prof = smoke.profile_device(torch, fn, device_only=True)
     if prof is None:
-        return {"busy_share": None, "k2_share_of_device": None}
+        return {"busy_share": None, f"{kid}_share_of_device": None}
     wall_us, rows, _ = prof
     busy = sum(t for _, t, _ in rows)
-    k2 = sum(t for key, t, _ in rows if K2_KERNEL in key)
-    return {"busy_share": busy / wall_us, "k2_share_of_device": k2 / busy,
-            "k2_device_ms": k2 / 1e3, "device_busy_ms": busy / 1e3,
+    mine = sum(t for key, t, _ in rows if kernel in key)
+    return {"busy_share": busy / wall_us,
+            f"{kid}_share_of_device": mine / busy,
+            f"{kid}_device_ms": mine / 1e3, "device_busy_ms": busy / 1e3,
             "profiled_wall_ms": wall_us / 1e3}
 
 
@@ -124,9 +163,55 @@ def serve(smoke) -> dict:
     return out
 
 
+def window_serve(smoke) -> dict:
+    import dataclasses
+    from repro_torch.configs import ServeConfig, get_arch
+    from repro_torch.kernels.ragged_prefill import windowed_prefill
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import Engine
+    cfg = dataclasses.replace(get_arch("starcoder2-7b"),
+                              n_layers=WINDOW_LAYERS)
+    rng = np.random.RandomState(1)       # phase_window_serve's at seed 0
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist()
+               for n in smoke.SC_PROMPTS]
+    out = {}
+    with torch.no_grad():
+        params = init_params(cfg, 0, "cuda")
+        for kv_dtype in ("bf16", "int8"):
+            scfg = ServeConfig(attn_backend="hopper", kv_dtype=kv_dtype,
+                               **smoke.window_serve_kwargs())
+            windowed_prefill.launches = 0
+            eng = Engine(cfg, scfg, params, seed=0, device="cuda")
+            _, m = eng.run_offline(prompts, smoke.GEN_TOKENS)
+            torch.cuda.synchronize()
+            row = {"tokens_per_s": m["tokens_per_s"],
+                   "ttft_p50_ms": m["ttft_p50_s"] * 1e3,
+                   "ttft_p95_ms": m["ttft_p95_s"] * 1e3,
+                   "prefill_steps": m["prefill_steps"],
+                   "k4_launches": windowed_prefill.launches}
+            del eng
+            eng = Engine(cfg, scfg, params, seed=0, device="cuda")
+            row.update(device_profile(smoke, lambda: eng.run_offline(
+                prompts, smoke.GEN_TOKENS), "k4", K4_KERNEL))
+            del eng
+            print(f"[prefill_cost] {cfg.name} ({WINDOW_LAYERS} layers) "
+                  f"{kv_dtype}: {row['tokens_per_s']:.1f} tok/s, TTFT p50 "
+                  f"{row['ttft_p50_ms']:.1f} ms (p95 "
+                  f"{row['ttft_p95_ms']:.1f}), {row['prefill_steps']} "
+                  f"prefill steps, K4 {row['k4_launches']}; profiled run: "
+                  f"busy {row['busy_share']}, K4 "
+                  f"{row['k4_share_of_device']} of device time", flush=True)
+            out[f"{cfg.name} {kv_dtype}"] = row
+    return out
+
+
+PARTS = {"kernels": kernels, "serve": serve, "window-kernels": window_kernels,
+         "window-serve": window_serve}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--part", choices=("kernels", "serve"), required=True)
+    ap.add_argument("--part", choices=tuple(PARTS), required=True)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("prefill_cost: needs an NVIDIA card")
@@ -140,7 +225,7 @@ def main(argv=None) -> dict:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    numbers = kernels(smoke) if args.part == "kernels" else serve(smoke)
+    numbers = PARTS[args.part](smoke)
     res = {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
            "part": args.part, "device": smi,
            "seconds": time.perf_counter() - t0, args.part: numbers}

@@ -15,8 +15,8 @@ round to its other bf16 neighbour, moving the row by up to an ulp of its
 larger terms, so an element that cancels to near 0 is not held to its own
 ulp.  K3 (verify) with one live query per row equals K1 (decode) bit for
 bit, bf16 and int8, in ring mode too; K1, K3 and K4 on one window of K/V
-in a ring of n pages and in one of n + 1 give equal bits; K1's and K3's
-rows of one request alone equal its rows in the batch.  K5 (MLA decode),
+in a ring of n pages and in one of n + 1 give equal bits; K1's, K3's and
+K4's rows of one request alone equal its rows in the batch.  K5 (MLA decode),
 K6 (MLA prefill) and K7 (MLA verify), bf16 and int8, are held to their
 plain versions by the same one-ulp rule; K7 with one live query equals K5
 bit for bit.  K9 (the training forward's causal flash attention) is held
@@ -385,15 +385,52 @@ def test_ring_kernels_match_plain(cuda, G, D, slack, int8):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,D", [(9, 128), (2, 32)])
+@pytest.mark.parametrize("G,D", [(9, 128), (2, 32), (12, 128)])
 @pytest.mark.parametrize("int8", [False, True])
 def test_windowed_prefill_kernel_matches_plain(cuda, G, D, int8):
     """K4 against its plain version: chunks at start 0 (empty ring), inside
-    the first window, past a ring wrap, and one with padding rows."""
+    the first window, past a ring wrap on a page edge (208) and mid-page
+    (333), neither a multiple of 64, and one with padding rows; G = 9 and
+    G = 12 (command-r) straddle 64-row tiles; then the last request alone,
+    a B = 1 call."""
     rng = np.random.RandomState(G * D + int8)
     ps, K, window, T = 16, 4, 64, 48
     n_ring = 6
-    k, v, t = _ring_inputs(rng, 4, n_ring, ps, K, D, cuda)
+    k, v, t = _ring_inputs(rng, 5, n_ring, ps, K, D, cuda)
+    kw = dict(scale=D ** -0.5, window=window)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)) \
+            .bfloat16().to(cuda)
+    q, kn, vn = rand(5, T, K * G, D), rand(5, T, K, D), rand(5, T, K, D)
+    st = torch.tensor([0, 32, 208, 400, 333], dtype=torch.int32,
+                      device=cuda)
+    nl = torch.tensor([T, T, 21, T, T], dtype=torch.int32, device=cuda)
+    n0 = windowed_prefill.launches
+    got = windowed_prefill(q, kn, vn, k, v, t, st, nl, **kw)
+    want = windowed_prefill_plain(q, kn, vn, k, v, t, st, nl, **kw)
+    assert windowed_prefill.launches == n0 + 1
+    assert _within_one_ulp(got, want)
+    assert (got[2, 21:] == 0).all() and (want[2, 21:] == 0).all()
+    one = [x[4:] for x in (q, kn, vn, t, st, nl)]
+    got = windowed_prefill(*one[:3], k, v, *one[3:], **kw)
+    assert _within_one_ulp(got, windowed_prefill_plain(*one[:3], k, v,
+                                                       *one[3:], **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_windowed_prefill_rows_alone_equal_rows_in_the_batch(cuda, int8):
+    """K4 anchors its ring tiles at absolute pages and its fresh tiles at
+    chunk token 0, so a row depends only on its q, its keys and its
+    position: each request alone gives its rows in the batch bit for bit
+    (G = 9 straddles 64-row tiles; window 64 < T = 80 puts the window's
+    edge among the fresh keys; one chunk has padding rows)."""
+    rng = np.random.RandomState(29 + int8)
+    ps, K, G, D, window, T = 16, 2, 9, 128, 64, 80
+    k, v, t = _ring_inputs(rng, 4, 6, ps, K, D, cuda)
     kw = dict(scale=D ** -0.5, window=window)
     if int8:
         k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
@@ -402,14 +439,16 @@ def test_windowed_prefill_kernel_matches_plain(cuda, G, D, int8):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)) \
             .bfloat16().to(cuda)
     q, kn, vn = rand(4, T, K * G, D), rand(4, T, K, D), rand(4, T, K, D)
-    st = torch.tensor([0, 32, 208, 400], dtype=torch.int32, device=cuda)
-    nl = torch.tensor([T, T, 21, T], dtype=torch.int32, device=cuda)
-    n0 = windowed_prefill.launches
+    st = torch.tensor([0, 208, 333, 90], dtype=torch.int32, device=cuda)
+    nl = torch.tensor([T, 50, T, T], dtype=torch.int32, device=cuda)
     got = windowed_prefill(q, kn, vn, k, v, t, st, nl, **kw)
-    want = windowed_prefill_plain(q, kn, vn, k, v, t, st, nl, **kw)
-    assert windowed_prefill.launches == n0 + 1
-    assert _within_one_ulp(got, want)
-    assert (got[2, 21:] == 0).all() and (want[2, 21:] == 0).all()
+    assert _within_one_ulp(got, windowed_prefill_plain(q, kn, vn, k, v, t,
+                                                       st, nl, **kw))
+    for b in range(4):
+        one = slice(b, b + 1)
+        assert torch.equal(windowed_prefill(q[one], kn[one], vn[one], k, v,
+                                            t[one], st[one], nl[one], **kw),
+                           got[one])
 
 
 @pytest.mark.cuda
