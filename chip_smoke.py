@@ -94,13 +94,17 @@ Phases, each printing its own lines; any failed check exits non-zero:
    bf16 and int8 (pools quantized from the same bf16 data by
    ``quantize_int8``): K5 at B=8, ragged positions up to 2047 over
    shuffled tables and two idle rows; K6 on 8 chunks of 256 at starts 0,
-   256, ..., 1792, the last with 200 live tokens; K7 at B=8, Q=5,
+   256, ..., 1792, the last with 200 live tokens (its padding rows
+   computed), each request alone equal to its rows in the batch bit for
+   bit, and K6's stage A (every key's K/V built once, ``mla_build_kv``)
+   against its plain version, bf16 K/V bit for bit; K7 at B=8, Q=5,
    positions up to 2043, live-query counts 1..5 and two idle rows, its
    dead rows exact zeros, and at one live query against K5 bit for bit;
 16. the MLA + MoE path: deepseek-v2-236b at full width, its depth cut to
    4 of 60 layers (layer 0 dense, 3 MoE; 26.6 GB of bf16 weights, where
-   full depth is ~470 GB), served as phase 6 serves qwen2-0.5b (K6 for
-   every prefill chunk, K5 for every decode step, counted), with the
+   full depth is ~470 GB), served as phase 6 serves qwen2-0.5b (K6 and
+   its stage A for every prefill chunk, K5 for every decode step,
+   counted), with the
    device's busy share from a profiled rerun, then on the reference
    backend, and held to the reference replay by the dual gate; then K = 4
    speculation with n-gram and oracle drafts (K7 four times a verify step,
@@ -151,10 +155,13 @@ on the host reads as the host's time).  ``bound_ms`` is the
 larger of the bytes the function must move over 3.35 TB/s and its
 operations over 989 TFLOP/s (H100 SXM bf16 dense), counted for this run's
 inputs (K8 and K9 in fp32: over 67 TFLOP/s, the H100's fp32 rate without
-tensor cores).  ``library_ms`` times ``scaled_dot_product_attention`` on
-the gathered K/V (dequantized to bf16 for int8 pools; with the verify mask
-for K3; for K9 on K/V repeated to the query heads, ``is_causal``), and
-``sigmoid(addmm)`` for K8, as a yardstick; the port never calls either.
+tensor cores; K6's stage A with bf16 pages, whose K/V are fp64 sums: over
+67 TFLOP/s, the fp64 tensor cores' rate).  ``library_ms`` times
+``scaled_dot_product_attention`` on the gathered K/V (dequantized to bf16
+for int8 pools; with the verify mask for K3; for K9 on K/V repeated to
+the query heads, ``is_causal``), one einsum of the gathered latent with
+``wkv_b`` for K6's stage A, and ``sigmoid(addmm)`` for K8, as a
+yardstick; the port never calls any of them.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -284,8 +291,9 @@ def rows_alone(torch, name, got, call):
     """Hold each request's rows alone (``call(b)``: the kernel on request b
     by itself) to its rows in the batch's output ``got``, bit for bit: K1
     and K3 split a row's keys over blocks and merge the partials in split
-    order, and K4 anchors its key tiles at absolute pages and chunk token
-    0, so no row may depend on the rest of its batch."""
+    order, K4 anchors its key tiles at absolute pages and chunk token 0,
+    and K6 builds each key's K/V and sums a row's keys in 64-key tiles
+    anchored at key 0, so no row may depend on the rest of its batch."""
     equal = all(torch.equal(call(b), got[b:b + 1])
                 for b in range(got.shape[0]))
     print(f"[smoke] {name}: each of the {got.shape[0]} requests alone gives "
@@ -986,20 +994,34 @@ def phase_mla_verify(torch, rng, timer, int8=False):
             "library_ms": library_ms, "n_q1_bit_equal_k5": bit_equal}
 
 
-def phase_mla_prefill(torch, rng, timer, int8=False):
+FP64_FLOPS_PER_S = 67e12       # H100 SXM fp64 tensor cores, data sheet
+MLA_CHUNKS = tuple((256 * i, 256) for i in range(7)) + ((1792, 200),)
+
+
+def phase_mla_prefill(torch, rng, timer, int8=False, chunks=MLA_CHUNKS,
+                      label="K6"):
     """K6 against its plain version at full-width deepseek-v2 chunk shapes:
-    B=8 chunks of 256 tokens at starts 0, 256, ..., 1792 over shuffled
-    tables, the last with 200 live tokens (its table ends there: its
-    padding rows read the null page, as in the engine), 128 heads, per-head
-    K/V materialized from the latent with a random ``wkv_b``; ``int8``:
-    its int8 mode, on the pool quantized by ``quantize_int8``."""
+    by default B=8 chunks of 256 tokens at starts 0, 256, ..., 1792 over
+    shuffled tables, the last with 200 live tokens (its table ends there:
+    its padding rows read the null page, as in the engine), 128 heads,
+    per-head K/V materialized from the latent with a random ``wkv_b``;
+    ``chunks``: other (start, live tokens) pairs, one a request; ``int8``:
+    its int8 mode, on the pool quantized by ``quantize_int8``.  Each
+    request alone must give its rows in the batch bit for bit.  Stage A
+    (``mla_build_kv``, every key's K/V once) is checked against its plain
+    version too: bf16 K/V bit for bit, int8 hi + lo within 2^-16 of each
+    row's largest |x|.  Returns (K6's numbers, stage A's numbers); stage
+    A's are None for a tree whose K6 has no stage A (``prefill_cost.py``
+    times an older tree through the same wrapper)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ragged_prefill as rp
     from repro_torch.kernels.ragged_prefill import (mla_ragged_prefill,
                                                     mla_ragged_prefill_plain)
     from repro_torch.models.attention import gather_kv
-    B, T, width = 8, 256, 128
-    starts = [256 * i for i in range(B)]
-    n_live = [T] * (B - 1) + [200]
+    stage_a = hasattr(rp, "mla_build_kv")
+    B, T, width = len(chunks), 256, 128
+    starts = [c[0] for c in chunks]
+    n_live = [c[1] for c in chunks]
     ckv, kr, tables = latent_pool(torch, rng,
                                   [s + n for s, n in zip(starts, n_live)],
                                   width)
@@ -1009,7 +1031,7 @@ def phase_mla_prefill(torch, rng, timer, int8=False):
     wkv_b = (torch.randn((DS_L, DS_H, DS_NOPE + DS_V), generator=gen,
                          device="cuda") / math.sqrt(DS_L)).bfloat16()
     st = torch.tensor(starts, dtype=torch.int32, device="cuda")
-    name = "K6-int8" if int8 else "K6"
+    name = label + ("-int8" if int8 else "")
     kw = {"nope": DS_NOPE}
     if int8:
         ckv, kr, scales = latent_int8(torch, ckv, kr)
@@ -1019,8 +1041,24 @@ def phase_mla_prefill(torch, rng, timer, int8=False):
     want = mla_ragged_prefill_plain(*args, **kw)
     torch.cuda.synchronize()
     err, ratio = check_kernel(torch, f"{name} mla_ragged_prefill", got, want)
+    pad = sum(T - n for n in n_live)
+    print(f"[smoke] {name} mla_ragged_prefill: {tuple(got.shape)} rows "
+          f"(none past T), the {pad} padding rows computed and held to the "
+          f"plain version with the rest", flush=True)
+    del want
+    alone = rows_alone(torch, f"{name} mla_ragged_prefill", got, lambda b: (
+        mla_ragged_prefill(q[b:b + 1], ckv, kr, wkv_b, tables[b:b + 1],
+                           st[b:b + 1], **kw)))
     ms = timer(lambda: mla_ragged_prefill(*args, **kw))
     plain_ms = timer(lambda: mla_ragged_prefill_plain(*args, **kw))
+    # the keys K6 sweeps: each request's pages up to its last row's
+    keys = sum(min((s + T - 1) // PAGE + 1, width) * PAGE for s in starts)
+    pairs = sum(T * s + T * (T + 1) // 2 for s in starts)
+    kv_flops = keys * DS_H * DS_L * (DS_NOPE + DS_V) * 2
+    attend_flops = pairs * DS_H * (E + DS_V) * 2
+    kv_numbers = mla_stage_a(torch, timer, name, ckv, wkv_b, tables, st, T,
+                             kv_flops, latent_bytes(keys, int8),
+                             kw.get("ckv_scale")) if stage_a else None
     # yardstick: the einsum that materializes K/V from the gathered latent
     # (int8: dequantized to bf16), then SDPA with the chunk's causal mask
     cc, cr = gather_kv(ckv, kr, tables, kw.get("ckv_scale"),
@@ -1040,21 +1078,96 @@ def phase_mla_prefill(torch, rng, timer, int8=False):
                                               attn_mask=mask,
                                               scale=1.0 / math.sqrt(E))
     library_ms = timer(library)
-    keys = sum(s + T for s in starts)              # the keys K6 sweeps
-    pairs = sum(T * s + T * (T + 1) // 2 for s in starts)
-    flops = keys * DS_H * DS_L * (DS_NOPE + DS_V) * 2 \
-        + pairs * DS_H * (E + DS_V) * 2
+    flops = kv_flops + attend_flops
     nbytes = latent_bytes(keys, int8) + (q.numel() + got.numel()
                                          + wkv_b.numel()) * 2 \
         + tables.numel() * 4 + B * 4
     bms, by = bound(nbytes, flops)
+    # bf16 pages' K/V must be fp64 sums: their products at the fp64 tensor
+    # cores' rate, then the attend at the bf16 rate
+    fp64_ms = (kv_flops / FP64_FLOPS_PER_S + attend_flops / BF16_FLOPS_PER_S) \
+        * 1e3
     print(f"[smoke] {name} mla_ragged_prefill: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, einsum + sdpa {library_ms:.4f} ms, bound "
           f"{bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, K/V "
-          f"materialization included, {nbytes / 1e6:.2f} MB)", flush=True)
-    return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
+          f"materialization included, {nbytes / 1e6:.2f} MB)"
+          + ("" if int8 else f"; under the fp64 contract of bf16 pages' "
+             f"K/V {fp64_ms:.4f} ms ({kv_flops / 1e9:.2f} GFLOP at "
+             f"{FP64_FLOPS_PER_S / 1e12:.0f} TFLOP/s + "
+             f"{attend_flops / 1e9:.2f} at "
+             f"{BF16_FLOPS_PER_S / 1e12:.0f})")
+          + (f"; the attend (stage B) {ms - kv_numbers['ms']:.4f} ms of it"
+             if stage_a else ""), flush=True)
+    return ({"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+             "library_ms": library_ms, "fp64_contract_bound_ms": fp64_ms,
+             "row_alone_bit_equal": alone}, kv_numbers)
+
+
+def mla_stage_a(torch, timer, name, ckv, wkv_b, tables, st, T, kv_flops,
+                latent_nbytes, cs):
+    """K6's stage A (``mla_build_kv``) against its plain version on every
+    key it builds -- bf16 K/V bit for bit; int8 hi + lo within 2^-16 of
+    each row's largest |x| of the fp32 einsum x (hi + lo keeps 16 bits of
+    the kernel's own fp32 x) -- and its times: kernel, plain, and one
+    einsum of the gathered latent with ``wkv_b`` (bf16 pages: fp64
+    operands, int8: the fp32 dequantized latent) as the yardstick.
+    Returns its numbers."""
+    from repro_torch.kernels.ragged_prefill import (mla_build_kv,
+                                                    mla_build_kv_plain)
+    from repro_torch.kernels.ragged_prefill.ops import mla_built_keys
+    from repro_torch.models.attention import dequant_int8, gather_pages
+    int8 = cs is not None
+    kv_args = (ckv, wkv_b, tables, st, T)
+    cc = gather_pages(ckv, tables)
+    cc = dequant_int8(cc, gather_pages(cs, tables)) if int8 \
+        else cc.double()
+    w = wkv_b.float() if int8 else wkv_b.double()
+    ws = mla_build_kv(*kv_args, nope=DS_NOPE, ckv_scale=cs)
+    # bf16: the plain version's K/V; int8: the fp32 einsum x itself
+    ws_plain = torch.einsum("bsl,lhe->bhse", cc, w) if int8 \
+        else mla_build_kv_plain(*kv_args, ckv_scale=cs)
+    built = mla_built_keys(st, T, tables.shape[1], PAGE).tolist()
+    kv_err, kv_rel, n_diff = 0.0, 0.0, 0
+    for b, n in enumerate(built):
+        g, p = ws[b, :, :n].float(), ws_plain[b, :, :n].float()
+        if int8:           # hi + lo
+            g = g[..., :DS_NOPE + DS_V] + g[..., DS_NOPE + DS_V:]
+        d = (g - p).abs()
+        kv_err = max(kv_err, d.max().item())
+        kv_rel = max(kv_rel, (d / p.abs().amax(-1, keepdim=True)
+                              .clamp_min(1e-30)).max().item())
+        n_diff += int((d != 0).sum().item())
+    kv_ok = kv_rel <= 2.0 ** -16 if int8 else n_diff == 0
+    print(f"[smoke] {name} mla_build_kv (stage A): "
+          + (f"hi + lo within {kv_rel:.4g} of each row's largest |x| of the "
+             f"fp32 einsum (bound 2^-16 = {2.0 ** -16:.4g})" if int8 else
+             f"{n_diff} K/V elements of "
+             f"{sum(built) * DS_H * (DS_NOPE + DS_V)} differ from the plain "
+             f"einsum's (bound 0)")
+          + f" -> {'OK' if kv_ok else 'FAIL'}", flush=True)
+    if not kv_ok:
+        fail(f"{name}: stage A's K/V disagree with the plain einsum")
+    del ws, ws_plain
+    ms = timer(lambda: mla_build_kv(*kv_args, nope=DS_NOPE, ckv_scale=cs))
+    plain_ms = timer(lambda: mla_build_kv_plain(*kv_args, ckv_scale=cs))
+    library_ms = timer(lambda: torch.einsum("bsl,lhe->bhse", cc, w))
+    del cc, w
+    keys = sum(built)
+    nbytes = latent_nbytes + wkv_b.numel() * 2 \
+        + keys * DS_H * (DS_NOPE + DS_V) * (4 if int8 else 2)
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = kv_flops / (BF16_FLOPS_PER_S if int8 else FP64_FLOPS_PER_S) * 1e3
+    bms, by = max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
+    print(f"[smoke] {name} mla_build_kv (stage A): kernel {ms:.4f} ms = "
+          f"{kv_flops / ms / 1e9:.2f} TFLOP/s "
+          f"({'bf16 tensor cores, of 989' if int8 else 'fp64, of 67'}), "
+          f"plain {plain_ms:.4f} ms, einsum {library_ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}: {kv_flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)", flush=True)
+    return {"max_abs_err": kv_err, "err_over_row_max": kv_rel, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "tflops": kv_flops / ms / 1e9}
 
 
 def serving_workload(rng, vocab):
@@ -1207,7 +1320,8 @@ def serve_run(torch, cfg, params, prompts, label, proposer=None, base=None,
                                                      mla_paged_verify,
                                                      paged_decode,
                                                      paged_verify)
-    from repro_torch.kernels.ragged_prefill import (mla_ragged_prefill,
+    from repro_torch.kernels.ragged_prefill import (mla_build_kv,
+                                                    mla_ragged_prefill,
                                                     ragged_prefill,
                                                     windowed_prefill)
     from repro_torch.serving import Engine
@@ -1218,7 +1332,8 @@ def serve_run(torch, cfg, params, prompts, label, proposer=None, base=None,
         eng.proposer = proposer
     kernels = {"K1": paged_decode, "K2": ragged_prefill, "K3": paged_verify,
                "K4": windowed_prefill, "K5": mla_paged_decode,
-               "K6": mla_ragged_prefill, "K7": mla_paged_verify}
+               "K6": mla_ragged_prefill, "K6-kv": mla_build_kv,
+               "K7": mla_paged_verify}
     for fn in kernels.values():
         fn.launches = 0
     results, m = eng.run_offline(prompts, GEN_TOKENS)
@@ -1598,18 +1713,20 @@ DS_LAYERS = 4
 def phase_mla_serve(torch, seed):
     """The MLA + MoE path: full-width deepseek-v2-236b cut to ``DS_LAYERS``
     layers (random weights from ``seed``) served on the hopper backend with
-    phase 6's workload -- K6 for every prefill chunk, K5 for every decode
-    step, counted -- with a profiled rerun for the device's busy share; then
-    on the reference backend, and the hopper run held to the reference
-    replay along its tokens by the dual gate.  Returns (launch counts {K5,
-    K6}, report)."""
+    phase 6's workload -- K6 for every prefill chunk (its stage A counted
+    apart, once a K6 call), K5 for every decode step, counted -- with a
+    profiled rerun for the device's busy share; then on the reference
+    backend, and the hopper run held to the reference replay along its
+    tokens by the dual gate.  Returns (launch counts {K5, K6, K6-kv, ...},
+    report)."""
     import dataclasses
     from repro_torch.configs import ServeConfig, get_arch
     from repro_torch.kernels.paged_attention import (mla_paged_decode,
                                                      mla_paged_verify,
                                                      paged_decode,
                                                      paged_verify)
-    from repro_torch.kernels.ragged_prefill import (mla_ragged_prefill,
+    from repro_torch.kernels.ragged_prefill import (mla_build_kv,
+                                                    mla_ragged_prefill,
                                                     ragged_prefill,
                                                     windowed_prefill)
     from repro_torch.models.params import tree_leaves
@@ -1639,12 +1756,13 @@ def phase_mla_serve(torch, seed):
               f" s", flush=True)
         eng = Engine(cfg, ServeConfig(attn_backend="hopper", **kw), params,
                      device="cuda")
-        for fn in kernels:
+        for fn in kernels + (mla_build_kv,):
             fn.launches = 0
         results, m = eng.run_offline(prompts, GEN_TOKENS)
         torch.cuda.synchronize()
         counts = {"K5": mla_paged_decode.launches,
-                  "K6": mla_ragged_prefill.launches}
+                  "K6": mla_ragged_prefill.launches,
+                  "K6-kv": mla_build_kv.launches}
         others = sum(fn.launches for fn in kernels[2:])
         tokens = [r.tokens for r in results]
         bpt = eng.pool.kv_bytes_per_token
@@ -1656,17 +1774,20 @@ def phase_mla_serve(torch, seed):
               f"steps, {m['prefill_steps']} prefill steps "
               f"({m['chunked_prefill_steps']} continuation chunks), prefix "
               f"cache hit rate {m['cache_hit_rate']:.3f}, pool {bpt:.0f} B "
-              f"per token; launches K5 {counts['K5']}, K6 {counts['K6']}, "
-              f"K7 and K1-K4 {others}", flush=True)
+              f"per token; launches K5 {counts['K5']}, K6 {counts['K6']} "
+              f"(stage A {counts['K6-kv']}), K7 and K1-K4 {others}",
+              flush=True)
         if any(r.failed for r in results) \
                 or any(len(t) != GEN_TOKENS for t in tokens) \
                 or not all(0 <= x < cfg.vocab_padded for t in tokens
                            for x in t):
             fail(f"{cfg.name}: failed, short or out-of-range requests")
         if counts["K5"] != m["decode_steps"] * L \
-                or counts["K6"] != m["prefill_steps"] * L or others:
+                or counts["K6"] != m["prefill_steps"] * L \
+                or counts["K6-kv"] != counts["K6"] or others:
             fail(f"{cfg.name}: K5 launches {counts['K5']} != decode steps "
                  f"{m['decode_steps']} x {L}, or K6 launches {counts['K6']} "
+                 f"(stage A {counts['K6-kv']}) "
                  f"!= prefill steps {m['prefill_steps']} x {L}, or K7 or a "
                  f"GQA kernel launched {others} times")
         busy = profile_rerun(torch, eng, prompts)
@@ -1730,7 +1851,8 @@ def mla_speculate_int8(torch, cfg, params, prompts, base_tokens, replay,
     along its own tokens by the dual gate (the int8 runs' quantization
     error against the bf16 reference replay printed); each speculative
     stream must equal the plain stream of its pool dtype token for token.
-    Returns (launch counts {K7, K5-int8, K6-int8, K7-int8}, report)."""
+    Returns (launch counts {K7, K5-int8, K6-int8, K6-kv-int8, K7-int8},
+    report)."""
     from repro_torch.serving import dual_gate
     L = cfg.n_layers
     counts, out, plain = {}, {}, {"bf16": base_tokens}
@@ -1748,10 +1870,11 @@ def mla_speculate_int8(torch, cfg, params, prompts, base_tokens, replay,
         busy = profile_rerun(torch, eng, prompts, n_new=4) if profile \
             else None
         del eng
-        if c["K6"] != m["prefill_steps"] * L \
+        if c["K6"] != m["prefill_steps"] * L or c["K6-kv"] != c["K6"] \
                 or sum(c[kid] for kid in ("K1", "K2", "K3", "K4")):
-            fail(f"{label}: K6 launches {c['K6']} != prefill steps "
-                 f"{m['prefill_steps']} x {L}, or a GQA kernel launched")
+            fail(f"{label}: K6 launches {c['K6']} (stage A {c['K6-kv']}) "
+                 f"!= prefill steps {m['prefill_steps']} x {L}, or a GQA "
+                 "kernel launched")
         sfx = "-int8" if kv == "int8" else ""
         if k:
             res = spec_report(f"{cfg.name} {label} serve", m, c, tokens,
@@ -1765,7 +1888,8 @@ def mla_speculate_int8(torch, cfg, params, prompts, base_tokens, replay,
             if c["K5"] != m["decode_steps"] * L or c["K7"]:
                 fail(f"{label}: K5 launches {c['K5']} != decode steps "
                      f"{m['decode_steps']} x {L}, or K7 launched")
-            counts.update({f"K5{sfx}": c["K5"], f"K6{sfx}": c["K6"]})
+            counts.update({f"K5{sfx}": c["K5"], f"K6{sfx}": c["K6"],
+                           f"K6-kv{sfx}": c["K6-kv"]})
             res = {"tokens_per_s": m["tokens_per_s"],
                    "step_ms_p50": m["decode_step_ms_p50"],
                    "decode_steps": m["decode_steps"]}
@@ -2528,8 +2652,8 @@ def main() -> None:
     k8 = phase_gemm_sigmoid(torch, timer, args.seed)
     k5, k5q = (phase_mla_decode(torch, rng, timer, int8=q)
                for q in (False, True))
-    k6, k6q = (phase_mla_prefill(torch, rng, timer, int8=q)
-               for q in (False, True))
+    (k6, k6kv), (k6q, k6kvq) = (phase_mla_prefill(torch, rng, timer, int8=q)
+                                for q in (False, True))
     k7, k7q = (phase_mla_verify(torch, rng, timer, int8=q)
                for q in (False, True))
     k9 = phase_flash(torch, timer)
@@ -2671,6 +2795,10 @@ def main() -> None:
               "ragged_prefill/kernel.py:438", k6),
         entry("K6-int8", "mla_ragged_prefill", "mla_ragged_prefill.cu",
               "ragged_prefill/kernel.py:438", k6q),
+        entry("K6-kv", "mla_build_kv", "mla_build_kv.cu",
+              "ragged_prefill/kernel.py:438", k6kv),
+        entry("K6-kv-int8", "mla_build_kv", "mla_build_kv.cu",
+              "ragged_prefill/kernel.py:438", k6kvq),
         entry("K7", "mla_paged_verify", "mla_paged_verify.cu",
               "paged_attention/kernel.py:432", k7),
         entry("K7-int8", "mla_paged_verify", "mla_paged_verify.cu",

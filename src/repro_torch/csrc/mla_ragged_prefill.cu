@@ -2,17 +2,15 @@
 // prompt chunks, row b holding T queries at absolute positions start[b] + t,
 // every head attending the row's *post-write* latent pages (radix-cache
 // prefix, earlier chunks and the chunk itself) through the page table with
-// the causal rule k_abs <= q_abs.  Each head's keys and values are rebuilt
-// from the latent inside the kernel, page by page:
+// the causal rule k_abs <= q_abs, each head's keys and values materialized
+// from the latent with wkv_b:
 //   bf16 pages:  k = bf16(ckv @ w_uk) ++ krope,   v = bf16(ckv @ w_uv),
-// rounded to bf16 where the reference's ``ckv @ wkv_b`` einsum rounds
-// (repro/kernels/ragged_prefill/kernel.py:399-401, 427-429), from fp64
-// sums of the products rounded once to fp32;
+// rounded to bf16 where the reference's ``ckv @ wkv_b`` einsum rounds, from
+// fp64 sums of the exact products rounded once to fp32;
 //   int8 pages:  k = s * (q8 @ w_uk) ++ sr * qr8,   v = s * (q8 @ w_uv),
-// kept in fp32 as the reference keeps the dequantized latent's products
-// (kv_dtype = f32 there), with q8 / qr8 the int8 latent and rope key of a
-// token slot and s / sr their bf16 scales; so the [B, S, H, 256] K/V
-// tensors the plain version builds in memory never exist.
+// kept in fp32 as the reference keeps the dequantized latent's products,
+// with q8 / qr8 the int8 latent and rope key of a token slot and s / sr
+// their bf16 scales.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ragged_prefill/kernel.py::
 // mla_ragged_prefill_fwd (_mla_ragged_prefill_kernel), bf16 or int8 latent
@@ -21,394 +19,393 @@
 // too (the model routes them through the MoE like any token); rows past T
 // are not.
 //
-// What bounds it: the operations.  Per (request, head) the keys' K/V are
-// materialized once per q-tile, 2 * keys * L * (nope + v) flops, and the
-// attend does 2 * T * keys * (nope + R + v) flops, against a few MB of
-// latent pages, queries and w_uk/w_uv: far above the ~295 flops a byte at
-// which the H100's bf16 tensor cores, not its memory, become the limit
-// (989 TFLOP/s over 3.35 TB/s, NVIDIA's data sheet).
+// Two kernels behind one wrapper (kernels/ragged_prefill/ops.py::
+// mla_ragged_prefill), launched one after the other on the stream:
+//   stage A (mla_build_kv.cu): every key's K (nope part) and V of every
+//     head, built once a call into a workspace ws [B, H, S, W] that the
+//     wrapper allocates: bf16, or int8's fp32 values as hi / lo bf16 planes
+//     (its note has the design);
+//   stage B (this file): the causal attend over the workspace, the rope key
+//     read from the latent pages (all heads share it).
+// The TPU kernel rebuilt a page's K and V inside the attend; here the
+// attend's two sweeps would rebuild K twice, 1.5x the fp64 products (>= 6.9
+// ms at the smoke's shape), so K/V go through device memory once instead
+// (~0.6 GB written and read at that shape, 1.2 GB in int8 mode).
 //
-// Design: K2's (csrc/ragged_prefill.cu), one block per (q-tile of 128
-// tokens, head, request), with the K/V materialization added.  The head's
-// w_uk [L, nope] (128 KB in bf16) stays in shared memory for the whole
-// block; w_uv is too large to keep beside it and is read from global
-// memory (L2) per page.  Per page the block stages the page's latent as
-// bf16 and runs the two products on the fp64 tensor cores (mma m8n8k4
-// f64; a page is 16 rows, the 8 warps take 16 output dims each): a
-// product of two bf16 values is exact in fp64, and a sum of 512 of them
-// rounds, if at all, some 29 bits below fp32's last bit, so each K/V
-// element is rounded once to fp32, then to bf16 into fp32 K and V rows --
-// the values the plain version's fp64 einsum gives, but for a sum within
-// that distance of an fp32 rounding boundary.  (With fp32 sums, as the bf16
-// tensor cores take them, two orders of summation round a K/V element
-// next to a bf16 boundary to different sides; a flipped K element moves a
-// score, which flips a probability's bf16 rounding, and on the rows of a
-// chunk's first tokens, with few keys, that moved outputs by more than an
-// ulp of the row.)  int8 pages take the bf16 tensor cores instead (wmma
-// 16x16x16 tiles, fp32 sums): an int8 value is exact in bf16 and the
-// scale is one per token slot (one row of the page), so the page's int8
-// latent is staged as bf16, multiplied by w_uk / w_uv on the same wmma
-// tiles with fp32 sums, and each product row is scaled by its slot's fp32
-// scale afterwards and kept in fp32.  Each product of an int8 value and a
-// bf16 weight is exact in fp32, as is the reference's f32(q) * f32(s) *
-// w, so the two differ only in the order of fp32 sums and the one rounding
-// of the scale product, far below an output ulp.  A thread
-// pair owns each query row: one half of the row's 192 query dims (bf16
-// pairs in registers, exact) and one half of its 128 output dims (fp32
-// accumulator in registers); a score is the two half dots added lower half
-// first.  Instead of banking scores the block sweeps the row's live pages
-// three times, recomputing K and every fp32 score with the same
-// instruction sequence each time:
-//   pass 1: the row's true max m over all keys;
-//   pass 2: l = sum(exp(s - m));
-//   pass 3: p = exp(s - m) / l, rounded to bf16 (the reference's
-//           a.astype(v.dtype); kept fp32 for int8 pages, whose v is
-//           fp32); acc += p * v in fp32.
-// This is the single softmax at the row's true max of K2, the rounding
-// points of the reference (kernel.py:30-36).  Masked keys take the finite
-// -1e30 of the reference: they add exp(-1e30 - m) = 0 to l and nothing to
-// acc, so pages past the tile's last query are skipped outright.  One bf16
-// cast at the output.
+// What bounds it: operations, with two bounds for the two contracts.  The
+// work is 2 * keys * L * H * (nope + vd) flops to build K/V (309 GFLOP at
+// the smoke's 8 chunks of 256 over 9216 keys, 128 heads) and 2 * pairs * H
+// * (nope + R + vd) for the causal (query, key) pairs (172 GFLOP) against a
+// few hundred MB of latent, queries and weights.  On the bf16 tensor cores
+// (989 TFLOP/s, NVIDIA's data sheet) that is 0.49 ms; but bf16 pages' K/V
+// must be fp64 sums (a bf16 K/V element next to a rounding boundary goes
+// the other way under fp32 sums, which moved rows by more than an ulp), so
+// stage A runs on the fp64 tensor cores, 67 TFLOP/s: 4.6 ms, plus the
+// attend's 0.17.  int8 pages' K/V are fp32 sums of exact products, which
+// the bf16 tensor cores give: their bound is the 0.49 ms.
 //
-// Numerics: with bf16 pages the materialized K/V equal the plain
-// version's; with int8 pages they differ from it in the order of fp32
-// sums, and no K/V element or probability is rounded to bf16.  Scores and
-// the PV sums are fp32 in another order than the plain version's.  IEEE
-// expf and division (build without --use_fast_math).
+// Stage B is K2's design (csrc/ragged_prefill.cu; its helpers in
+// ragged_prefill.cuh), a row a token: a warpgroup owns 64 query rows of a
+// (head, request).  With bf16 pages a block is one warpgroup, two blocks
+// an SM.  int8 pages' hi and lo planes fill the shared memory of one block
+// an SM, so there a block holds two warpgroups (128 query rows) that read
+// every staged K/V tile, which also halves the tiles' traffic from the
+// workspace (the smoke's shape reads ~4 GB of bf16 tiles from L2 at 64
+// rows a block, twice that in int8).  Keys go in 64-key tiles anchored at
+// key 0, staged by 16-byte cp.async copies two stages deep into 128-byte-
+// swizzled bf16 halves: K as three 64-column halves (nope from the
+// workspace, rope from the pages through the table), V as two; QK^T
+// `wgmma.m64n64k16` over the 192 query dims with Q and K from shared
+// memory, PV with p from registers and V MN-major.  Tiles past the block's
+// last query are not staged, and a warpgroup skips those past its own last
+// query (fully masked for its rows, they would add exactly 0); only tiles
+// that reach past its first query, or past the table, are masked (-1e30).
+//   sweep 1: each tile's scores, each row's max m and normalizer l (only l
+//            rescaled online when m grows; a fully masked tile adds 0);
+//   sweep 2: the scores again (the same bits), p = exp(s - m) / l at the
+//            true max, rounded to bf16 (the reference's a.astype(v.dtype)),
+//            and PV on the tensor cores.  One bf16 cast at the output.
+// int8 pages: K and V are fp32 held as hi + lo bf16 planes, so QK^T is q .
+// k_hi + q . k_lo (all 192 dims of k_hi first); the rope key f32(qr8) *
+// f32(sr) has at most 15 significant bits and splits exactly into hi + lo.
+// p stays fp32 and is split as K2 splits it, p_hi = bf16(p), p_lo = bf16(p
+// - p_hi); PV = p_hi . v_hi + p_hi . v_lo + p_lo . v_hi, in that order, each
+// product exact into the fp32 accumulator: the dropped p_lo . v_lo and the
+// terms' 16 bits are ~2^-16 of sum |p v|, far below an output ulp.
+//
+// A row's result depends only on its own q, its keys and its position: K/V
+// of a key are built in the same 64-key tile at the same place whatever
+// the chunk (stage A's tiles are anchored at key 0 too), and a row's sums
+// run over its own key tiles in key order (each thread's 16 columns in
+// order, then a fixed shuffle tree over the row's 4 threads).  So a row is
+// the same, bit for bit, however the prompt was cut into chunks and
+// whatever else is in the batch.
+//
+// Numerics: IEEE expf and division (build without --use_fast_math).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "ragged_prefill.cuh"
 
 namespace {
 
-using namespace nvcuda;
+constexpr int kPs = 16;          // tokens per page
+constexpr int kE = 192;          // query / key width: nope + R
+constexpr int kR = 64;           // rope width
+constexpr int kVd = 128;         // value width (= nope)
 
-constexpr int kRows = 128;               // query tokens per block
-constexpr int kThreads = 2 * kRows;      // a thread pair per query row
-constexpr int kWarps = kThreads / 32;
-constexpr int kPs = 16;                  // tokens per page: one wmma tile
-constexpr float kMaskValue = -1e30f;
-
-// Shared memory of one block.  K and V rows store their two halves (the
-// halves the thread pair splits) 16 words apart, so the pair's two
-// addresses fall in different banks.
-template <int L, int NOPE, int R, int VD>
-struct Smem {
-  static constexpr int kE = NOPE + R;             // query / key width
-  static constexpr int kLdW = NOPE + 8;
-  static constexpr int kLdC = L + 8;
-  __align__(32) __nv_bfloat16 w_uk[L][kLdW];      // the head's w_uk
-  __align__(32) __nv_bfloat16 c[kPs][kLdC];       // the page's latent
-  __align__(32) float mat[kPs][NOPE > VD ? NOPE : VD];  // product tile
-  float k[kPs][kE + 16];                          // K rows (fp32)
-  float v[kPs][VD + 16];                          // V rows (fp32)
-  float cs[kPs];                                  // int8: the page's ckv
-                                                  // scales
-  __device__ static __forceinline__ int kat(int d) {
-    return d < kE / 2 ? d : d + 16;
-  }
-  __device__ static __forceinline__ int vat(int d) {
-    return d < VD / 2 ? d : d + 16;
+// Shared-memory layout of one instantiation, in bytes from a 1024-aligned
+// base: Q (a tile of three halves a warpgroup), then two stages, each
+// holding the K tile (three halves) and the V tile (two) of every plane --
+// one for bf16 pages, hi and lo for int8 --; int8 adds two raw rope
+// stages [64][64], two stages of scale words (the aligned 32-bit word
+// holding a slot's bf16 rope scale) and which half of the word it is, and
+// 64 ones (p's V scale in K2's split).
+template <bool kInt8>
+struct MLayout {
+  static constexpr int kWG = kInt8 ? 2 : 1;        // warpgroups a block
+  static constexpr int kBRows = kWG * kRows;       // query rows a block
+  static constexpr int kBThreads = kWG * kThreads;
+  static constexpr int kPlanes = kInt8 ? 2 : 1;
+  static constexpr int kKTile = 3 * kHalf;
+  static constexpr int kVTile = 2 * kHalf;
+  static constexpr int kStage = kPlanes * (kKTile + kVTile);
+  static constexpr int kQ = 0;                     // + warpgroup * kKTile
+  static constexpr int kStages = kWG * kKTile;     // + stage * kStage
+  static constexpr int kRaw = kStages + 2 * kStage;        // + stage * 4096
+  static constexpr int kWords = kRaw + 2 * kSlots * kR;    // [2][64] u32
+  static constexpr int kSel = kWords + 2 * kSlots * 4;     // [2][64] u8
+  static constexpr int kOnes = kSel + 2 * kSlots;          // [64] f32
+  static constexpr int kBytes = kInt8 ? kOnes + kSlots * 4 : kRaw;
+  __device__ static constexpr int k(int plane) { return plane * kKTile; }
+  __device__ static constexpr int v(int plane) {
+    return kPlanes * kKTile + plane * kVTile;
   }
 };
 
-// mat[0:16, 0:N] = c[0:16, 0:L] @ w[0:L, 0:N] on the tensor cores: warp w
-// computes the 16 columns 16 w .. 16 w + 15 (N = 16 * kWarps).
-template <int L, class S>
-__device__ __forceinline__ void latent_product(S& sm,
-                                               const __nv_bfloat16* w,
-                                               int ldw, int warp) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-      a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-      bm;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll 4
-  for (int k0 = 0; k0 < L; k0 += 16) {
-    wmma::load_matrix_sync(a, &sm.c[0][k0], S::kLdC);
-    wmma::load_matrix_sync(bm, w + (size_t)k0 * ldw + 16 * warp, ldw);
-    wmma::mma_sync(acc, a, bm, acc);
-  }
-  constexpr int kLdM = sizeof(sm.mat[0]) / sizeof(float);
-  wmma::store_matrix_sync(&sm.mat[0][16 * warp], acc, kLdM,
-                          wmma::mem_row_major);
+// S = Q K_hi^T + Q K_lo^T: the 12 k-steps of the hi tile, then the lo
+// tile's, into one fp32 accumulator.
+__device__ __forceinline__ void qk_split(float (&s)[32], uint32_t q,
+                                         uint32_t k_hi, uint32_t k_lo) {
+  wg_fence();
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int kk = 0; kk < kE / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kHalf + (kk & 3) * 32;
+      wgmma_ss(s, desc(q + off, 16, 1024),
+               desc((p ? k_lo : k_hi) + off, 16, 1024), p + kk > 0);
+    }
+  wg_commit_wait();
+  pin(s);
 }
 
-// mat[0:16, 16 w : 16 w + 16) = c[0:16, 0:L] @ w[0:L, 16 w : 16 w + 16) for
-// warp w, fp64 sums rounded once to fp32: fp64 tensor-core products (mma
-// m8n8k4 f64, two 8-row by two 8-column tiles a warp) of the bf16 operands
-// widened to fp64: every product is exact, and the sums are fp64.
-template <int L, class S>
-__device__ __forceinline__ void latent_product_exact(S& sm,
-                                                     const __nv_bfloat16* w,
-                                                     int ldw, int warp) {
-  const int lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
-  const int c0 = 16 * warp;
-  double acc[2][2][2] = {};                     // [row tile][col tile][2]
-#pragma unroll 4
-  for (int k0 = 0; k0 < L; k0 += 4) {
-    const int k = k0 + tg;                      // A: row g, col tg
-    const double a0 = __bfloat162float(sm.c[g][k]);
-    const double a1 = __bfloat162float(sm.c[g + 8][k]);
-    const __nv_bfloat16* wk = w + (size_t)k * ldw + c0;  // B: row tg, col g
-    const double b0 = __bfloat162float(wk[g]);
-    const double b1 = __bfloat162float(wk[g + 8]);
-#define MLA_DMMA(A, B, C)                                                   \
-    asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "        \
-                 "{%0, %1}, {%2}, {%3}, {%0, %1};"                         \
-                 : "+d"(C[0]), "+d"(C[1]) : "d"(A), "d"(B))
-    MLA_DMMA(a0, b0, acc[0][0]);
-    MLA_DMMA(a0, b1, acc[0][1]);
-    MLA_DMMA(a1, b0, acc[1][0]);
-    MLA_DMMA(a1, b1, acc[1][1]);
-#undef MLA_DMMA
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)                   // C: row g, cols 2 tg, +1
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        sm.mat[8 * i + g][c0 + 8 * j + 2 * tg + e] = (float)acc[i][j][e];
-}
-
-template <int L, int NOPE, int R, int VD, bool kInt8>
-__global__ void __launch_bounds__(kThreads, 1)
-mla_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, Tp, E]
-                   const void* __restrict__ ckv_v,           // [P, ps, L]
-                   const void* __restrict__ krope_v,         // [P, ps, R]
-                   const __nv_bfloat16* __restrict__ ckv_scale,    // [P, ps]
+template <bool kInt8>
+__global__ void __launch_bounds__(MLayout<kInt8>::kBThreads)
+mla_prefill_kernel(const __nv_bfloat16* __restrict__ q,    // [B, T, H, 192]
+                   const __nv_bfloat16* __restrict__ ws,   // [B, H, S, W]
+                   const void* __restrict__ krope_v,       // [P, ps, R]
                    const __nv_bfloat16* __restrict__ krope_scale,  // [P, ps]
-                   const __nv_bfloat16* __restrict__ wkv_b,  // [L, H, NOPE+VD]
-                   const int32_t* __restrict__ tables,       // [B, n_pages]
-                   const int32_t* __restrict__ start,        // [B]
-                   __nv_bfloat16* __restrict__ out,          // [B, H, Tp, VD]
-                   int H, int Tp, int n_pages, float scale) {
-  using S = Smem<L, NOPE, R, VD>;
-  constexpr int kE = S::kE, kQh = kE / 2, kVh = VD / 2;
-  static_assert(NOPE == 16 * kWarps && VD == 16 * kWarps,
-                "one 16-column tile of K and of V per warp");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  S& sm = *reinterpret_cast<S*>(smem_raw);
+                   const int32_t* __restrict__ tables,     // [B, n_pages]
+                   const int32_t* __restrict__ start,      // [B]
+                   __nv_bfloat16* __restrict__ out,        // [B, T, H, 128]
+                   int T, int H, int n_pages, int S, float scale) {
+  using L = MLayout<kInt8>;
+  constexpr int kW = 256 * L::kPlanes;        // workspace row, bf16 values
+  constexpr int kBRows = L::kBRows, kBThreads = L::kBThreads;
+  static_assert(!kInt8 || kBThreads == kSlots * 4,
+                "int8: a raw rope chunk a thread");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_addr(sm);
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int row = threadIdx.x / 2, half = threadIdx.x % 2;
-  const int t = tile * kRows + row;
-  const bool active = t < Tp;
+  // a request's later query tiles attend more keys: start them first
+  const int tile = gridDim.x - 1 - blockIdx.x, h = blockIdx.y,
+            b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / kThreads, warp = (tid >> 5) & 3,
+            lane = tid & 31;
   const int st = start[b];
-  const int q_abs = st + t;
-  const int t_last = min(tile * kRows + kRows, Tp) - 1;
-  int n_live = (st + t_last) / kPs + 1;          // pages with i*ps <= last q
-  if (n_live > n_pages) n_live = n_pages;
   const int32_t* tb = tables + (size_t)b * n_pages;
-  const size_t ldb = (size_t)H * (NOPE + VD);     // wkv_b's row stride
-  const __nv_bfloat16* w_uv = wkv_b + (size_t)h * (NOPE + VD) + NOPE;
+  const int n_keys = n_pages * kPs;
+  const int n = min((st + min((tile + 1) * kBRows, T) - 1) / kSlots + 1,
+                    (n_keys + kSlots - 1) / kSlots);
+  // this warpgroup's 64 rows: its first row, its last row before T (none
+  // if it starts at or past T) and the tiles it computes
+  const int t0 = tile * kBRows + wg * kRows;
+  const int q_first = st + t0;
+  const int n_mine = t0 < T
+      ? min((st + min(t0 + kRows, T) - 1) / kSlots + 1, n) : 0;
+  const __nv_bfloat16* wsb = ws + (size_t)(b * H + h) * S * kW;
+  const uint32_t q_tile = base + L::kQ + wg * L::kKTile;
 
-  // the head's w_uk into shared memory, once
-  for (int e = threadIdx.x; e < L * (NOPE / 8); e += kThreads) {
-    const int l = e / (NOPE / 8), c = e % (NOPE / 8);
-    reinterpret_cast<uint4*>(&sm.w_uk[l][0])[c] = reinterpret_cast<
-        const uint4*>(wkv_b + (size_t)l * ldb + (size_t)h * (NOPE + VD))[c];
-  }
-  // the row's half of its query, as bf16 pairs
-  __nv_bfloat162 qr[kQh / 2];
-  {
-    const auto* src = reinterpret_cast<const __nv_bfloat162*>(
-        q + (((size_t)b * H + h) * Tp + (active ? t : 0)) * kE + half * kQh);
+  // this thread's two accumulator rows' positions
+  int q_abs[2];
 #pragma unroll
-    for (int d = 0; d < kQh / 2; ++d)
-      qr[d] = active ? src[d] : __floats2bfloat162_rn(0.f, 0.f);
+  for (int e = 0; e < 2; ++e)
+    q_abs[e] = q_first + 16 * warp + (lane >> 2) + 8 * e;
+
+  float* ones = reinterpret_cast<float*>(sm + L::kOnes);
+  if (kInt8 && tid < kSlots) ones[tid] = 1.f;
+
+  // the block's 128 query rows (zeros past T) into the two swizzled Q tiles
+  for (int e = tid; e < kBRows * (kE / 8); e += kBThreads) {
+    const int r = e / (kE / 8), c = e % (kE / 8), t = tile * kBRows + r;
+    const bool ok = t < T;
+    cp_async16(base + L::kQ + (r / kRows) * L::kKTile + swz(r % kRows, c),
+               q + (((size_t)b * T + (ok ? t : 0)) * H + h) * kE + c * 8,
+               ok ? 16 : 0);
   }
 
-  // Stage page i and rebuild its K rows (and with ``with_v`` its V rows).
-  auto build = [&](int i, bool with_v) {
-    const int page = tb[i];
-    __syncthreads();                     // earlier readers of the tiles
+  // steps 0 .. n-1 are sweep 1 (K only), n .. 2n-1 sweep 2 (K and V)
+  auto issue = [&](int step) {
+    const int i = step < n ? step : step - n, stage = step & 1;
+    const bool with_v = step >= n;
+    const uint32_t sb = base + L::kStages + stage * L::kStage;
+    // K's nope columns and V from the workspace: 16 chunks a row a plane
+#pragma unroll
+    for (int it = 0; it < kSlots * 16 / kBThreads; ++it) {
+      const int e = tid + it * kBThreads, r = e / 16, c = e % 16;
+      const __nv_bfloat16* src = wsb + (size_t)(i * kSlots + r) * kW + c * 8;
+#pragma unroll
+      for (int p = 0; p < L::kPlanes; ++p) {
+        cp_async16(sb + L::k(p) + swz(r, c), src + 256 * p, 16);
+        if (with_v)
+          cp_async16(sb + L::v(p) + swz(r, c), src + 256 * p + 128, 16);
+      }
+    }
+    // the rope key from the pages (zeros past the table): bf16 into K's
+    // third half; int8 raw, with its scale word
     if constexpr (kInt8) {
-      // the int8 latent as bf16 (exact), 8 values a thread; the rope key
-      // dequantized f32(q) * f32(s); the ckv scales for the products
-      const auto* ckv = static_cast<const int8_t*>(ckv_v);
-      const auto* krope = static_cast<const int8_t*>(krope_v);
-      for (int e = threadIdx.x; e < kPs * (L / 8); e += kThreads) {
-        const int tt = e / (L / 8), c = e % (L / 8);
-        const uint2 raw = reinterpret_cast<const uint2*>(
-            ckv + ((size_t)page * kPs + tt) * L)[c];
-        const auto* v8 = reinterpret_cast<const int8_t*>(&raw);
-        __nv_bfloat162 h[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          h[k] = __floats2bfloat162_rn((float)v8[2 * k],
-                                       (float)v8[2 * k + 1]);
-        reinterpret_cast<uint4*>(&sm.c[tt][0])[c] =
-            *reinterpret_cast<const uint4*>(h);
+      const auto* kr = static_cast<const int8_t*>(krope_v);
+      const int r = tid / 4, c = tid % 4;      // 256 chunks: one a thread
+      const int pi = (i * kSlots + r) / kPs;
+      const bool ok = pi < n_pages;
+      cp_async16(base + L::kRaw + stage * kSlots * kR + r * kR + c * 16,
+                 kr + ((size_t)(ok ? __ldg(tb + pi) : 0) * kPs + r % kPs)
+                     * kR + c * 16,
+                 ok ? 16 : 0);
+      if (tid < kSlots) {
+        const int pj = (i * kSlots + tid) / kPs;
+        const bool okj = pj < n_pages;
+        const size_t at = (size_t)(okj ? __ldg(tb + pj) : 0) * kPs
+                          + tid % kPs;
+        cp_async4(smem_addr(reinterpret_cast<uint32_t*>(sm + L::kWords)
+                            + stage * kSlots + tid),
+                  reinterpret_cast<const uint32_t*>(krope_scale) + at / 2,
+                  okj ? 4 : 0);
+        sm[L::kSel + stage * kSlots + tid] = static_cast<uint8_t>(at & 1);
       }
-      for (int e = threadIdx.x; e < kPs * R; e += kThreads) {
-        const int tt = e / R, r = e % R;
-        const size_t slot = (size_t)page * kPs + tt;
-        sm.k[tt][S::kat(NOPE + r)] = (float)krope[slot * R + r]
-            * __bfloat162float(krope_scale[slot]);
-      }
-      if (threadIdx.x < kPs)
-        sm.cs[threadIdx.x] = __bfloat162float(
-            ckv_scale[(size_t)page * kPs + threadIdx.x]);
     } else {
-      const auto* ckv = static_cast<const __nv_bfloat16*>(ckv_v);
-      const auto* krope = static_cast<const __nv_bfloat16*>(krope_v);
-      for (int e = threadIdx.x; e < kPs * (L / 8); e += kThreads) {
-        const int tt = e / (L / 8), c = e % (L / 8);
-        reinterpret_cast<uint4*>(&sm.c[tt][0])[c] = reinterpret_cast<
-            const uint4*>(ckv + ((size_t)page * kPs + tt) * L)[c];
-      }
-      for (int e = threadIdx.x; e < kPs * R; e += kThreads) {
-        const int tt = e / R, r = e % R;
-        sm.k[tt][S::kat(NOPE + r)] = __bfloat162float(
-            krope[((size_t)page * kPs + tt) * R + r]);
-      }
-    }
-    __syncthreads();
-    // a product row as K/V holds it: bf16-rounded, or (int8) times its
-    // slot's scale in fp32
-    auto product = [&](int tt, int d) {
-      if constexpr (kInt8) return sm.mat[tt][d] * sm.cs[tt];
-      else return __bfloat162float(__float2bfloat16(sm.mat[tt][d]));
-    };
-    // the products: bf16 tensor cores for int8 pages (scaled after), the
-    // exact fp64 ones for bf16 pages (rounded to bf16 after)
-    auto latent = [&](const __nv_bfloat16* w, int ldw) {
-      if constexpr (kInt8) latent_product<L>(sm, w, ldw, warp);
-      else latent_product_exact<L>(sm, w, ldw, warp);
-    };
-    latent(&sm.w_uk[0][0], S::kLdW);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kPs * NOPE; e += kThreads) {
-      const int tt = e / NOPE, d = e % NOPE;
-      sm.k[tt][S::kat(d)] = product(tt, d);
-    }
-    if (with_v) {
-      __syncthreads();
-      latent(w_uv, (int)ldb);
-      __syncthreads();
-      for (int e = threadIdx.x; e < kPs * VD; e += kThreads) {
-        const int tt = e / VD, d = e % VD;
-        sm.v[tt][S::vat(d)] = product(tt, d);
-      }
-    }
-    __syncthreads();
-  };
-  // The row's score against key j of the staged page: the two half dots,
-  // lower half first, scaled after the dot.
-  auto score = [&](int j) {
-    const float* kr = &sm.k[j][half * (kQh + 16)];
-    float part = 0.f;
+      const auto* kr = static_cast<const __nv_bfloat16*>(krope_v);
 #pragma unroll
-    for (int d = 0; d < kQh / 2; ++d) {
-      const float2 qf = __bfloat1622float2(qr[d]);
-      part = fmaf(qf.x, kr[2 * d], part);
-      part = fmaf(qf.y, kr[2 * d + 1], part);
+      for (int it = 0; it < kSlots * 8 / kBThreads; ++it) {
+        const int e = tid + it * kBThreads, r = e / 8, c = e % 8;
+        const int pi = (i * kSlots + r) / kPs;
+        const bool ok = pi < n_pages;
+        cp_async16(sb + L::k(0) + swz(r, 16 + c),
+                   kr + ((size_t)(ok ? __ldg(tb + pi) : 0) * kPs + r % kPs)
+                       * kR + c * 8,
+                   ok ? 16 : 0);
+      }
     }
-    const float other = __shfl_xor_sync(0xffffffffu, part, 1);
-    return (half == 0 ? part + other : other + part) * scale;
   };
 
-  // pass 1: row max over every key (masked keys hold -1e30)
-  float m = kMaskValue;
-  for (int i = 0; i < n_live; ++i) {
-    build(i, false);
-    for (int j = 0; j < kPs; ++j) {
-      const float s = score(j);
-      if (i * kPs + j <= q_abs) m = fmaxf(m, s);
-    }
-  }
-  // pass 2: the normalizer at the true max
-  float l = 0.f;
-  for (int i = 0; i < n_live; ++i) {
-    build(i, false);
-    for (int j = 0; j < kPs; ++j) {
-      const float s = score(j);
-      if (i * kPs + j <= q_abs) l += expf(s - m);
-    }
-  }
-  // pass 3: bf16-rounded (int8: fp32) probabilities times V, accumulated
-  // in fp32
-  float acc[kVh];
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  float o[2][32];
 #pragma unroll
-  for (int d = 0; d < kVh; ++d) acc[d] = 0.f;
-  for (int i = 0; i < n_live; ++i) {
-    build(i, true);
-    for (int j = 0; j < kPs; ++j) {
-      const float s = score(j);
-      if (i * kPs + j > q_abs) continue;
-      float p = expf(s - m) / l;
-      if constexpr (!kInt8) p = __bfloat162float(__float2bfloat16(p));
-      const float* vr = &sm.v[j][half * (kVh + 16)];
+  for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-      for (int d = 0; d < kVh; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
+    for (int j = 0; j < 32; ++j) o[hh][j] = 0.f;
+  float s[32];
+
+  issue(0);
+  cp_async_commit();
+  for (int step = 0; step < 2 * n; ++step) {
+    const int i = step < n ? step : step - n, stage = step & 1;
+    const bool sweep2 = step >= n;
+    if (step + 1 < 2 * n) issue(step + 1);
+    cp_async_commit();
+    cp_async_wait1();
+    fence_async_smem();
+    __syncthreads();
+
+    const uint32_t sb = base + L::kStages + stage * L::kStage;
+    if constexpr (kInt8) {
+      // the rope key f32(qr8) * f32(sr) into K's third half, hi and lo
+      uint8_t* sbp = sm + L::kStages + stage * L::kStage;
+      const int r = tid / 4, c = tid % 4;
+      const int4 x = *reinterpret_cast<const int4*>(
+          sm + L::kRaw + stage * kSlots * kR + r * kR + c * 16);
+      const int8_t* v8 = reinterpret_cast<const int8_t*>(&x);
+      const uint32_t word =
+          reinterpret_cast<const uint32_t*>(sm + L::kWords)[stage * kSlots + r];
+      const float sr = __bfloat162float(__ushort_as_bfloat16(
+          sm[L::kSel + stage * kSlots + r]
+              ? static_cast<uint16_t>(word >> 16)
+              : static_cast<uint16_t>(word & 0xFFFF)));
+      uint32_t hi[8], lo[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float x0 = static_cast<float>(v8[2 * j]) * sr;
+        const float x1 = static_cast<float>(v8[2 * j + 1]) * sr;
+        const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+        hi[j] = *reinterpret_cast<const uint32_t*>(&hb);
+        lo[j] = pack_bf16(x0 - __low2float(hb), x1 - __high2float(hb));
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const uint32_t* w = p ? lo : hi;
+        *reinterpret_cast<uint4*>(sbp + L::k(p) + swz(r, 16 + 2 * c)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+        *reinterpret_cast<uint4*>(sbp + L::k(p) + swz(r, 16 + 2 * c + 1)) =
+            make_uint4(w[4], w[5], w[6], w[7]);
+      }
+      fence_async_smem();
+      __syncthreads();
     }
-  }
-  if (active) {
-    __nv_bfloat16* o =
-        out + (((size_t)b * H + h) * Tp + t) * VD + half * kVh;
+
+    // tiles past this warpgroup's last row are fully masked for it: skip
+    if (i < n_mine) {
+      if constexpr (kInt8)
+        qk_split(s, q_tile, sb + L::k(0), sb + L::k(1));
+      else
+        qk<kE>(s, q_tile, sb + L::k(0));
+
+      // fp32 scores times the scale, then the mask where the tile reaches
+      // past the warpgroup's first query or past the table
+      const bool masked = (i + 1) * kSlots - 1 > q_first
+                          || (i + 1) * kSlots > n_keys;
 #pragma unroll
-    for (int d = 0; d < kVh; ++d) o[d] = __float2bfloat16(acc[d]);
+      for (int j = 0; j < 32; ++j) {
+        const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        float x = s[j] * scale;
+        if (masked) {
+          const int key = i * kSlots + col;
+          if (key > q_abs[(j >> 1) & 1] || key >= n_keys) x = kMaskValue;
+        }
+        s[j] = x;
+      }
+
+      if (!sweep2) {
+        row_max_sum<false>(s, m, l);
+      } else {
+        uint32_t a[4][4];
+        uint32_t a2[4][4];
+        probs<kInt8>(s, m, l, ones, lane, a, a2);
+        pv<kVd>(o, a, sb + L::v(0));
+        if constexpr (kInt8) {
+          pv<kVd>(o, a, sb + L::v(1));
+          pv<kVd>(o, a2, sb + L::v(0));
+        }
+      }
+    }
+    __syncthreads();     // the stage is refilled by the next step's copies
+  }
+
+  // one bf16 cast; rows past T are not written
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int t = t0 + 16 * warp + (lane >> 2) + 8 * e;
+    if (t >= T) continue;
+    __nv_bfloat16* dst = out + (((size_t)b * T + t) * H + h) * kVd;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(
+            dst + 64 * hh + 8 * c + 2 * (lane & 3)) =
+            __floats2bfloat162_rn(o[hh][4 * c + 2 * e],
+                                  o[hh][4 * c + 2 * e + 1]);
   }
 }
 
 template <bool kInt8>
-int launch(dim3 grid, cudaStream_t st, const void* q, const void* ckv,
-           const void* krope, const void* ckv_scale, const void* krope_scale,
-           const void* wkv_b, const void* tables, const void* start,
-           void* out, int H, int Tp, int n_pages, float scale) {
-  using S = Smem<512, 128, 64, 128>;
-  auto* kernel = mla_prefill_kernel<512, 128, 64, 128, kInt8>;
-  static bool opted_in = false;
+int launch(int B, cudaStream_t st, const __nv_bfloat16* q,
+           const __nv_bfloat16* ws, const void* krope,
+           const __nv_bfloat16* krope_scale, const int32_t* tables,
+           const int32_t* start, __nv_bfloat16* out, int T, int H,
+           int n_pages, int S, float scale) {
+  using L = MLayout<kInt8>;
+  auto* kernel = mla_prefill_kernel<kInt8>;
+  constexpr int kSmem = L::kBytes + 1024;
+  static bool opted_in = false;       // internal linkage: one per library
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(S));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
-  kernel<<<grid, kThreads, sizeof(S), st>>>(
-      static_cast<const __nv_bfloat16*>(q), ckv, krope,
-      static_cast<const __nv_bfloat16*>(ckv_scale),
-      static_cast<const __nv_bfloat16*>(krope_scale),
-      static_cast<const __nv_bfloat16*>(wkv_b),
-      static_cast<const int32_t*>(tables),
-      static_cast<const int32_t*>(start), static_cast<__nv_bfloat16*>(out),
-      H, Tp, n_pages, scale);
+  kernel<<<dim3((T + L::kBRows - 1) / L::kBRows, H, B), L::kBThreads, kSmem,
+           st>>>(q, ws, krope, krope_scale, tables, start, out, T, H,
+                 n_pages, S, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, H, Tp, nope + R] bf16 (rope part roped; head-major, the token axis
-// padded to Tp); ckv [P, 16, L] and krope [P, 16, R] post-write latent
-// pages, bf16 (scales null) or int8 (ckv_scale and krope_scale [P, 16]
-// bf16); wkv_b [L, H, nope + vd] bf16; tables [B, n_pages] and start [B]
-// int32; out [B, H, Tp, vd] bf16.  L = 512, nope = 128, R = 64, vd = 128
-// (deepseek-v2) and 16-token pages.  Returns 0 on success, else the
+// q [B, T, H, nope + R] bf16 (rope part roped); ws [B, H, S, W] bf16, stage
+// A's K/V (mla_build_kv.cu); krope [P, 16, R] post-write rope-key pages,
+// bf16 (krope_scale null) or int8 with krope_scale [P, 16] bf16; tables [B,
+// n_pages] and start [B] int32; out [B, T, H, vd] bf16.  nope = vd = 128, R
+// = 64 (deepseek-v2) and 16-token pages.  Returns 0 on success, else the
 // cudaError_t of the refused or failed launch.
-extern "C" int mla_ragged_prefill(const void* q, const void* ckv,
-                                  const void* krope, const void* ckv_scale,
-                                  const void* krope_scale, const void* wkv_b,
+extern "C" int mla_ragged_prefill(const void* q, const void* ws,
+                                  const void* krope, const void* krope_scale,
                                   const void* tables, const void* start,
-                                  void* out, int B, int H, int Tp, int L,
-                                  int nope, int R, int vd, int ps,
-                                  int n_pages, float scale, void* stream) {
-  if (B < 1 || H < 1 || Tp < 1 || n_pages < 1 || L != 512 || nope != 128 ||
-      R != 64 || vd != 128 || ps != kPs ||
-      (ckv_scale == nullptr) != (krope_scale == nullptr))
+                                  void* out, int B, int T, int H, int E,
+                                  int R, int vd, int ps, int n_pages, int S,
+                                  float scale, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || n_pages < 1 || E != kE || R != kR ||
+      vd != kVd || ps != kPs || S % kSlots != 0 || S < n_pages * kPs)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((Tp + kRows - 1) / kRows, H, B);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (ckv_scale != nullptr)
-    return launch<true>(grid, st, q, ckv, krope, ckv_scale, krope_scale,
-                        wkv_b, tables, start, out, H, Tp, n_pages, scale);
-  return launch<false>(grid, st, q, ckv, krope, ckv_scale, krope_scale,
-                       wkv_b, tables, start, out, H, Tp, n_pages, scale);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* wp = static_cast<const __nv_bfloat16*>(ws);
+  const auto* sp = static_cast<const __nv_bfloat16*>(krope_scale);
+  const auto* tp = static_cast<const int32_t*>(tables);
+  const auto* stp = static_cast<const int32_t*>(start);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (krope_scale != nullptr)
+    return launch<true>(B, st, qp, wp, krope, sp, tp, stp, op, T, H,
+                        n_pages, S, scale);
+  return launch<false>(B, st, qp, wp, krope, sp, tp, stp, op, T, H, n_pages,
+                       S, scale);
 }

@@ -14,12 +14,14 @@ note); for CPU tensors they run ``ragged_prefill_plain`` and
 functions, which are also the reference backend's prefill cores and the
 kernels' oracles on the card.
 
-``mla_ragged_prefill`` (kernel K6, ``csrc/mla_ragged_prefill.cu``)
-replaces ``mla_ragged_prefill_attend`` (Pallas
-``kernel.py::mla_ragged_prefill_fwd``): the MLA chunk prefill against the
-post-write latent pages (bf16, or int8 plus bf16 per-slot scale pages),
-per-head K/V materialized from the latent inside the kernel;
-``mla_ragged_prefill_plain`` is its plain version.
+``mla_ragged_prefill`` (kernel K6) replaces ``mla_ragged_prefill_attend``
+(Pallas ``kernel.py::mla_ragged_prefill_fwd``): the MLA chunk prefill
+against the post-write latent pages (bf16, or int8 plus bf16 per-slot
+scale pages).  It runs two kernels: ``mla_build_kv`` (stage A,
+``csrc/mla_build_kv.cu``) builds every head's K/V of every key once into a
+workspace, then the attend (stage B, ``csrc/mla_ragged_prefill.cu``) reads
+it; ``mla_ragged_prefill_plain`` and ``mla_build_kv_plain`` are their plain
+versions.
 """
 from __future__ import annotations
 
@@ -213,32 +215,133 @@ def mla_ragged_prefill_plain(q, ckv_pages, krope_pages, wkv_b, tables, start,
         krope_scale=krope_scale).to(q.dtype)
 
 
-# q, ckv, krope, ckv_scale, krope_scale, wkv_b, tables, start, out, then B,
-# H, Tp, L, nope, R, vd, ps, n_pages, scale, stream
-_MLA_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
+# csrc/mla_build_kv.cu and mla_ragged_prefill.cu: L, nope, R, v; keys a
+# stage-A block and a stage-B tile
+MLA_DIMS = (512, 128, 64, 128)
+MLA_KEY_TILE = 64
+
+
+def mla_kv_rows(n_pages: int, ps: int) -> int:
+    """Rows a request has in K6's K/V workspace: every key of its table,
+    rounded up to a whole 64-key tile."""
+    return -(-n_pages * ps // MLA_KEY_TILE) * MLA_KEY_TILE
+
+
+def mla_built_keys(start, T: int, n_pages: int, ps: int):
+    """[B] keys stage A builds for each request: its pages up to the one
+    holding the chunk's last row (padding rows too), within the table."""
+    return torch.clamp((start.long() + T - 1) // ps + 1, max=n_pages) * ps
+
+
+def mla_build_kv_plain(ckv_pages, wkv_b, tables, start, T: int, *,
+                       ckv_scale=None):
+    """K6's stage A in plain PyTorch: every head's K (nope part) and V of
+    the keys ``mla_built_keys`` gives, ws [B, H, S, W] bf16 with S =
+    ``mla_kv_rows``, the other rows zeros.  bf16 pages: W = nope + v, the
+    einsum of ``mla.materialized_attend`` (fp64 sums rounded once to fp32,
+    then to bf16).  int8 pages: x = the fp32 einsum of the latent
+    dequantized as ``f32(q) * f32(s)``, stored as W = 2 (nope + v) columns,
+    hi = bf16(x) then lo = bf16(x - hi)."""
+    B, n_pages = tables.shape
+    ps = ckv_pages.shape[1]
+    cc = attention.gather_pages(ckv_pages, tables)
+    if ckv_scale is None:
+        kv = torch.einsum("bsl,lhe->bhse", cc.double(),
+                          wkv_b.double()).float().bfloat16()
+    else:
+        x = torch.einsum("bsl,lhe->bhse", attention.dequant_int8(
+            cc, attention.gather_pages(ckv_scale, tables)), wkv_b.float())
+        hi = x.bfloat16()
+        kv = torch.cat([hi, (x - hi.float()).bfloat16()], -1)
+    keys = torch.arange(n_pages * ps, device=kv.device)
+    built = keys[None, :] < mla_built_keys(start, T, n_pages, ps)[:, None]
+    ws = torch.zeros(kv.shape[:2] + (mla_kv_rows(n_pages, ps),
+                                     kv.shape[3]),
+                     dtype=torch.bfloat16, device=kv.device)
+    ws[:, :, :n_pages * ps] = kv.masked_fill(~built[:, None, :, None], 0)
+    return ws
+
+
+# ckv, ckv_scale, wkv_b, tables, start, ws, then B, T, H, L, nope, vd, ps,
+# n_pages, S, stream
+_KV_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
+    + [ctypes.c_void_p]
+
+
+def mla_build_kv(ckv_pages, wkv_b, tables, start, T: int, *, nope: int,
+                 ckv_scale=None):
+    """K6's stage A (``csrc/mla_build_kv.cu``); arguments as
+    ``mla_build_kv_plain`` plus the nope width, and its values, but that
+    rows past a request's built keys are zeros only within its last 64-key
+    tile and not written past it.  On a CUDA device the latent pages are
+    contiguous bf16 (or int8 with contiguous bf16 ``ckv_scale`` [P, ps]),
+    ``wkv_b`` contiguous bf16, ``tables`` and ``start`` contiguous int32,
+    L = 512, nope = v = 128 and 16-token pages; anything else raises."""
+    if ckv_pages.device.type == "cpu":
+        return mla_build_kv_plain(ckv_pages, wkv_b, tables, start, T,
+                                  ckv_scale=ckv_scale)
+    dev = ckv_pages.device
+    check_tensor(ckv_pages, "ckv_pages",
+                 torch.bfloat16 if ckv_scale is None else torch.int8, 3, dev)
+    if ckv_scale is not None:
+        check_tensor(ckv_scale, "ckv_scale", torch.bfloat16, 2, dev)
+    check_tensor(wkv_b, "wkv_b", torch.bfloat16, 3, dev)
+    check_tensor(tables, "tables", torch.int32, 2, dev)
+    check_tensor(start, "start", torch.int32, 1, dev)
+    B, n_pages = tables.shape
+    P, ps, L = ckv_pages.shape
+    H, vd = wkv_b.shape[1], wkv_b.shape[2] - nope
+    if (L, nope, vd) != MLA_DIMS[:2] + MLA_DIMS[3:] or ps != 16 \
+            or wkv_b.shape[0] != L or start.shape[0] != B or T < 1 \
+            or (ckv_scale is not None
+                and tuple(ckv_scale.shape) != (P, ps)):
+        raise ValueError(
+            f"mla_build_kv: unsupported shapes ckv {tuple(ckv_pages.shape)}, "
+            f"wkv_b {tuple(wkv_b.shape)}, tables {tuple(tables.shape)}, "
+            f"start {tuple(start.shape)}, T {T}")
+    S = mla_kv_rows(n_pages, ps)
+    planes = 1 if ckv_scale is None else 2
+    ws = torch.empty((B, H, S, planes * (nope + vd)), dtype=torch.bfloat16,
+                     device=dev)
+    rc = entry("mla_build_kv", _KV_ARGTYPES)(
+        ckv_pages.data_ptr(), ptr(ckv_scale), wkv_b.data_ptr(),
+        tables.data_ptr(), start.data_ptr(), ws.data_ptr(), B, T, H, L, nope,
+        vd, ps, n_pages, S, torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(rc, "mla_build_kv")
+    mla_build_kv.launches += 1
+    return ws
+
+
+mla_build_kv.launches = 0
+
+
+# q, ws, krope, krope_scale, tables, start, out, then B, T, H, E, R, vd,
+# ps, n_pages, S, scale, stream
+_MLA_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
     + [ctypes.c_float, ctypes.c_void_p]
-MLA_DIMS = (512, 128, 64, 128)   # csrc/mla_ragged_prefill.cu: L, nope, R, v
-MLA_Q_BLOCK = 128                # the TPU wrapper's q_blk
 
 
 def mla_ragged_prefill(q, ckv_pages, krope_pages, wkv_b, tables, start, *,
                        nope: int, ckv_scale=None, krope_scale=None):
     """MLA ragged chunk prefill (K6); arguments as
     ``mla_ragged_prefill_plain`` (the kernel tiles its own queries, so it
-    takes no ``q_block``).  As the TPU wrapper does, the queries go
-    head-major ([B, H, T, E]) with the token axis padded to a multiple of
-    the q block ``min(128, T rounded up to 8)``; the padding rows are
-    computed and dropped.  On a CUDA device ``q`` and ``wkv_b`` are bf16
-    (``wkv_b`` contiguous), the latent pages contiguous bf16 (or int8 with
-    both scale pages, contiguous bf16 [P, ps]), ``tables`` and ``start``
-    contiguous int32, L = 512, nope = 128, R = 64, v = 128 (deepseek-v2)
-    and 16-token pages; anything else raises."""
+    takes no ``q_block``).  On a CUDA device it launches stage A
+    (``mla_build_kv``: every key's K/V of every head, once, into a
+    workspace) and then stage B (the causal attend over the workspace and
+    the rope-key pages, ``csrc/mla_ragged_prefill.cu``), which reads q
+    [B, T, H, E] and writes [B, T, H, v] in place, rows past T untouched.
+    There ``q`` is contiguous bf16, ``wkv_b`` contiguous bf16, the latent
+    pages contiguous bf16 (or int8 with both scale pages, contiguous bf16
+    [P, ps]), ``tables`` and ``start`` contiguous int32, L = 512, nope =
+    128, R = 64, v = 128 (deepseek-v2) and 16-token pages; anything else
+    raises."""
     if q.device.type == "cpu":
         return mla_ragged_prefill_plain(q, ckv_pages, krope_pages, wkv_b,
                                         tables, start, nope=nope,
                                         ckv_scale=ckv_scale,
                                         krope_scale=krope_scale)
     dev = q.device
+    check_tensor(q, "q", torch.bfloat16, 4, dev)
     B, T, H, E = q.shape
     P, ps, L, R = check_latent_pool("mla_ragged_prefill", dev, ckv_pages,
                                     krope_pages, tables, ckv_scale,
@@ -246,8 +349,7 @@ def mla_ragged_prefill(q, ckv_pages, krope_pages, wkv_b, tables, start, *,
     vd = wkv_b.shape[2] - nope
     check_tensor(wkv_b, "wkv_b", torch.bfloat16, 3, dev)
     check_tensor(start, "start", torch.int32, 1, dev)
-    if q.dtype != torch.bfloat16 or (L, nope, R, vd) != MLA_DIMS \
-            or E != nope + R or ps != 16 \
+    if (L, nope, R, vd) != MLA_DIMS or E != nope + R or ps != 16 \
             or tuple(wkv_b.shape[:2]) != (L, H) or tables.shape[0] != B \
             or start.shape[0] != B:
         raise ValueError(
@@ -255,20 +357,18 @@ def mla_ragged_prefill(q, ckv_pages, krope_pages, wkv_b, tables, start, *,
             f"{q.dtype}, ckv {tuple(ckv_pages.shape)}, krope "
             f"{tuple(krope_pages.shape)}, wkv_b {tuple(wkv_b.shape)}, tables "
             f"{tuple(tables.shape)}, start {tuple(start.shape)}")
-    blk = min(MLA_Q_BLOCK, -(-T // 8) * 8)
-    Tp = -(-T // blk) * blk
-    qg = torch.zeros((B, H, Tp, E), dtype=q.dtype, device=dev)
-    qg[:, :, :T] = q.transpose(1, 2)
-    out = torch.empty((B, H, Tp, vd), dtype=q.dtype, device=dev)
+    ws = mla_build_kv(ckv_pages, wkv_b, tables, start, T, nope=nope,
+                      ckv_scale=ckv_scale)
+    out = torch.empty((B, T, H, vd), dtype=q.dtype, device=dev)
     rc = entry("mla_ragged_prefill", _MLA_ARGTYPES)(
-        qg.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
-        ptr(ckv_scale), ptr(krope_scale), wkv_b.data_ptr(),
-        tables.data_ptr(), start.data_ptr(), out.data_ptr(), B, H, Tp, L,
-        nope, R, vd, ps, tables.shape[1], float(1.0 / math.sqrt(nope + R)),
+        q.data_ptr(), ws.data_ptr(), krope_pages.data_ptr(), ptr(krope_scale),
+        tables.data_ptr(), start.data_ptr(), out.data_ptr(), B, T, H, E, R,
+        vd, ps, tables.shape[1], ws.shape[2],
+        float(1.0 / math.sqrt(nope + R)),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "mla_ragged_prefill")
     mla_ragged_prefill.launches += 1
-    return out[:, :, :T].transpose(1, 2)
+    return out
 
 
 mla_ragged_prefill.launches = 0

@@ -19,8 +19,11 @@ in a ring of n pages and in one of n + 1 give equal bits; K1's, K3's and
 K4's rows of one request alone equal its rows in the batch.  K5 (MLA decode),
 K6 (MLA prefill) and K7 (MLA verify), bf16 and int8, are held to their
 plain versions by the same one-ulp rule; K7 with one live query equals K5
-bit for bit.  K9 (the training forward's causal flash attention) is held
-to its plain version by the one-ulp rule in bf16 and within 1e-5 in fp32,
+bit for bit; K6's stage A gives the plain einsum's bf16 K/V bit for bit
+(int8: hi + lo within 2^-16 of the row), and K6's rows are equal bit for
+bit however a prompt is chunked and whatever else is in the batch.  K9
+(the training forward's causal flash attention) is held to its plain
+version by the one-ulp rule in bf16 and within 1e-5 in fp32,
 its backward (torch ops) to autograd through the plain version within
 1e-5 relative L2, and a small fp32 qwen2-0.5b's loss and gradients on the
 hopper backend to the reference backend's within 1e-5 and 1e-4.  The hopper engine passes the dual gate against the reference
@@ -38,11 +41,13 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     mla_paged_verify_plain, paged_decode, paged_decode_plain, paged_verify,
     paged_verify_plain)
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
-    mla_ragged_prefill, mla_ragged_prefill_plain, ragged_prefill,
-    ragged_prefill_plain, windowed_prefill, windowed_prefill_plain)
+    mla_build_kv, mla_build_kv_plain, mla_ragged_prefill,
+    mla_ragged_prefill_plain, ragged_prefill, ragged_prefill_plain,
+    windowed_prefill, windowed_prefill_plain)
 from repro_torch.kernels.rbm_cd import (  # noqa: E402
     gemm_sigmoid, gemm_sigmoid_plain)
-from repro_torch.models.attention import quantize_int8  # noqa: E402
+from repro_torch.models.attention import (  # noqa: E402
+    dequant_int8, gather_pages, quantize_int8)
 from repro_torch.models.registry import init_params  # noqa: E402
 from repro_torch.serving import Engine, dual_gate, replay_logits  # noqa: E402
 
@@ -793,6 +798,96 @@ def test_int8_mla_prefill_kernel_matches_plain(cuda, H, T, starts, n_live):
     assert mla_ragged_prefill.launches == n0 + 1
     assert got.shape == want.shape == (B, T, H, 128)
     assert _within_one_ulp(got, want)
+
+
+def _mla_prefill_case(rng, H, T, starts, n_live, int8, cuda):
+    """(q, ckv, krope, wkv_b, tables, start), scale kwargs: latent pages
+    for chunks at ``starts`` with ``n_live`` real tokens (table entries
+    past them on the null page), int8 quantized from the same values."""
+    ckv, kr, t = _latent(rng, [s + n for s, n in zip(starts, n_live)], 16,
+                         -(-(max(starts) + T) // 16), cuda)
+    kw = {}
+    if int8:
+        ckv, kr, kw = _int8_latent(ckv, kr)
+    q = torch.from_numpy(rng.randn(len(starts), T, H, 192).astype(
+        np.float32)).bfloat16().to(cuda)
+    w = torch.from_numpy((rng.randn(512, H, 256) / np.sqrt(512)).astype(
+        np.float32)).bfloat16().to(cuda)
+    return (q, ckv, kr, w, t,
+            torch.tensor(starts, dtype=torch.int32, device=cuda)), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("H,T,starts", [(8, 40, (0, 96, 16)),
+                                        (128, 256, (0, 1792))])
+def test_mla_build_kv_matches_the_plain_einsum(cuda, H, T, starts, int8):
+    """K6's stage A on the card: bf16 K/V bit-equal to the plain einsum's
+    (fp64 sums, one rounding to fp32, then to bf16) over every built key;
+    int8 hi + lo within 2^-16 of each row's largest |x| of the fp32 einsum
+    x (hi + lo keeps 16 bits of the kernel's own fp32 x, so they are within
+    2^-17 |x| of it); one launch counted."""
+    rng = np.random.RandomState(H + T + int8)
+    (q, ckv, kr, w, t, st), kw = _mla_prefill_case(
+        rng, H, T, starts, [T] * len(starts), int8, cuda)
+    cs = kw.get("ckv_scale")
+    n0 = mla_build_kv.launches
+    got = mla_build_kv(ckv, w, t, st, T, nope=128, ckv_scale=cs)
+    want = mla_build_kv_plain(ckv, w, t, st, T, ckv_scale=cs)
+    assert mla_build_kv.launches == n0 + 1
+    assert got.shape == want.shape
+    if int8:
+        x = torch.einsum("bsl,lhe->bhse", dequant_int8(
+            gather_pages(ckv, t), gather_pages(cs, t)), w.float())
+    for b, start in enumerate(starts):
+        n = min((start + T - 1) // 16 + 1, t.shape[1]) * 16
+        g, p = got[b, :, :n], want[b, :, :n]
+        if int8:
+            y = x[b, :, :n]
+            bound = 2.0 ** -16 * y.abs().amax(-1, keepdim=True)
+            assert ((g[..., :256].float() + g[..., 256:].float() - y).abs()
+                    <= bound).all()
+        else:
+            assert torch.equal(g, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_mla_prefill_rows_alone_equal_rows_in_the_batch(cuda, int8):
+    """K6's rows of each request prefilled alone equal its rows in the
+    batch, bit for bit."""
+    rng = np.random.RandomState(70 + int8)
+    args, kw = _mla_prefill_case(rng, 8, 100, (0, 96, 37), (100, 100, 13),
+                                 int8, cuda)
+    q, ckv, kr, w, t, st = args
+    got = mla_ragged_prefill(*args, nope=128, **kw)
+    assert _within_one_ulp(got, mla_ragged_prefill_plain(*args, nope=128,
+                                                         **kw))
+    for b in range(q.shape[0]):
+        assert torch.equal(mla_ragged_prefill(
+            q[b:b + 1], ckv, kr, w, t[b:b + 1], st[b:b + 1], nope=128, **kw),
+            got[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_mla_prefill_rows_equal_across_a_chunk_split(cuda, int8):
+    """A 300-token prompt at start 0 prefilled as one chunk and as chunks
+    [0, 52), [52, 200) and [200, 300) over the same post-write pages: K6
+    gives the same rows, bit for bit."""
+    rng = np.random.RandomState(80 + int8)
+    (q, ckv, kr, w, t, _), kw = _mla_prefill_case(rng, 16, 300, (0,),
+                                                  (300,), int8, cuda)
+
+    def run(lo, hi):
+        return mla_ragged_prefill(
+            q[:, lo:hi].contiguous(), ckv, kr, w, t,
+            torch.tensor([lo], dtype=torch.int32, device=cuda), nope=128,
+            **kw)
+
+    one = run(0, 300)
+    assert torch.equal(one, torch.cat([run(0, 52), run(52, 200),
+                                       run(200, 300)], 1))
 
 
 @pytest.mark.cuda
