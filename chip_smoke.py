@@ -117,14 +117,20 @@ Phases, each printing its own lines; any failed check exits non-zero:
    1024, 14 / 2 heads of 64) causal in bf16, the same full (causal=False)
    and in fp32, and minitron-4b's heads (24 / 8 of 128) causal in bf16,
    each timed beside ``scaled_dot_product_attention`` on K/V repeated to
-   the query heads; and its differentiable form's gradients against
-   autograd through the plain version in fp32 (relative L2 within 1e-5);
+   the query heads, with the bound of the function (4 D flops a pair)
+   and that of the tensor-core body's two-term PV (6 D); bit for bit, each
+   request alone against its rows in the batch, and the causal rows
+   0..999 of a call at S = 1000 against those at S = 1024 on the same
+   inputs; the ``ptxas`` lines of its library; and its differentiable
+   form's gradients against autograd through the plain version in fp32
+   (relative L2 within 1e-5);
 18. the training path: full-width, full-depth qwen2-0.5b (random weights
    from ``--seed``, AdamW at 3e-4 with linear warmup and cosine) on
    ``token_batches(vocab, 8, 1024)``: (a) 20 steps on the hopper backend,
    K9 launched 24 times a step, the mean loss of the last 5 steps below
    that of the first 5, with step time, tokens/s, peak memory and, from a
-   profiled 3-step rerun, the device's busy share; (b) one step's loss and
+   profiled 3-step rerun, the device's busy share and K9's share of the
+   device time; (b) one step's loss and
    gradients on hopper and on reference at B 2 (the reference keeps every
    layer's fp32 probabilities for its backward), |dloss| within 0.01 and
    every leaf's gradient within 0.1 relative L2 (K9 keeps p in fp32 where
@@ -292,8 +298,9 @@ def rows_alone(torch, name, got, call):
     by itself) to its rows in the batch's output ``got``, bit for bit: K1
     and K3 split a row's keys over blocks and merge the partials in split
     order, K4 anchors its key tiles at absolute pages and chunk token 0,
-    and K6 builds each key's K/V and sums a row's keys in 64-key tiles
-    anchored at key 0, so no row may depend on the rest of its batch."""
+    K6 builds each key's K/V and sums a row's keys in 64-key tiles
+    anchored at key 0, and K9 sums a row's keys in 64-key tiles anchored at
+    key 0, so no row may depend on the rest of its batch."""
     equal = all(torch.equal(call(b), got[b:b + 1])
                 for b in range(got.shape[0]))
     print(f"[smoke] {name}: each of the {got.shape[0]} requests alone gives "
@@ -2212,12 +2219,17 @@ TR_LOSS_TOL = 1e-2             # (b) |loss hopper - loss reference|
 TR_GRAD_TOL = 0.1              # (b) per-leaf rel L2 of the gradients
 
 
-def k9_bound(B, S, H, K, D, causal, esize):
-    """(bound ms, bound_by, flops, bytes) of one K9 call: 4 B H D flops per
-    (query, key) pair the mask keeps; q, k, v and out read or written
-    once."""
+K9_KERNELS = ("flash_wgmma_kernel", "flash_ffma_kernel",
+              "flash_fwd_kernel")     # the last: the FFMA-only K9's name
+
+
+def k9_bound(B, S, H, K, D, causal, esize, terms=1):
+    """(bound ms, bound_by, flops, bytes) of one K9 call: (2 + 2 terms) B H
+    D flops per (query, key) pair the mask keeps -- the function's 4 D, or
+    6 D for the tensor-core body's PV with p as two bf16 terms -- and q, k,
+    v and out read or written once."""
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * H * D * pairs
+    flops = (2 + 2 * terms) * B * H * D * pairs
     nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * esize
     rate = BF16_FLOPS_PER_S if esize == 2 else FP32_FLOPS_PER_S
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
@@ -2230,12 +2242,17 @@ def phase_flash(torch, timer):
     1024, 14 / 2 heads of 64) causal in bf16 (the main path's call), the
     same full (causal=False) and in fp32, and minitron-4b's heads (24 / 8 of
     128) causal in bf16; bf16 within one bf16 ulp of the row's max, fp32
-    within ``K9_FP32_TOL``.  Each timed beside the plain version and
-    ``scaled_dot_product_attention`` on K/V repeated to the query heads
-    (the yardstick; the port never calls it).  Then the differentiable
-    form's gradients against autograd through the plain version in fp32.
-    Returns the main shape's numbers with the others under "shapes"."""
+    within ``K9_FP32_TOL``.  Bit for bit: each request alone against its
+    rows in the batch, and, causal, rows 0..999 of the same inputs cut to
+    S = 1000 against the S = 1024 call's.  Each timed beside the plain
+    version and ``scaled_dot_product_attention`` on K/V repeated to the
+    query heads (the yardstick; the port never calls it), with the
+    function's bound and, in bf16, the two-term body's.  Then the ``ptxas``
+    lines of K9's library and the differentiable form's gradients against
+    autograd through the plain version in fp32.  Returns the main shape's
+    numbers with the others under "shapes"."""
     import torch.nn.functional as F
+    from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import (
         attention_plain, flash_attention, flash_attention_train)
     gen = torch.Generator(device="cuda").manual_seed(91)
@@ -2263,6 +2280,19 @@ def phase_flash(torch, timer):
                 fail(f"{name} disagrees with its plain version")
         else:
             err, ratio = check_kernel(torch, name, got, want)
+        alone = rows_alone(torch, name, got, lambda b: flash_attention(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal))
+        prefix = None
+        if causal:
+            cut = 1000
+            prefix = torch.equal(flash_attention(
+                *(t[:, :cut].contiguous() for t in (q, k, v)),
+                causal=True), got[:, :cut])
+            print(f"[smoke] {name}: rows 0..{cut - 1} of the inputs cut to "
+                  f"S = {cut} equal the S = {S} call's bit for bit "
+                  f"{'-> OK' if prefix else '-> DIFFER'}", flush=True)
+            if not prefix:
+                fail(f"{name}: a causal row depends on the keys past it")
         ms = timer(lambda: flash_attention(q, k, v, causal=causal))
         plain_ms = timer(lambda: attention_plain(q, k, v, causal=causal))
         G = H // K
@@ -2271,18 +2301,27 @@ def phase_flash(torch, timer):
         vh = v.transpose(1, 2).repeat_interleave(G, 1)
         library_ms = timer(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=causal))
-        bms, by, flops, nbytes = k9_bound(B, S, H, K, D, causal,
-                                          q.element_size())
+        esize = q.element_size()
+        bms, by, flops, nbytes = k9_bound(B, S, H, K, D, causal, esize)
+        two = (k9_bound(B, S, H, K, D, causal, esize, terms=2)[0]
+               if dt == torch.bfloat16 else None)
         print(f"[smoke] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
-              f"{flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)"
+              + (f", two-term bound {two:.4f} ms (6 D flops a pair)"
+                 if two else "")
+              + f"; {flops / ms / 1e9:.2f} TFLOP/s of the function",
+              flush=True)
         out.append({"shape": f"{label} B={B} S={S} H={H} K={K} D={D}",
                     "dtype": str(dt)[6:], "max_abs_err": err,
                     "err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bms, "bound_by": by,
-                    "library_ms": library_ms})
+                    "bound_two_term_ms": two, "library_ms": library_ms,
+                    "alone_bit_equal": alone, "prefix_bit_equal": prefix})
 
+    _, libs = build_all()
+    ptxas = print_ptxas("flash_attention",
+                        libs["flash_attention"].with_suffix(".log"))
     B, S, H, K, D = 2, TR_S, 14, 2, 64
     q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda")
              for _ in range(2))
@@ -2306,7 +2345,7 @@ def phase_flash(torch, timer):
           f"backward -> {'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail("K9's backward disagrees with autograd of its plain version")
-    return {**out[0], "shapes": out, "grad_rel_l2": rel}
+    return {**out[0], "shapes": out, "grad_rel_l2": rel, "ptxas": ptxas}
 
 
 def train_batches(cfg, B, S, n, seed):
@@ -2315,29 +2354,22 @@ def train_batches(cfg, B, S, n, seed):
     return [next(it)["tokens"] for _ in range(n)]
 
 
-def phase_train(torch, seed):
-    """The LM training path: full-width, full-depth qwen2-0.5b with random
-    weights from ``seed``.  (a) ``TR_STEPS`` AdamW steps on the hopper
-    backend (K9 for each layer's attention), the loss, step time, tokens/s,
-    peak memory and K9 launches a step, then 3 more steps under
-    ``torch.profiler`` for the device's busy share; (b) one step's loss and
-    gradients from the same params and batch (B = ``TR_REF_B``) on hopper
-    and on reference; (c) one ``--engine mapreduce`` step over NCCL at world
-    size 1 against the pjit step, bit for bit; (d) a checkpoint and resume
-    (depth cut to ``TR_CKPT_LAYERS``) whose loss history equals an
-    uninterrupted run's.  Returns (K9 launches in (a), report)."""
-    import dataclasses
-    import shutil
-    import torch.distributed as dist
+def train_run(torch, seed):
+    """Phase 18 (a), and ``launch/train_cost.py --part train``: full-width,
+    full-depth qwen2-0.5b with random weights from ``seed`` trained
+    ``TR_STEPS`` AdamW steps on the hopper backend (K9 for each layer's
+    attention): the loss, step time p50, tokens/s, peak memory and K9
+    launches a step, failing unless the loss falls and K9 runs once a
+    layer a step; then 3 more steps under ``torch.profiler``: the device's
+    busy share of the wall time and K9's share of the device time.
+    Returns (K9 launches, report, (cfg, ocfg, step, params0, state0,
+    batches)) for the rest of phase 18."""
     from repro_torch.configs import get_arch
-    from repro_torch.core.mapreduce import value_and_grad
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.train import local_group
     from repro_torch.models.params import tree_leaves
-    from repro_torch.models.registry import build_model, init_params
+    from repro_torch.models.registry import init_params
     from repro_torch.models.steps import make_train_step
     from repro_torch.optim import OptConfig, init_opt_state
-    from repro_torch.runtime import LoopConfig, TrainLoop
     cfg = get_arch("qwen2-0.5b")
     ocfg = OptConfig(lr=TR_LR, schedule="linear_warmup_cosine",
                      warmup=max(1, TR_STEPS // 10), total_steps=TR_STEPS)
@@ -2381,12 +2413,53 @@ def phase_train(torch, seed):
         for b in batches[TR_STEPS:]:
             params, state, m = step(params, state, {"tokens": b})
             m["loss"].item()
-    busy = None
+    busy = k9_ms = k9_share = None
     prof = profile_device(torch, more)
     if prof is not None:
         busy = print_profile("3 training steps (B=8, S=1024, hopper)", *prof)
+        k9_us = sum(t for key, t, _ in prof[1]
+                    if any(n in key for n in K9_KERNELS))
+        k9_ms = k9_us / 1e3
+        k9_share = k9_us / sum(t for _, t, _ in prof[1])
+        print(f"[smoke] K9 in those 3 steps: {k9_ms:.3f} ms = "
+              f"{k9_share:.3f} of device time", flush=True)
     del params, state
     torch.cuda.empty_cache()
+    report = {
+        "config": cfg.name, "n_params": n_params, "batch": TR_B,
+        "seq_len": TR_S, "steps": TR_STEPS, "lr": TR_LR, "losses": losses,
+        "loss_first5": first, "loss_last5": last,
+        "step_ms_p50": p50 * 1e3, "tokens_per_s": TR_B * TR_S / p50,
+        "peak_memory_gib": peak / 2**30,
+        "k9_launches_per_step": launches / TR_STEPS, "busy_share": busy,
+        "k9_device_ms_3_steps": k9_ms, "k9_share_of_device": k9_share}
+    return launches, report, (cfg, ocfg, step, p0, s0, batches)
+
+
+def phase_train(torch, seed):
+    """The LM training path: full-width, full-depth qwen2-0.5b with random
+    weights from ``seed``.  (a) ``train_run``: ``TR_STEPS`` AdamW steps on
+    the hopper backend (K9 for each layer's attention), the loss, step
+    time, tokens/s, peak memory and K9 launches a step, then 3 more steps
+    under ``torch.profiler`` for the device's busy share and K9's share of
+    it; (b) one step's loss and gradients from the same params and batch
+    (B = ``TR_REF_B``) on hopper and on reference; (c) one ``--engine
+    mapreduce`` step over NCCL at world size 1 against the pjit step, bit
+    for bit; (d) a checkpoint and resume (depth cut to ``TR_CKPT_LAYERS``)
+    whose loss history equals an uninterrupted run's.  Returns (K9
+    launches in (a), report)."""
+    import dataclasses
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.core.mapreduce import value_and_grad
+    from repro_torch.launch.train import local_group
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.registry import build_model, init_params
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import init_opt_state
+    from repro_torch.runtime import LoopConfig, TrainLoop
+    launches, report, (cfg, ocfg, step, p0, s0, batches) = train_run(
+        torch, seed)
 
     # (b) hopper vs reference: one step's loss and gradients
     batch = {"tokens": batches[0][:TR_REF_B]}
@@ -2473,12 +2546,7 @@ def phase_train(torch, seed):
     if not resume_equal:
         fail("train: the resumed run differs from the uninterrupted run")
     return launches, {
-        "config": cfg.name, "n_params": n_params, "batch": TR_B,
-        "seq_len": TR_S, "steps": TR_STEPS, "lr": TR_LR, "losses": losses,
-        "loss_first5": first, "loss_last5": last,
-        "step_ms_p50": p50 * 1e3, "tokens_per_s": TR_B * TR_S / p50,
-        "peak_memory_gib": peak / 2**30,
-        "k9_launches_per_step": launches / TR_STEPS, "busy_share": busy,
+        **report,
         "vs_reference": {"batch": TR_REF_B, "dloss": dloss,
                          "grad_rel_l2_worst": rel[worst],
                          "grad_rel_l2_worst_leaf": worst,
@@ -2565,15 +2633,17 @@ def profile_rerun(torch, eng, prompts, n_new=8):
     return busy
 
 
-def print_ptxas(stem, log_path) -> None:
+def print_ptxas(stem, log_path) -> list:
     """One line per kernel instantiation of a library: registers, spill
     stores and static shared memory, as ``ptxas -v`` reported them when it
-    was built."""
+    was built.  Returns them as [{"kernel", "registers", "spill_bytes",
+    "static_smem"}] (empty without a build log)."""
     import re
+    rows = []
     if not log_path.exists():
         print(f"[smoke] ptxas {stem}: no build log (not measured)",
               flush=True)
-        return
+        return rows
     name = None
     for line in log_path.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -2593,7 +2663,11 @@ def print_ptxas(stem, log_path) -> None:
             print(f"[smoke] ptxas {stem}: {name}: {m.group(1)} registers, "
                   f"{spill} B spill stores, {m.group(2) or 0} B static "
                   f"shared memory", flush=True)
+            rows.append({"kernel": name, "registers": int(m.group(1)),
+                         "spill_bytes": int(spill),
+                         "static_smem": int(m.group(2) or 0)})
             name = None
+    return rows
 
 
 def main() -> None:

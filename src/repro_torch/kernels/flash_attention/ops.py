@@ -5,11 +5,13 @@ kernel K9.
 flash_attention`` (Pallas ``kernel.py::flash_attention_fwd``) and takes the
 model's layout, q [B, S, H, D] and k, v [B, S, K, D] with H % K == 0.  For
 CUDA tensors it launches the hand-written kernel in
-``csrc/flash_attention.cu`` (design and bound in its note); for CPU
-tensors it runs ``attention_plain``, the plain PyTorch version of the same
-function (``repro.kernels.flash_attention.ref.attention_ref``: one fp32
-softmax over every key and one cast), which is also the kernel's oracle on
-the card.
+``csrc/flash_attention.cu`` (design and bound in its note): bf16 at head
+dim 64 and 128 runs its tensor-core body (``wgmma``, p as two bf16
+terms), fp32 and bf16 at head dim 32 its FFMA body.  For CPU tensors it
+runs ``attention_plain``, the plain PyTorch version of the same function
+(``repro.kernels.flash_attention.ref.attention_ref``: one fp32 softmax
+over every key and one cast), which is also the kernel's oracle on the
+card.
 
 ``flash_attention_train`` is the differentiable form: the forward is
 ``flash_attention``, the backward is written out in torch ops (the TPU
@@ -63,7 +65,8 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     """Attention of q [B, S, H, D] over k, v [B, S, K, D] (H % K == 0),
-    scores (q * scale) . k with ``scale`` 1 / sqrt(D) by default, causal or
+    fp32 scores (q . k) * scale with ``scale`` 1 / sqrt(D) by default (the
+    FFMA body, fp32 or head dim 32, takes (q * scale) . k), causal or
     full.  On a CUDA device every tensor is a contiguous fp32 or bf16
     tensor of one dtype with D in 32, 64 or 128; anything else raises.
     Returns [B, S, H, D] in q's dtype."""

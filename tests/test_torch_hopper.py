@@ -23,7 +23,9 @@ bit for bit; K6's stage A gives the plain einsum's bf16 K/V bit for bit
 (int8: hi + lo within 2^-16 of the row), and K6's rows are equal bit for
 bit however a prompt is chunked and whatever else is in the batch.  K9
 (the training forward's causal flash attention) is held to its plain
-version by the one-ulp rule in bf16 and within 1e-5 in fp32,
+version by the one-ulp rule in bf16 and within 1e-5 in fp32; in bf16 at
+head dim 64 and 128 a request alone gives its rows in the batch, and the
+causal rows of a call at S' < S equal those at S, bit for bit;
 its backward (torch ops) to autograd through the plain version within
 1e-5 relative L2, and a small fp32 qwen2-0.5b's loss and gradients on the
 hopper backend to the reference backend's within 1e-5 and 1e-4.  The hopper engine passes the dual gate against the reference
@@ -938,7 +940,8 @@ def test_speculative_and_int8_hopper_mla_engine_pass_the_dual_gate(
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,causal,G,D,S", [
     ("bfloat16", True, 7, 64, 1000), ("bfloat16", False, 3, 128, 333),
-    ("float32", True, 1, 32, 200), ("float32", False, 6, 64, 129)])
+    ("float32", True, 1, 32, 200), ("float32", False, 6, 64, 129),
+    ("bfloat16", True, 3, 128, 777)])
 def test_flash_kernel_matches_plain(cuda, dtype, causal, G, D, S):
     """K9 against its plain version (one fp32 softmax over every key): bf16
     within one bf16 ulp of the row's max, fp32 within 1e-5; S is never a
@@ -961,6 +964,31 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, G, D, S):
         assert (got - want).abs().max().item() <= 1e-5
     else:
         assert _within_one_ulp(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D", [(7, 64), (3, 128)])
+def test_flash_rows_alone_and_past_s_are_bit_equal(cuda, G, D):
+    """K9's tensor-core body (bf16, head dim 64 and 128), bit for bit: each
+    of 4 requests alone gives its rows in the batch, causal and full; and
+    the causal rows 0..256 of a call at S = 257 equal rows 0..256 at S =
+    320 on the same inputs (keys past 257 zero-filled in one call, real
+    and masked in the other; the tiles past a row tile's last token
+    skipped)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(G * D)
+    B, S, K = 4, 320, 2
+    q, k, v = (torch.randn((B, S, n, D), generator=gen,
+                           device=cuda).bfloat16() for n in (K * G, K, K))
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal)
+        for b in range(B):
+            assert torch.equal(flash_attention(
+                q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal),
+                got[b:b + 1]), (causal, b)
+    cut = flash_attention(*(t[:, :257].contiguous() for t in (q, k, v)),
+                          causal=True)
+    assert torch.equal(cut, flash_attention(q, k, v, causal=True)[:, :257])
 
 
 @pytest.mark.cuda
