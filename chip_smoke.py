@@ -93,13 +93,17 @@ Phases, each printing its own lines; any failed check exits non-zero:
    (128 heads, a 512-wide latent and 64-wide rope key, 16-token pages),
    bf16 and int8 (pools quantized from the same bf16 data by
    ``quantize_int8``): K5 at B=8, ragged positions up to 2047 over
-   shuffled tables and two idle rows; K6 on 8 chunks of 256 at starts 0,
+   shuffled tables and two idle rows, each request alone equal to its
+   rows in the batch bit for bit; K6 on 8 chunks of 256 at starts 0,
    256, ..., 1792, the last with 200 live tokens (its padding rows
    computed), each request alone equal to its rows in the batch bit for
    bit, and K6's stage A (every key's K/V built once, ``mla_build_kv``)
    against its plain version, bf16 K/V bit for bit; K7 at B=8, Q=5,
    positions up to 2043, live-query counts 1..5 and two idle rows, its
-   dead rows exact zeros, and at one live query against K5 bit for bit;
+   dead rows exact zeros, at one live query against K5 and each request
+   alone against its rows in the batch, bit for bit; K5 and K7 with the
+   device time a call of each of their CUDA kernels (split and merge) and
+   the bound of the products they issue (PV's doubled);
 16. the MLA + MoE path: deepseek-v2-236b at full width, its depth cut to
    4 of 60 layers (layer 0 dense, 3 MoE; 26.6 GB of bf16 weights, where
    full depth is ~470 GB), served as phase 6 serves qwen2-0.5b (K6 and
@@ -298,7 +302,8 @@ def rows_alone(torch, name, got, call):
     by itself) to its rows in the batch's output ``got``, bit for bit: K1
     and K3 split a row's keys over blocks and merge the partials in split
     order, K4 anchors its key tiles at absolute pages and chunk token 0,
-    K6 builds each key's K/V and sums a row's keys in 64-key tiles
+    K5 and K7 split a row's keys at absolute pages and merge in order, K6
+    builds each key's K/V and sums a row's keys in 64-key tiles
     anchored at key 0, and K9 sums a row's keys in 64-key tiles anchored at
     key 0, so no row may depend on the rest of its batch."""
     equal = all(torch.equal(call(b), got[b:b + 1])
@@ -320,6 +325,35 @@ def sdpa_ms(torch, timer, q4, kg, vg, mask, scale, G):
     vh = vg.transpose(1, 2).repeat_interleave(G, 1)
     return timer(lambda: F.scaled_dot_product_attention(
         q4, kh, vh, attn_mask=mask, scale=scale))
+
+
+def device_us(torch, timer, fn, pattern):
+    """The device time a call of each CUDA kernel that ``fn`` launches
+    (names matching ``pattern``): ``timer.iters`` calls, the L2 flushed
+    before each, under ``torch.profiler`` tracing the device alone.
+    Returns {kernel name: us a call}, or None where it was not measured."""
+    import re
+    n = timer.iters
+
+    def calls():
+        for _ in range(n):
+            timer.flush.zero_()
+            fn()
+    prof = profile_device(torch, calls, device_only=True)
+    if prof is None:
+        return None
+    us = {}
+    for key, t, _ in prof[1]:
+        name = re.search(pattern, key)
+        if name:
+            us[name.group(0)] = us.get(name.group(0), 0.0) + t / n
+    return us
+
+
+def print_device_us(name, us, tag="smoke"):
+    print(f"[{tag}] {name}: " + (", ".join(
+        f"{k} {v:.1f} us" for k, v in us.items()) if us else
+        "device time not measured") + " a call on the device", flush=True)
 
 
 def quantized(torch, k, v):
@@ -824,6 +858,11 @@ def phase_ring_lengths(torch, rng, int8=False):
 # 64-wide rope key per token (one shared latent "KV head"), 128 + 64 query
 # dims and 128 value dims a head
 DS_H, DS_L, DS_R, DS_NOPE, DS_V = 128, 512, 64, 128, 128
+# the flops K5 and K7 issue a (query, key, head): QK^T over L + R, PV with
+# p as two bf16 terms (csrc/mla_attention.cuh)
+MLA_TWO_TERM_FLOPS = 2 * (DS_L + DS_R) + 4 * DS_L
+# the CUDA kernels of K5 and K7 (split, merge; attend: an earlier tree's)
+MLA_KERNEL_NAMES = r"mla_(?:split|merge)_kernel|attend_kernel"
 
 
 def latent_pool(torch, rng, lengths, width):
@@ -898,8 +937,11 @@ def mla_decode_inputs(torch, rng, pos, Q=None):
 def phase_mla_decode(torch, rng, timer, int8=False):
     """K5 against its plain version at full-width deepseek-v2 decode
     shapes: B=8, 128 heads, 16-token latent pages, ragged positions up to
-    2047 over shuffled tables and two idle rows (pos 0, null table);
-    ``int8``: its int8 mode, on the pool quantized by ``quantize_int8``."""
+    2047 over shuffled tables and two idle rows (pos 0, null table), each
+    request alone equal to its rows in the batch, bit for bit; ``int8``:
+    its int8 mode, on the pool quantized by ``quantize_int8``.  Prints
+    the device time a call of each of its CUDA kernels and the bound of
+    the products the kernel issues (PV's doubled: p as two bf16 terms)."""
     from repro_torch.kernels.paged_attention import (mla_paged_decode,
                                                      mla_paged_decode_plain)
     pos = [2047, 1500, 1023, 0, 15, 0, 777, 1900]
@@ -916,7 +958,13 @@ def phase_mla_decode(torch, rng, timer, int8=False):
     want = mla_paged_decode_plain(*args, **kw)
     torch.cuda.synchronize()
     err, ratio = check_kernel(torch, f"{name} mla_paged_decode", got, want)
+    alone = rows_alone(torch, f"{name} mla_paged_decode", got, lambda b: (
+        mla_paged_decode(*(x[b:b + 1] for x in args[:2]), ckv, kr,
+                         tables[b:b + 1], pos_t[b:b + 1], **kw)))
     ms = timer(lambda: mla_paged_decode(*args, **kw))
+    dev_us = device_us(torch, timer, lambda: mla_paged_decode(*args, **kw),
+                       MLA_KERNEL_NAMES)
+    print_device_us(f"{name} mla_paged_decode", dev_us)
     plain_ms = timer(lambda: mla_paged_decode_plain(*args, **kw))
     S = tables.shape[1] * PAGE
     mask = (torch.arange(S, device="cuda")[None, :]
@@ -930,13 +978,16 @@ def phase_mla_decode(torch, rng, timer, int8=False):
         + tables.numel() * 4 + B * 4
     flops = live * DS_H * (2 * (DS_L + DS_R) + 2 * DS_L)
     bms, by = bound(nbytes, flops)
+    bms2, _ = bound(nbytes, live * DS_H * MLA_TWO_TERM_FLOPS)
     print(f"[smoke] {name} mla_paged_decode: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
           f"({by}: {nbytes / 1e6:.2f} MB of latent pages, q, out, tables; "
-          f"{flops / 1e9:.2f} GFLOP)", flush=True)
+          f"{flops / 1e9:.2f} GFLOP), two-term bound {bms2:.4f} ms",
+          flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms}
+            "bound_two_term_ms": bms2, "library_ms": library_ms,
+            "device_us": dev_us, "row_alone_bit_equal": alone}
 
 
 def phase_mla_verify(torch, rng, timer, int8=False):
@@ -944,8 +995,10 @@ def phase_mla_verify(torch, rng, timer, int8=False):
     shapes: B=8 rows of Q=5 queries (the last token and four drafts), 128
     heads, 16-token latent pages, ragged live counts 1..5 at positions up
     to 2043 and two idle rows (pos 0, one query, null table); dead rows
-    must be exact zeros; and with one live query per row against K5 on the
-    same inputs, bit for bit.  ``int8``: its int8 mode."""
+    must be exact zeros; with one live query per row against K5 on the
+    same inputs, and each request alone against its rows in the batch,
+    bit for bit.  ``int8``: its int8 mode.  Prints the device time a call
+    of each of its CUDA kernels and the two-term bound."""
     from repro_torch.kernels.paged_attention import (mla_paged_decode,
                                                      mla_paged_verify,
                                                      mla_paged_verify_plain)
@@ -979,7 +1032,13 @@ def phase_mla_verify(torch, rng, timer, int8=False):
           flush=True)
     if not bit_equal:
         fail(f"{name} at n_q = 1 differs from K5")
+    alone = rows_alone(torch, f"{name} mla_paged_verify", got, lambda b: (
+        mla_paged_verify(*(x[b:b + 1] for x in args[:2]), ckv, kr,
+                         *(x[b:b + 1] for x in args[4:]), **kw)))
     ms = timer(lambda: mla_paged_verify(*args, **kw))
+    dev_us = device_us(torch, timer, lambda: mla_paged_verify(*args, **kw),
+                       MLA_KERNEL_NAMES)
+    print_device_us(f"{name} mla_paged_verify", dev_us)
     plain_ms = timer(lambda: mla_paged_verify_plain(*args, **kw))
     mask = verify_mask(torch, pos_t, nq_t, Q, tables.shape[1] * PAGE)
     library_ms = latent_sdpa(torch, timer, q_eff.transpose(1, 2),
@@ -992,13 +1051,17 @@ def phase_mla_verify(torch, rng, timer, int8=False):
         + tables.numel() * 4 + 2 * B * 4
     flops = pairs * DS_H * (2 * (DS_L + DS_R) + 2 * DS_L)
     bms, by = bound(nbytes, flops)
+    bms2, _ = bound(nbytes, pairs * DS_H * MLA_TWO_TERM_FLOPS)
     print(f"[smoke] {name} mla_paged_verify: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
           f"({by}: {flops / 1e9:.2f} GFLOP over {pairs} live (query, key) "
-          f"pairs, {nbytes / 1e6:.2f} MB)", flush=True)
+          f"pairs, {nbytes / 1e6:.2f} MB), two-term bound {bms2:.4f} ms",
+          flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "n_q1_bit_equal_k5": bit_equal}
+            "bound_two_term_ms": bms2, "library_ms": library_ms,
+            "device_us": dev_us, "n_q1_bit_equal_k5": bit_equal,
+            "row_alone_bit_equal": alone}
 
 
 FP64_FLOPS_PER_S = 67e12       # H100 SXM fp64 tensor cores, data sheet

@@ -68,7 +68,9 @@
 // of a call at S' < S on the same inputs.
 //
 // The tensor-core machinery (copies, descriptors, swizzle, `wgmma` calls)
-// is K2's, in ragged_prefill.cuh; every name there and here sits in an
+// is K2's, in ragged_prefill.cuh, and so is this body's online-softmax
+// step (`online_step`, which K5/K7 share: mla_attention.cuh); every name
+// there and here sits in an
 // anonymous namespace, the shared-memory opt-in flags too (a static of a
 // template with external linkage is one GNU-unique object across every
 // library that holds it: the second library to launch would skip its own
@@ -94,50 +96,6 @@ struct FlashLayout {
   static constexpr int kKV = kTile;                // + stage * kStage
   static constexpr int kBytes = kKV + 2 * kStage;
 };
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// One online-softmax step on a tile's masked fp32 scores, for this
-// thread's two rows: m_new = max(m, tile max), p = exp(s - m_new) (0 while
-// m_new is -inf), alpha = exp(m - m_new) (0 while m is -inf), l = l *
-// alpha + sum p, o *= alpha.  p replaces s.  Each of a row's 4 threads
-// sums its 16 columns in order, then (t0 + t1) + (t2 + t3).
-template <int kH>
-__device__ __forceinline__ void online_step(float (&s)[32], float (&m)[2],
-                                            float (&l)[2],
-                                            float (&o)[kH][32]) {
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-      if (((j >> 1) & 1) == e) mx = fmaxf(mx, s[j]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m[e], mx);
-    const bool live = m_new > -INFINITY;          // guard fully-masked rows
-    const float safe = live ? m_new : 0.f;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-      if (((j >> 1) & 1) == e) {
-        s[j] = live ? expf(s[j] - safe) : 0.f;
-        sum += s[j];
-      }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float alpha = m[e] > -INFINITY ? expf(m[e] - safe) : 0.f;
-    l[e] = l[e] * alpha + sum;
-    m[e] = m_new;
-#pragma unroll
-    for (int h = 0; h < kH; ++h)
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
-        if (((j >> 1) & 1) == e) o[h][j] *= alpha;
-  }
-}
 
 // O += P V with p as two bf16 terms in the accumulator's row layout, h1 =
 // bf16(p) and h2 = bf16(p - h1): h1's 4 k16 steps of 16 keys, then h2's,
@@ -260,7 +218,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D]
       }
       s[j] = x;
     }
-    online_step<kH>(s, m, l, o);
+    float alpha[2];                          // o is rescaled in place
+    online_step<kH>(s, m, l, o, alpha);
     pv_two_terms<D>(o, s, kt + L::kTile);
   }
 

@@ -1,14 +1,16 @@
-// Shared machinery of the two Hopper chunk-prefill kernels: K2
+// Shared machinery of the Hopper tensor-core attention kernels.  K2
 // (ragged_prefill.cu, full attention over the post-write pool) and K4
 // (windowed_ragged_prefill.cu, a sliding window over a pre-write page ring
-// plus the chunk's fresh K/V).  Both run one warpgroup (128 threads) per
-// 64-row query tile: a row is a (token, group head) pair, token-major; keys
-// go in 64-slot tiles staged by 16-byte cp.async copies, two stages deep,
-// into 128-byte-swizzled bf16 halves; QK^T is `wgmma.m64n64k16` with Q and
-// the K tile from shared memory, PV `wgmma.m64n64k16` with p from registers
-// and V MN-major; sweep 1 takes each row's max and normalizer, sweep 2 its
-// probabilities at the true max and PV (each kernel's note gives its
-// contract and what it stages).
+// plus the chunk's fresh K/V) run one warpgroup (128 threads) per 64-row
+// query tile: a row is a (token, group head) pair, token-major; keys go in
+// 64-slot tiles staged by 16-byte cp.async copies, two stages deep, into
+// 128-byte-swizzled bf16 halves; QK^T is `wgmma.m64n64k16` with Q and the
+// K tile from shared memory, PV `wgmma.m64n64k16` with p from registers and
+// V MN-major; sweep 1 takes each row's max and normalizer, sweep 2 its
+// probabilities at the true max and PV.  K9 (flash_attention.cu) and K5/K7
+// (mla_attention.cuh) take one online-softmax sweep instead
+// (`online_step`).  Each kernel's note gives its contract and what it
+// stages.
 //
 // Everything here sits in an anonymous namespace, the shared-memory opt-in
 // flag of `launch_kernel` too: a static of a template with external linkage
@@ -114,6 +116,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : RP_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B, m64n64k16: A K-major and B MN-major, both in shared memory
+// (K6's stage A, K5/K7's PV).
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RP_REGS32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : RP_ACC32(d)
+      : "l"(a), "l"(b), "r"(1));
 }
 
 #undef RP_ACC32
@@ -260,6 +274,53 @@ __device__ __forceinline__ void probs(const float (&s)[32],
         a[kk][r] = pack_bf16(p0, p1);
       }
     }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One online-softmax step on a tile's masked fp32 scores, for this
+// thread's two rows: m_new = max(m, tile max), p = exp(s - m_new) (0 while
+// m_new is -inf), alpha = exp(m - m_new) (0 while m is -inf), l = l *
+// alpha + sum p, o *= alpha.  p replaces s; each row's alpha goes to
+// ``al`` (for accumulators held elsewhere).  Each of a row's 4 threads
+// sums its 16 columns in order, then (t0 + t1) + (t2 + t3).
+template <int kH>
+__device__ __forceinline__ void online_step(float (&s)[32], float (&m)[2],
+                                            float (&l)[2],
+                                            float (&o)[kH][32],
+                                            float (&al)[2]) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (((j >> 1) & 1) == e) mx = fmaxf(mx, s[j]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[e], mx);
+    const bool live = m_new > -INFINITY;          // guard fully-masked rows
+    const float safe = live ? m_new : 0.f;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (((j >> 1) & 1) == e) {
+        s[j] = live ? expf(s[j] - safe) : 0.f;
+        sum += s[j];
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float alpha = m[e] > -INFINITY ? expf(m[e] - safe) : 0.f;
+    l[e] = l[e] * alpha + sum;
+    m[e] = m_new;
+    al[e] = alpha;
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if (((j >> 1) & 1) == e) o[h][j] *= alpha;
+  }
 }
 
 // Launch ``kKernel`` (one warpgroup a block) with ``smem`` bytes of

@@ -24,9 +24,14 @@ the card.
 ``kernel.py::mla_paged_verify_fwd``): the absorbed-latent MLA decode and
 small-q verify against bf16 latent pages, or int8 latent pages plus bf16
 per-slot scale pages (``ckv_scale``/``krope_scale``).  Both are instances
-of one CUDA row body (``csrc/mla_attention.cuh``): K5 is its one-query
-case, so K7 with one live query reproduces K5 bit for bit.  Their plain
-versions are ``mla_paged_decode_plain`` and ``mla_paged_verify_plain``.
+of one CUDA body (``csrc/mla_attention.cuh``, design and bound in its
+note): a request's (query token, head) rows in 64-row tensor-core tiles,
+their keys split over blocks at 8 absolute pages, each split's partial
+written to a workspace the wrapper allocates (``mla_split_workspace``)
+and merged in split order by a second kernel of the same call.  K5 is its
+one-query case, so K7 with one live query reproduces K5 bit for bit.
+Their plain versions are ``mla_paged_decode_plain`` and
+``mla_paged_verify_plain``.
 """
 from __future__ import annotations
 
@@ -232,14 +237,39 @@ def mla_paged_verify_plain(q_eff, q_rope, ckv_pages, krope_pages, tables,
                                         scale=scale).to(q_eff.dtype)
 
 
-# q_eff, q_rope, ckv, krope, ckv_scale, krope_scale, tables, pos, out, then
-# B, H, L, R, ps, n_pages, scale, stream; verify adds n_q after pos and Q
-# after B
-_MLA_DECODE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
-    + [ctypes.c_float, ctypes.c_void_p]
-_MLA_VERIFY_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
-    + [ctypes.c_float, ctypes.c_void_p]
+# q_eff, q_rope, ckv, krope, ckv_scale, krope_scale, tables, pos, out,
+# workspace, its bytes, then B, H, L, R, ps, n_pages, scale, stream; verify
+# adds n_q after pos and Q after B
+_MLA_DECODE_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] \
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_MLA_VERIFY_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] \
+    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 MLA_DIMS = (512, 64)                        # csrc/mla_attention.cuh: L, R
+MLA_SPLIT_PAGES = 8                         # csrc/mla_attention.cuh
+
+
+def mla_split_workspace(B: int, Q: int, H: int, n_pages: int,
+                        device) -> torch.Tensor:
+    """The scratch K5 and K7 write their split partials to: for each of
+    the ``ceil(n_pages / 8)`` key splits and each of the ``B * Q * H``
+    rows, fp32 (m, l) and an L-wide fp32 latent accumulator
+    (``csrc/mla_attention.cuh``, ``launch``)."""
+    n_splits = -(-n_pages // MLA_SPLIT_PAGES)
+    return torch.empty(B * n_splits * Q * H * (MLA_DIMS[0] + 2) * 4,
+                       dtype=torch.uint8, device=device)
+
+
+def _check_mla_alignment(name, q_eff, q_rope, ckv_pages, krope_pages,
+                         ckv_scale, krope_scale):
+    """Raise ``ValueError`` unless K5's and K7's 16-byte copies of queries
+    and latent rows and their 4-byte copies of scale words are aligned."""
+    for t, n, a in ((q_eff, "q_eff", 16), (q_rope, "q_rope", 16),
+                    (ckv_pages, "ckv_pages", 16),
+                    (krope_pages, "krope_pages", 16),
+                    (ckv_scale, "ckv_scale", 4),
+                    (krope_scale, "krope_scale", 4)):
+        if t is not None and t.data_ptr() % a:
+            raise ValueError(f"{name}: {n} is not {a}-byte aligned")
 
 
 def _check_mla_shapes(name, q_eff, q_rope, pool_shape, tables, pos,
@@ -267,7 +297,9 @@ def mla_paged_decode(q_eff, q_rope, ckv_pages, krope_pages, tables, pos, *,
     are contiguous bf16, the latent pages contiguous bf16 (or int8 with
     both scale pages, contiguous bf16 [P, ps]), ``tables`` and ``pos``
     contiguous int32, L = 512, R = 64 (deepseek-v2), H a multiple of 8 and
-    page size <= 16; anything else raises."""
+    page size <= 16; anything else raises.  The request's H rows go to
+    ceil(H / 64) row tiles, each split over its keys at 8 absolute pages
+    (grid splits x row tiles x B), then a merge kernel."""
     if q_eff.device.type == "cpu":
         return mla_paged_decode_plain(q_eff, q_rope, ckv_pages, krope_pages,
                                       tables, pos, scale=scale,
@@ -280,13 +312,17 @@ def mla_paged_decode(q_eff, q_rope, ckv_pages, krope_pages, tables, pos, *,
     shape = check_latent_pool("mla_paged_decode", dev, ckv_pages,
                               krope_pages, tables, ckv_scale, krope_scale)
     _check_mla_shapes("mla_paged_decode", q_eff, q_rope, shape, tables, pos)
+    _check_mla_alignment("mla_paged_decode", q_eff, q_rope, ckv_pages,
+                         krope_pages, ckv_scale, krope_scale)
     B, H, L = q_eff.shape
     out = torch.empty_like(q_eff)
+    ws = mla_split_workspace(B, 1, H, tables.shape[1], dev)
     rc = entry("mla_paged_decode", _MLA_DECODE_ARGTYPES)(
         q_eff.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
         krope_pages.data_ptr(), ptr(ckv_scale), ptr(krope_scale),
-        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, L,
-        shape[3], shape[1], tables.shape[1], float(scale),
+        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        ws.numel(), B, H, L, shape[3], shape[1], tables.shape[1],
+        float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "mla_paged_decode")
     mla_paged_decode.launches += 1
@@ -302,9 +338,11 @@ def mla_paged_verify(q_eff, q_rope, ckv_pages, krope_pages, tables, pos, n_q,
     ``mla_paged_verify_plain``.  On a CUDA device ``q_eff`` [B, Q, H, L]
     and ``q_rope`` [B, Q, H, R] are contiguous bf16, the pages, scales,
     ``tables`` and ``pos`` as ``mla_paged_decode``'s and ``n_q``
-    contiguous int32 [B]; anything else raises.  Each (request, query
-    token) gets its own H / 8 blocks (grid B x Q x H / 8), so a block
-    holds 8 of one token's head rows."""
+    contiguous int32 [B]; anything else raises.  A request's Q * H rows,
+    token-major, go to ceil(Q * H / 64) row tiles (64 heads of one token
+    at H = 128; several tokens' heads at H = 8 or 16), each split over its
+    keys at 8 absolute pages, then a merge kernel; tiles of dead tokens
+    read nothing."""
     if q_eff.device.type == "cpu":
         return mla_paged_verify_plain(q_eff, q_rope, ckv_pages, krope_pages,
                                       tables, pos, n_q, scale=scale,
@@ -319,13 +357,17 @@ def mla_paged_verify(q_eff, q_rope, ckv_pages, krope_pages, tables, pos, n_q,
                               krope_pages, tables, ckv_scale, krope_scale)
     _check_mla_shapes("mla_paged_verify", q_eff, q_rope, shape, tables, pos,
                       n_q)
+    _check_mla_alignment("mla_paged_verify", q_eff, q_rope, ckv_pages,
+                         krope_pages, ckv_scale, krope_scale)
     B, Q, H, L = q_eff.shape
     out = torch.empty_like(q_eff)
+    ws = mla_split_workspace(B, Q, H, tables.shape[1], dev)
     rc = entry("mla_paged_verify", _MLA_VERIFY_ARGTYPES)(
         q_eff.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
         krope_pages.data_ptr(), ptr(ckv_scale), ptr(krope_scale),
         tables.data_ptr(), pos.data_ptr(), n_q.data_ptr(), out.data_ptr(),
-        B, Q, H, L, shape[3], shape[1], tables.shape[1], float(scale),
+        ws.data_ptr(), ws.numel(), B, Q, H, L, shape[3], shape[1],
+        tables.shape[1], float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "mla_paged_verify")
     mla_paged_verify.launches += 1

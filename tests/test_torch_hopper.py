@@ -18,8 +18,10 @@ bit, bf16 and int8, in ring mode too; K1, K3 and K4 on one window of K/V
 in a ring of n pages and in one of n + 1 give equal bits; K1's, K3's and
 K4's rows of one request alone equal its rows in the batch.  K5 (MLA decode),
 K6 (MLA prefill) and K7 (MLA verify), bf16 and int8, are held to their
-plain versions by the same one-ulp rule; K7 with one live query equals K5
-bit for bit; K6's stage A gives the plain einsum's bf16 K/V bit for bit
+plain versions by the same one-ulp rule, at rows across split edges and
+of over 1000 keys; K7 with one live query equals K5 bit for bit, and
+K5's and K7's rows of one request alone equal its rows in the batch; K6's
+stage A gives the plain einsum's bf16 K/V bit for bit
 (int8: hi + lo within 2^-16 of the row), and K6's rows are equal bit for
 bit however a prompt is chunked and whatever else is in the batch.  K9
 (the training forward's causal flash attention) is held to its plain
@@ -42,6 +44,8 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     mla_paged_decode, mla_paged_decode_plain, mla_paged_verify,
     mla_paged_verify_plain, paged_decode, paged_decode_plain, paged_verify,
     paged_verify_plain)
+from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
+    MLA_SPLIT_PAGES)
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
     mla_build_kv, mla_build_kv_plain, mla_ragged_prefill,
     mla_ragged_prefill_plain, ragged_prefill, ragged_prefill_plain,
@@ -619,14 +623,25 @@ def _latent(rng, lengths, ps, width, device):
             torch.from_numpy(tables).to(device))
 
 
+def _mla_positions(ps):
+    """Decode positions for K5's cases: a page edge, idle rows (0, the
+    null table last), a split's last key, the next split's first and
+    second (K5/K7 split a row's keys at ``MLA_SPLIT_PAGES`` absolute
+    pages), and a row of 1100 keys whose partials the merge folds in
+    order.  Returns (positions, lengths, table width)."""
+    w = MLA_SPLIT_PAGES * ps
+    pos = [300, ps - 1, w - 1, w, w + 1, 1100, 64, 0]
+    lengths = [p + 1 for p in pos]
+    lengths[-1] = 0                                        # idle row
+    return pos, lengths, -(-1101 // ps) + 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,ps", [(16, 16), (128, 16), (8, 8)])
 def test_mla_decode_kernel_matches_plain(cuda, H, ps):
     rng = np.random.RandomState(H + ps)
-    pos = [300, ps - 1, 0, 64, 0]
-    lengths = [p + 1 for p in pos]
-    lengths[-1] = 0                                        # idle row
-    ckv, kr, t = _latent(rng, lengths, ps, 320 // ps, cuda)
+    pos, lengths, width = _mla_positions(ps)
+    ckv, kr, t = _latent(rng, lengths, ps, width, cuda)
     B = len(pos)
     q_eff = torch.from_numpy(rng.randn(B, H, 512).astype(np.float32)) \
         .bfloat16().to(cuda)
@@ -707,10 +722,8 @@ def _int8_latent(ckv, kr):
 @pytest.mark.parametrize("H,ps", [(16, 16), (128, 16), (8, 8)])
 def test_int8_mla_decode_kernel_matches_plain(cuda, H, ps):
     rng = np.random.RandomState(H + ps + 1)
-    pos = [300, ps - 1, 0, 64, 0]
-    lengths = [p + 1 for p in pos]
-    lengths[-1] = 0                                        # idle row
-    ckv, kr, t = _latent(rng, lengths, ps, 320 // ps, cuda)
+    pos, lengths, width = _mla_positions(ps)
+    ckv, kr, t = _latent(rng, lengths, ps, width, cuda)
     c8, r8, kw = _int8_latent(ckv, kr)
     B = len(pos)
     q_eff = torch.from_numpy(rng.randn(B, H, 512).astype(np.float32)) \
@@ -725,14 +738,21 @@ def test_int8_mla_decode_kernel_matches_plain(cuda, H, ps):
     assert _within_one_ulp(got, want)
     with pytest.raises(ValueError, match="come together"):
         mla_paged_decode(*args, scale=1.0, ckv_scale=kw["ckv_scale"])
+    odd = torch.empty(kw["ckv_scale"].numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)[1:].view_as(kw["ckv_scale"])
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        mla_paged_decode(*args, scale=1.0, ckv_scale=odd,
+                         krope_scale=kw["krope_scale"])
 
 
 def _mla_verify_case(rng, H, Q, cuda):
-    pos = [300, 15, 0, 64, 0]
-    n_q = [Q, 1, 1, max(1, Q - 2), 1]
+    """16-token pages; rows whose queries straddle a split's edge (127,
+    128), a row of over 1000 keys, ragged live counts, an idle row."""
+    pos = [300, 15, 0, 64, 127 - Q // 2, 128, 1020, 0]
+    n_q = [Q, 1, 1, max(1, Q - 2), Q, max(1, Q - 1), Q, 1]
     lengths = [p + Q for p in pos]
     lengths[-1] = 0                                        # idle row
-    ckv, kr, t = _latent(rng, lengths, 16, 24, cuda)
+    ckv, kr, t = _latent(rng, lengths, 16, 72, cuda)
     B = len(pos)
     q_eff = torch.from_numpy(rng.randn(B, Q, H, 512).astype(np.float32)) \
         .bfloat16().to(cuda)
@@ -760,6 +780,33 @@ def test_mla_verify_kernel_matches_plain(cuda, H, Q, int8):
     assert _within_one_ulp(got, want)
     dead = torch.arange(Q, device=cuda)[None, :] >= n_q[:, None]
     assert not got[dead].float().abs().sum().item()       # exact zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("kernel,H", [("K5", 128), ("K5", 8), ("K7", 128),
+                                      ("K7", 16)])
+def test_mla_rows_alone_equal_batch_rows(cuda, kernel, H, int8):
+    """K5 and K7 split a row's keys at absolute pages and merge them in
+    split order, so a request alone gives its rows in the batch bit for
+    bit, however many splits the other requests span."""
+    rng = np.random.RandomState(70 + H + int8)
+    Q = 5 if kernel == "K7" else 1
+    q_eff, q_rope, ckv, kr, t, pos, n_q = _mla_verify_case(rng, H, Q, cuda)
+    kw = {}
+    if int8:
+        ckv, kr, kw = _int8_latent(ckv, kr)
+
+    def call(s):
+        if kernel == "K5":
+            return mla_paged_decode(q_eff[s, 0].contiguous(),
+                                    q_rope[s, 0].contiguous(), ckv, kr,
+                                    t[s], pos[s], scale=0.07, **kw)
+        return mla_paged_verify(q_eff[s], q_rope[s], ckv, kr, t[s], pos[s],
+                                n_q[s], scale=0.07, **kw)
+    full = call(slice(None))
+    for b in range(q_eff.shape[0]):
+        assert torch.equal(call(slice(b, b + 1)), full[b:b + 1])
 
 
 @pytest.mark.cuda
