@@ -69,7 +69,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    int8, and at one live query against K1-ring bit for bit; K8 (the RBM's
    fused GEMM + sigmoid) at every layer's positive, negative and
    forward-propagation shapes of mnist-dbn, fp32 within 1e-5, and layer
-   0's positive phase in bf16;
+   0's positive phase in bf16, each with a second call equal bit for bit
+   and rows computed alone equal to theirs in the batch;
 12. full-width, full-depth minitron-4b (32 layers) served as phase 6 serves
    qwen2-0.5b (K2 at D=128 for every prefill chunk, a profiled rerun with
    K2's share of the device time), bf16 and int8, each held to the dual
@@ -164,9 +165,11 @@ is not timed (without it, a call shorter on the device than its wrapper
 on the host reads as the host's time).  ``bound_ms`` is the
 larger of the bytes the function must move over 3.35 TB/s and its
 operations over 989 TFLOP/s (H100 SXM bf16 dense), counted for this run's
-inputs (K8 and K9 in fp32: over 67 TFLOP/s, the H100's fp32 rate without
-tensor cores; K6's stage A with bf16 pages, whose K/V are fp64 sums: over
-67 TFLOP/s, the fp64 tensor cores' rate).  ``library_ms`` times
+inputs (K9 in fp32: over 67 TFLOP/s, the H100's fp32 rate without
+tensor cores; K8 in fp32: the lesser of that and its three TF32 terms
+over 495 TFLOP/s, the TF32 tensor cores' rate; K6's stage A with bf16
+pages, whose K/V are fp64 sums: over 67 TFLOP/s, the fp64 tensor cores'
+rate).  ``library_ms`` times
 ``scaled_dot_product_attention`` on the gathered K/V (dequantized to bf16
 for int8 pools; with the verify mask for K3; for K9 on K/V repeated to
 the query heads, ``is_causal``), one einsum of the gathered latent with
@@ -197,6 +200,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense, NVIDIA data sheet
 L2_FLUSH_BYTES = 64 << 20      # > the H100's 50 MB L2
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 without tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 LOGIT_TOL = 0.25               # dual-gate bound on max |dlogit|
 LOGIT_ROW_ULPS = 2.0           # command-r's bound, in bf16 ulps of the row
 K8_TOL = 1e-5                  # K8 vs plain in fp32 (another sum order)
@@ -1995,15 +1999,37 @@ def mla_speculate_int8(torch, cfg, params, prompts, base_tokens, replay,
     return counts, out
 
 
+def k8_bound(M, N, K, esize):
+    """(bound ms, bound_by, three-term bound ms, its bound_by) of one K8
+    call: x, w, b read and out written once; 2 M N K flops at the fp32
+    CUDA cores' 67 TFLOP/s (bf16: 989), and, for fp32, the 3 x 2 M N K
+    TF32 flops of the tensor-core body's three terms at 495 TFLOP/s (bf16:
+    one term, the same as the first)."""
+    flops = 2 * M * N * K
+    nbytes = (M * K + K * N + N + M * N) * esize
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    rate = FP32_FLOPS_PER_S if esize == 4 else BF16_FLOPS_PER_S
+    t_ops = flops / rate * 1e3
+    t3 = 3 * flops / TF32_FLOPS_PER_S * 1e3 if esize == 4 else t_ops
+    return (max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations",
+            max(t_mem, t3), "bytes" if t_mem >= t3 else "operations")
+
+
 def phase_gemm_sigmoid(torch, timer, seed):
     """K8 against its plain version at every layer of full-width mnist-dbn
     (784-1000-500-250-30): the positive phase [100, n_vis] x W, the
     negative phase [100, n_hid] x W.T (a view the kernel reads by index)
     and the forward-propagation job [60000, n_vis] x W, in fp32 within
     ``K8_TOL``; and layer 0's positive phase in bf16 within one bf16 ulp
-    of the row's max.  Returns a list of per-shape numbers, the fp32 layer-0
-    positive phase first."""
+    of the row's max.  Each shape also: a second call equal to the first
+    bit for bit, and rows 0 and M - 1 computed alone equal to theirs in
+    the batch (the split plan depends on N and K only); the fp32 CUDA-core
+    bound and the three-term TF32 bound, the share of the lesser; and
+    K8's registers and spills as ``ptxas`` reported them.  Returns a list
+    of per-shape numbers, the fp32 layer-0 positive phase first, and the
+    ptxas rows."""
     from repro_torch.configs.mnist_dbn import STACK
+    from repro_torch.kernels import build_all
     from repro_torch.kernels.rbm_cd import gemm_sigmoid, gemm_sigmoid_plain
     gen = torch.Generator(device="cuda").manual_seed(seed + 21)
 
@@ -2027,6 +2053,8 @@ def phase_gemm_sigmoid(torch, timer, seed):
         name = f"K8 gemm_sigmoid {label} {str(x.dtype)[6:]}"
         got = gemm_sigmoid(x, w, b)
         want = gemm_sigmoid_plain(x, w, b)
+        again = gemm_sigmoid(x, w, b)
+        rows = [gemm_sigmoid(x[r:r + 1], w, b) for r in (0, x.shape[0] - 1)]
         torch.cuda.synchronize()
         if x.dtype == torch.float32:
             err = (got - want).abs().max().item()
@@ -2037,27 +2065,38 @@ def phase_gemm_sigmoid(torch, timer, seed):
                 fail(f"{name} disagrees with its plain version")
         else:
             err, _ = check_kernel(torch, name, got, want)
+        repeat = torch.equal(got, again)
+        alone = all(torch.equal(r[0], got[i]) for r, i in
+                    zip(rows, (0, x.shape[0] - 1)))
+        print(f"[smoke] {name}: a second call equal bit for bit: {repeat}; "
+              f"rows 0 and {x.shape[0] - 1} alone equal to theirs in the "
+              f"batch: {alone} -> {'OK' if repeat and alone else 'FAIL'}",
+              flush=True)
+        if not (repeat and alone):
+            fail(f"{name}: two calls on the same inputs differ, or a row "
+                 "alone differs from its row in the batch")
         ms = timer(lambda: gemm_sigmoid(x, w, b))
         plain_ms = timer(lambda: gemm_sigmoid_plain(x, w, b))
         library_ms = timer(lambda: torch.sigmoid(torch.addmm(b, x, w)))
         (M, K), N = x.shape, w.shape[1]
-        flops = 2 * M * N * K
-        nbytes = (M * K + K * N + N + M * N) * x.element_size()
-        rate = FP32_FLOPS_PER_S if x.dtype == torch.float32 \
-            else BF16_FLOPS_PER_S
-        t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
-        bms, by = max(t_mem, t_ops), "bytes" if t_mem >= t_ops \
-            else "operations"
+        bms, by, b3, by3 = k8_bound(M, N, K, x.element_size())
+        least = min(bms, b3)
         print(f"[smoke] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sigmoid(addmm) {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
-              f"{flops / 1e9:.3f} GFLOP at {rate / 1e12:.0f} TFLOP/s, "
-              f"{nbytes / 1e6:.2f} MB); {flops / ms / 1e9:.2f} TFLOP/s",
-              flush=True)
+              f"sigmoid(addmm) {library_ms:.4f} ms ({ms / library_ms:.2f}x); "
+              f"bound {bms:.4f} ms ({by}, fp32 CUDA cores), three-term "
+              f"bound {b3:.4f} ms ({by3}, TF32 tensor cores); "
+              f"{2 * M * N * K / ms / 1e9:.2f} TFLOP/s, {least / ms:.3f} of "
+              f"the lesser bound", flush=True)
         out.append({"shape": label, "dtype": str(x.dtype)[6:],
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bms, "bound_by": by,
-                    "library_ms": library_ms})
-    return out
+                    "bound_ms": least, "bound_by": by if bms <= b3 else by3,
+                    "bound_fp32_ms": bms, "bound_three_term_ms": b3,
+                    "share_of_bound": least / ms, "library_ms": library_ms,
+                    "repeat_bit_equal": repeat, "alone_bit_equal": alone})
+    _, libs = build_all()
+    ptxas = print_ptxas("gemm_sigmoid",
+                        libs["gemm_sigmoid"].with_suffix(".log"))
+    return out, ptxas
 
 
 def free_port() -> int:
@@ -2786,7 +2825,7 @@ def main() -> None:
                     for q in (False, True)
                     for kid, equal in phase_ring_lengths(torch, rng,
                                                          int8=q).items()}
-    k8 = phase_gemm_sigmoid(torch, timer, args.seed)
+    k8, k8_ptxas = phase_gemm_sigmoid(torch, timer, args.seed)
     k5, k5q = (phase_mla_decode(torch, rng, timer, int8=q)
                for q in (False, True))
     (k6, k6kv), (k6q, k6kvq) = (phase_mla_prefill(torch, rng, timer, int8=q)
@@ -2923,7 +2962,8 @@ def main() -> None:
         entry("K4-int8", "windowed_prefill", "windowed_ragged_prefill.cu",
               "ragged_prefill/kernel.py:289", k4q),
         entry("K8", "gemm_sigmoid", "gemm_sigmoid.cu",
-              "rbm_cd/kernel.py:40", {**k8[0], "shapes": k8}),
+              "rbm_cd/kernel.py:40",
+              {**k8[0], "shapes": k8, "ptxas": k8_ptxas}),
         entry("K5", "mla_paged_decode", "mla_paged_decode.cu",
               "paged_attention/kernel.py:338", k5),
         entry("K5-int8", "mla_paged_decode", "mla_paged_decode.cu",

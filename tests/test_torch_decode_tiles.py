@@ -47,6 +47,16 @@ SLOTS = 16                      # key slots a page (one k16 step)
 INF = float("inf")
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The model runs thousands of small ops: one torch thread keeps them
+    cheap when the suite runs in several processes on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lane_sum(p):
     """[rows, 256] fp32 -> [rows]: lane i sums slots i, i + 32, ... in
     order, then the xor shuffle tree 16, 8, 4, 2, 1."""

@@ -512,26 +512,37 @@ def test_windowed_hopper_engine_passes_the_dual_gate(cuda, kv_dtype, spec):
     assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}
 
 
+def _k8_inputs(device, M, K, N, transposed, dtype):
+    rng = np.random.RandomState(M + K + N)
+    x = torch.from_numpy(rng.rand(M, K).astype(np.float32)).to(device, dtype)
+    w = torch.from_numpy((0.1 * rng.randn(N, K) if transposed
+                          else 0.1 * rng.randn(K, N)).astype(np.float32))
+    w = w.to(device, dtype)
+    w = w.T if transposed else w
+    b = torch.from_numpy(0.1 * rng.randn(N).astype(np.float32)) \
+        .to(device, dtype)
+    return x, w, b
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,transposed", [
     (100, 784, 1000, False), (100, 1000, 784, True), (37, 200, 61, False),
-    (513, 250, 30, False), (100, 30, 250, True), (1, 30, 10, False)])
+    (513, 250, 30, False), (100, 30, 250, True), (1, 30, 10, False),
+    (100, 785, 1000, False), (100, 7, 61, True), (60, 20, 30, False),
+    (1, 784, 1000, False), (4096, 784, 1000, False),
+    (4096, 1000, 784, True), (4096, 784, 30, False),
+    (4096, 785, 61, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gemm_sigmoid_kernel_matches_plain(cuda, M, K, N, transposed,
                                            dtype):
     """K8 against its plain version: the paper's layer shapes (the negative
     phase reads a row-major [N, K] weight as the transposed view), ragged
-    M, N and K.  fp32 within 1e-5 (the two sum K products in another order
-    and the sigmoid's slope is at most 1/4); bf16 within one bf16 ulp of
-    each row's largest output."""
-    rng = np.random.RandomState(M + K + N)
-    x = torch.from_numpy(rng.rand(M, K).astype(np.float32)).to(cuda, dtype)
-    w = torch.from_numpy((0.1 * rng.randn(N, K) if transposed
-                          else 0.1 * rng.randn(K, N)).astype(np.float32))
-    w = w.to(cuda, dtype)
-    w = w.T if transposed else w
-    b = torch.from_numpy(0.1 * rng.randn(N).astype(np.float32)) \
-        .to(cuda, dtype)
+    M, N and K: K not a multiple of 8 (785, 7), K within one 32-wide slice,
+    N of 30 and 61, M of 1 (splits as blocks) and 4096 (splits in each
+    block).  fp32 within 1e-5 (the two sum K products in another order and
+    the sigmoid's slope is at most 1/4); bf16 within one bf16 ulp of each
+    row's largest output."""
+    x, w, b = _k8_inputs(cuda, M, K, N, transposed, dtype)
     n0 = gemm_sigmoid.launches
     got = gemm_sigmoid(x, w, b)
     want = gemm_sigmoid_plain(x, w, b)
@@ -541,6 +552,24 @@ def test_gemm_sigmoid_kernel_matches_plain(cuda, M, K, N, transposed,
         assert (got - want).abs().max().item() <= 1e-5
     else:
         assert _within_one_ulp(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,transposed", [
+    (100, 784, 1000, False), (100, 1000, 784, True),
+    (4096, 784, 1000, False), (513, 785, 30, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_sigmoid_bits_repeat_and_rows_alone(cuda, M, K, N,
+                                                 transposed, dtype):
+    """K8 sums in a fixed order without atomics: a second call on the same
+    inputs gives the same bits, and a row computed alone (its splits as
+    blocks of their own) the bits of its row in the batch (the split plan
+    depends on N and K only)."""
+    x, w, b = _k8_inputs(cuda, M, K, N, transposed, dtype)
+    got = gemm_sigmoid(x, w, b)
+    assert torch.equal(got, gemm_sigmoid(x, w, b))
+    for r in (0, M // 2, M - 1):
+        assert torch.equal(gemm_sigmoid(x[r:r + 1], w, b)[0], got[r])
 
 
 # ------------------------------------------- ring sums in position order

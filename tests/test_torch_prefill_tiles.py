@@ -40,6 +40,16 @@ SLOTS = 64                 # key slots a tile (csrc kSlots)
 MASK = -1e30
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The model runs thousands of small ops: one torch thread keeps them
+    cheap when the suite runs in several processes on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _quad_sum(e):
     """[rows, 64] -> [rows]: thread c of a row's quad holds columns 8 j +
     2 c + {0, 1} and sums them in order; then (t0 + t1) + (t2 + t3)."""
