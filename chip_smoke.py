@@ -68,9 +68,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    B=4 at positions up to 6000, bf16 and
    int8, and at one live query against K1-ring bit for bit; K8 (the RBM's
    fused GEMM + sigmoid) at every layer's positive, negative and
-   forward-propagation shapes of mnist-dbn, fp32 within 1e-5, and layer
-   0's positive phase in bf16, each with a second call equal bit for bit
-   and rows computed alone equal to theirs in the batch;
+   forward-propagation shapes of mnist-dbn, fp32 within 1e-5, layer 0's
+   positive phase in bf16, and Fig. 8's CD job ([2048, 784] x [784, 512]
+   and [2048, 512] x W.T, fp32), each with a second call equal bit for
+   bit and rows computed alone equal to theirs in the batch;
 12. full-width, full-depth minitron-4b (32 layers) served as phase 6 serves
    qwen2-0.5b (K2 at D=128 for every prefill chunk, a profiled rerun with
    K2's share of the device time), bf16 and int8, each held to the dual
@@ -145,6 +146,20 @@ Phases, each printing its own lines; any failed check exits non-zero:
    and a resume (2 of 24 layers: the checkpoint holds the 136M-entry
    embedding's fp32 master and moments) whose loss history and final
    state equal an uninterrupted run's bit for bit.
+
+19. the paper's experiments (run right after phase 14), through their
+   entry points at mnist-dbn's full width on 60000 / 10000 synthetic
+   digits: Fig. 6 (``launch/fig6_unsup_error.py``: 3 CD-1 epochs a layer
+   at batch 128, autoencoder fine-tuning cut from 8 to 3 epochs; the test
+   reconstruction error must fall), Fig. 7 (``fig7_sup_error.py``, cut
+   from 25 to 5 epochs; the test error below chance, 0.9), AdaBoost
+   (``core/adaboost.py``, ``BoostConfig()``; a learner kept, the test
+   error below 0.9), Fig. 8 (``fig8_scaling.py``: one worker process on
+   NCCL, 11 CD jobs of 784 x 512 on 2048 rows) and the two demos
+   (``examples/train_{classifier,autoencoder}_torch.py``), each CSV row
+   printed and K8's launches on each path held to 3 a CD step + 1 a
+   layer's forward-propagation job (AdaBoost: 0; Fig. 8's worker reports
+   its own).
 
 In phases 7, 10, 13 and 16 a verify step's rows must equal decode steps
 at ``pos + j`` bit for bit, and in 10, 13 and 16 every speculative stream
@@ -2021,7 +2036,8 @@ def phase_gemm_sigmoid(torch, timer, seed):
     negative phase [100, n_hid] x W.T (a view the kernel reads by index)
     and the forward-propagation job [60000, n_vis] x W, in fp32 within
     ``K8_TOL``; and layer 0's positive phase in bf16 within one bf16 ulp
-    of the row's max.  Each shape also: a second call equal to the first
+    of the row's max; and Fig. 8's CD job, [2048, 784] x [784, 512] and
+    [2048, 512] x W.T, in fp32.  Each shape also: a second call equal to the first
     bit for bit, and rows 0 and M - 1 computed alone equal to theirs in
     the batch (the split plan depends on N and K only); the fp32 CUDA-core
     bound and the three-term TF32 bound, the share of the lesser; and
@@ -2048,6 +2064,12 @@ def phase_gemm_sigmoid(torch, timer, seed):
              w, bh)]
     x, w, b = cases[0][1:]
     cases.append((cases[0][0], x.bfloat16(), w.bfloat16(), b.bfloat16()))
+    # Fig. 8's CD job: RBM 784 x 512 on its whole global batch of 2048
+    w = 0.1 * torch.randn((784, 512), generator=gen, device="cuda")
+    bv, bh = 0.1 * rand(784), 0.1 * rand(512)
+    cases += [("Fig. 8 hidden [2048,784]x[784,512]", rand(2048, 784), w, bh),
+              ("Fig. 8 visible [2048,512]xW.T",
+               (rand(2048, 512) < 0.5).float(), w.T, bv)]
     out = []
     for label, x, w, b in cases:
         name = f"K8 gemm_sigmoid {label} {str(x.dtype)[6:]}"
@@ -2308,6 +2330,133 @@ def phase_paper(torch, seed, n_train=60000, n_test=10000):
                             "max_dparam": max(dparam),
                             "max_derr": max(derr)},
         "mapreduce_ws1_bit_equal": ws1_equal}
+
+
+FIG6_EPOCHS, FIG7_EPOCHS = 3, 5   # of the scripts' 8 and 25 fine-tuning
+FIG_BATCH, FIG_RBM_EPOCHS = 128, 3  # the scripts' batch and max_epoch
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (``examples/`` is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_figures(torch, seed, n_train=60000, n_test=10000):
+    """The paper's experiments through their entry points at mnist-dbn's
+    full width (784-1000-500-250-30) on ``n_train`` / ``n_test`` synthetic
+    digits from ``seed``: Fig. 6 (pre-training's 3 epochs, fine-tuning cut
+    to ``FIG6_EPOCHS``; the test reconstruction error must fall from the
+    first epoch to the last), Fig. 7 (``FIG7_EPOCHS``; the test error must
+    beat chance, 0.9), AdaBoost with ``BoostConfig()`` on the training
+    digits (a learner kept, the test error below 0.9), Fig. 8 at one
+    worker on NCCL (a process of its own, which reports its K8 launches),
+    and the two demos' ``main()`` at their own sizes.  K8's launches on
+    each path must equal 3 a CD step + 1 a layer's forward-propagation job
+    (0 for AdaBoost, whose hidden layer is plain torch), and every number
+    must be finite.  Returns (K8 launches, report)."""
+    from repro_torch.configs.mnist_dbn import CONFIG, STACK
+    from repro_torch.core import adaboost
+    from repro_torch.data import train_test
+    from repro_torch.kernels.rbm_cd import gemm_sigmoid
+    from repro_torch.launch import (fig6_unsup_error, fig7_sup_error,
+                                    fig8_scaling)
+    t_phase = time.perf_counter()
+    report, total = {}, 0
+
+    def expected(n, stack):
+        return (3 * (n // FIG_BATCH) * FIG_RBM_EPOCHS + 1) * (len(stack) - 1)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        gemm_sigmoid.launches = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, gemm_sigmoid.launches, time.perf_counter() - t
+
+    def check(label, launches, want, seconds, numbers):
+        nonlocal total
+        finite = all(math.isfinite(v) for v in numbers)
+        ok = launches == want and finite
+        print(f"[smoke] figures: {label}: {seconds:.1f} s; K8 launches "
+              f"{launches} (expected {want}); numbers finite: {finite} -> "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if launches != want:
+            fail(f"figures: {label}: K8 launches {launches} != {want}")
+        if not finite:
+            fail(f"figures: {label}: a number is not finite")
+        total += launches
+        report[label] = {"seconds": seconds, "k8_launches": launches}
+
+    print(f"[smoke] figures: {CONFIG.name} {STACK} on {n_train} / {n_test} "
+          f"digits from seed {seed}; fine-tuning cut from the scripts' 8 "
+          f"to {FIG6_EPOCHS} epochs (Fig. 6) and from 25 to {FIG7_EPOCHS} "
+          f"(Fig. 7) for the smoke's time; pre-training keeps its "
+          f"{FIG_RBM_EPOCHS}", flush=True)
+    sizes = dict(n_train=n_train, n_test=n_test, stack=STACK,
+                 batch=FIG_BATCH, seed=seed, device="cuda")
+    rows, n, s = run(lambda: fig6_unsup_error.run(
+        epochs=FIG6_EPOCHS, **sizes))
+    check("Fig. 6", n, expected(n_train, STACK), s,
+          [v for r in rows for v in r[1:]])
+    falls = rows[-1][2] < rows[0][2]
+    print(f"[smoke] figures: Fig. 6 test reconstruction error "
+          f"{rows[0][2]:.4f} (epoch 0) -> {rows[-1][2]:.4f} (epoch "
+          f"{rows[-1][0]}) -> {'OK' if falls else 'FAIL'}", flush=True)
+    if not falls:
+        fail("figures: Fig. 6's test reconstruction error did not fall")
+    report["Fig. 6"]["rows"] = rows
+
+    rows, n, s = run(lambda: fig7_sup_error.run(
+        epochs=FIG7_EPOCHS, **sizes))
+    check("Fig. 7", n, expected(n_train, STACK), s,
+          [v for r in rows for v in r[1:]])
+    print(f"[smoke] figures: Fig. 7 final test error {rows[-1][2]:.4f} "
+          f"(chance 0.9) -> {'OK' if rows[-1][2] < 0.9 else 'FAIL'}",
+          flush=True)
+    if not rows[-1][2] < 0.9:
+        fail("figures: Fig. 7's classifier does not beat chance")
+    report["Fig. 7"]["rows"] = rows
+
+    Xtr, ytr, Xte, yte = train_test(n_train=n_train, n_test=n_test,
+                                    seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = adaboost.BoostConfig()
+    (learners, alphas), n, s = run(lambda: adaboost.fit(
+        Xtr, ytr, cfg, gen))
+    err = adaboost.error_rate(learners, alphas, Xte, yte)
+    check("AdaBoost", n, 0, s, alphas + [err])
+    ok = bool(learners) and err < 0.9
+    print(f"[smoke] figures: AdaBoost {cfg}: {len(learners)} weak learners, "
+          f"alphas {[round(a, 4) for a in alphas]}, test error {err:.4f} "
+          f"(chance 0.9) -> {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("figures: AdaBoost kept no learner or does not beat chance")
+    report["AdaBoost"].update(n_learners=len(learners), alphas=alphas,
+                              test_error=err)
+
+    t = time.perf_counter()
+    row = fig8_scaling.run(device="cuda")[0]
+    check("Fig. 8", row["k8_launches"], 3 * (fig8_scaling.TIMED_JOBS + 1),
+          time.perf_counter() - t, [row["s_per_job"], row["err"]])
+    print(f"[smoke] figures: Fig. 8 row {json.dumps(row)}", flush=True)
+    report["Fig. 8"]["row"] = row
+
+    demo, n, s = run(lambda: load_example("train_classifier_torch").main([]))
+    check("classifier demo", n, expected(demo["n_train"], (784, 256, 64)),
+          s, [v for v in demo.values() if isinstance(v, float)])
+    report["classifier demo"].update(demo)
+    demo, n, s = run(lambda: load_example("train_autoencoder_torch").main([]))
+    check("autoencoder demo", n, expected(demo["n_train"], demo["stack"]),
+          s, [v for v in demo.values() if isinstance(v, float)])
+    report["autoencoder demo"].update(demo)
+    report["seconds"] = time.perf_counter() - t_phase
+    return total, report
 
 
 # K9 and the training path: full-width qwen2-0.5b (14 query / 2 KV heads of
@@ -2915,6 +3064,12 @@ def main() -> None:
           flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    k8_figures, figures = phase_figures(torch, args.seed)
+    counts["K8"] += k8_figures
+    print(f"[smoke] figures phase took {time.perf_counter() - t0:.1f} s "
+          f"(K8 launches {k8_figures})", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     counts["K9"], train = phase_train(torch, args.seed)
     print(f"[smoke] training phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -2995,7 +3150,7 @@ def main() -> None:
         "speculative": spec, "int8": int8, "minitron": minitron,
         "ring_length_bit_equal": ring_lengths, "sliding_window": window,
         "command_r": command_r, "deepseek": deepseek, "paper": paper,
-        "train": train}),
+        "figures": figures, "train": train}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
 from .finetune import sgd_momentum
@@ -83,13 +82,14 @@ def make_finetune_step(group: Optional[DPGroups] = None, lr: float = 0.05,
 
 
 @torch.no_grad()
-def reconstruction_error(params, data: np.ndarray, batch: int = 1000) -> float:
+def reconstruction_error(params, data, batch: int = 1000) -> float:
     """Mean per-image squared reconstruction error (the paper's Fig. 6
-    metric)."""
+    metric); ``data`` a numpy array or a tensor (on the parameters' device,
+    it stays there)."""
     dev = params["enc_W"][0].device
     tot, n = 0.0, 0
     for i in range(0, len(data), batch):
-        v = torch.as_tensor(np.asarray(data[i:i + batch], np.float32),
+        v = torch.as_tensor(data[i:i + batch], dtype=torch.float32,
                             device=dev)
         tot += float(torch.sum(torch.square(v - reconstruct(params, v))))
         n += v.shape[0]

@@ -5,7 +5,6 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
 from ..models.params import tree_map
@@ -73,15 +72,16 @@ def make_classifier_step(group: Optional[DPGroups] = None, lr: float = 0.1,
 
 
 @torch.no_grad()
-def error_rate(params, X: np.ndarray, y: np.ndarray,
-               batch: int = 1000) -> float:
-    """Misclassification rate (the paper's Fig. 7 metric)."""
+def error_rate(params, X, y, batch: int = 1000) -> float:
+    """Misclassification rate (the paper's Fig. 7 metric); X [n, d] and y
+    [n] numpy arrays or tensors (on the parameters' device, they stay
+    there)."""
     dev = params["head_W"].device
     wrong, n = 0, 0
     for i in range(0, len(X), batch):
-        v = torch.as_tensor(np.asarray(X[i:i + batch], np.float32),
-                            device=dev)
-        pred = torch.argmax(logits_fn(params, v), -1).cpu().numpy()
-        wrong += int((pred != y[i:i + batch]).sum())
+        v = torch.as_tensor(X[i:i + batch], dtype=torch.float32, device=dev)
+        gold = torch.as_tensor(y[i:i + batch], device=dev)
+        pred = torch.argmax(logits_fn(params, v), -1)
+        wrong += int((pred != gold).sum())
         n += len(pred)
     return wrong / max(1, n)

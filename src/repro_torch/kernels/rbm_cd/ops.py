@@ -11,9 +11,10 @@ the kernel's oracle on the card.
 The kernel sums K in splits of whole 32-wide slices (``split_plan``, a
 function of N and K only, so a row computed alone sums in the order it
 does in a batch).  Where the output tiles alone would leave the card
-short of blocks, each split is a block of its own and the splits of a
-tile a cluster of blocks, which add their partials in split order through
-each other's shared memory.  Else, for N above one tile of features, a
+short of blocks (and the splits' blocks stay within a few waves), each
+split is a block of its own and the splits of a tile a cluster of blocks,
+which add their partials in split order through each other's shared
+memory.  Else, for N above one tile of features, a
 first kernel of the same call writes w's TF32 planes to a workspace the
 wrapper allocates (``workspace``).
 """
@@ -31,6 +32,7 @@ TILE_M = 128         # batch rows a block: the tensor-core tile's columns
 SLICE = 32           # k of a staged slice
 SMS = 132            # SMs of an H100 SXM: the blocks a split plan aims for
 MAX_SPLITS = 16      # the blocks of a cluster (H100, non-portable)
+MAX_SPLIT_WAVES = 5  # the most blocks, in SMS, that splits as blocks may take
 
 
 def gemm_sigmoid_plain(x, w, b):
@@ -51,11 +53,18 @@ def split_plan(N: int, K: int):
 
 def grid_splits(M: int, N: int, K: int) -> int:
     """Splits run as blocks of their own (a cluster a tile) when the
-    output tiles alone give fewer than ``SMS`` blocks; else 1: each block
-    sums its splits in order itself."""
+    output tiles alone give fewer than ``SMS`` blocks and the splits'
+    blocks fill at most ``MAX_SPLIT_WAVES`` waves of the card; else 1:
+    each block sums its splits in order itself.  The plan aims at one
+    batch tile (a CD step's 100 rows); on the card (``train_cost.py --part
+    rbm-routes``) the splits' blocks scale with the batch tiles while the
+    other route stays near one wave, and past about five waves of the
+    former (Fig. 8's 2048 rows: 128 tiles x 13 splits) the latter is
+    faster.  Both routes sum in one order: the choice changes no bit."""
     splits = split_plan(N, K)[1]
     tiles = -(-M // TILE_M) * -(-N // TILE_N)
-    return splits if splits > 1 and tiles < SMS else 1
+    return splits if splits > 1 and tiles < SMS \
+        and tiles * splits <= MAX_SPLIT_WAVES * SMS else 1
 
 
 def workspace(M: int, N: int, K: int) -> int:

@@ -6,6 +6,7 @@ compare two trees in one call.
     PYTHONPATH=<other tree>/src python3 src/repro_torch/launch/train_cost.py --part train
     PYTHONPATH=src python3 src/repro_torch/launch/train_cost.py --part rbm-kernels
     PYTHONPATH=src python3 src/repro_torch/launch/train_cost.py --part paper
+    PYTHONPATH=src python3 src/repro_torch/launch/train_cost.py --part rbm-routes
 
 It imports ``repro_torch`` by absolute name before anything else, so it
 measures whichever tree is first on the path (its kernels built from that
@@ -43,6 +44,13 @@ device time a call (``torch.profiler``).
 paper phase runs it: CD steps/s of five timed runs and their median,
 then one more run under ``torch.profiler`` (device activity only): the
 device's busy share of the wall time and K8's share of the device time.
+
+``--part rbm-routes``: K8 at the CD shapes of every mnist-dbn layer and
+of Fig. 8's job (784 x 512) over batches of 100 to 4096 rows, each shape
+run through both of its routes (``ops.grid_splits`` forced: the splits
+as blocks of their own, a cluster a tile, and the splits inside each
+block), with the route the plan picks: both times, ``sigmoid(addmm)``'s,
+and the two routes' outputs compared bit for bit (they sum in one order).
 
 The last line is one JSON object with the numbers.
 """
@@ -157,8 +165,57 @@ def paper(smoke) -> dict:
     return out
 
 
+ROUTE_SHAPES = [(512, 784, False), (784, 512, True), (1000, 784, False),
+                (784, 1000, True), (500, 1000, False), (1000, 500, True),
+                (250, 500, False), (30, 250, False)]   # (N, K, through W.T)
+ROUTE_ROWS = (100, 256, 512, 1024, 2048, 4096)
+
+
+def rbm_routes(smoke) -> dict:
+    from repro_torch.kernels import build_all
+    from repro_torch.kernels.rbm_cd import ops
+    build_all()
+    timer = smoke.Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    planned = ops.grid_splits
+    rows = []
+    try:
+        for N, K, transposed in ROUTE_SHAPES:
+            w = 0.1 * torch.randn((N, K) if transposed else (K, N),
+                                  generator=gen, device="cuda")
+            w = w.T if transposed else w
+            b = 0.1 * torch.rand(N, generator=gen, device="cuda")
+            per, splits = ops.split_plan(N, K)
+            for M in ROUTE_ROWS:
+                x = torch.rand((M, K), generator=gen, device="cuda")
+                got = {}
+                for route, g in (("blocks", splits), ("in_block", 1)):
+                    ops.grid_splits = lambda M_, N_, K_, g=g: g
+                    ops.call_plan.cache_clear()
+                    got[route] = (ops.gemm_sigmoid(x, w, b), timer(
+                        lambda: ops.gemm_sigmoid(x, w, b)))
+                ops.grid_splits = planned
+                ops.call_plan.cache_clear()
+                r = {"M": M, "N": N, "K": K, "w_T": transposed,
+                     "tiles": -(-M // ops.TILE_M) * -(-N // ops.TILE_N),
+                     "splits": splits, "planned": planned(M, N, K),
+                     "blocks_ms": got["blocks"][1],
+                     "in_block_ms": got["in_block"][1],
+                     "library_ms": timer(
+                         lambda: torch.sigmoid(torch.addmm(b, x, w))),
+                     "routes_bit_equal": torch.equal(got["blocks"][0],
+                                                     got["in_block"][0])}
+                print(f"[train_cost] K8 routes {json.dumps(r)}", flush=True)
+                rows.append(r)
+    finally:
+        ops.grid_splits = planned
+        ops.call_plan.cache_clear()
+    return {"routes": rows}
+
+
 PARTS = {"flash-kernels": flash_kernels, "train": train,
-         "rbm-kernels": rbm_kernels, "paper": paper}
+         "rbm-kernels": rbm_kernels, "paper": paper,
+         "rbm-routes": rbm_routes}
 
 
 def main(argv=None) -> dict:

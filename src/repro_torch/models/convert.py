@@ -10,7 +10,8 @@ port never imports jax; callers that hold a JAX tree convert it to numpy.
 The paper's RBM/DBN family has no ``ArchConfig`` tree: ``rbm_stack_from_numpy``
 maps a pre-trained RBM stack (a list of {"W", "bv", "bh"}) and
 ``dbn_tree_from_numpy`` a classifier or autoencoder tree (dicts of lists of
-fp32 arrays, ``core.finetune`` / ``core.autoencoder``), leaf to leaf.
+fp32 arrays, ``core.finetune`` / ``core.autoencoder``), leaf to leaf;
+``boost_learners_from_numpy`` the weak learners of ``core.adaboost.fit``.
 """
 from __future__ import annotations
 
@@ -96,3 +97,26 @@ def dbn_tree_from_numpy(kind: str, tree, device="cpu"):
     return {k: [_fp32(a, device) for a in tree[k]]
             if isinstance(tree[k], (list, tuple)) else _fp32(tree[k], device)
             for k in keys}
+
+
+BOOST_KEYS = ("W1", "b1", "W2", "b2")
+
+
+def boost_learners_from_numpy(learners, device="cpu"):
+    """AdaBoost's weak learners (a list of {"W1" [n_in, n_hid], "b1",
+    "W2" [n_hid, n_out], "b2"}) as fp32 tensors on ``device``, leaf to
+    leaf; raises on a missing or extra key or shapes that do not chain."""
+    out = []
+    for i, p in enumerate(learners):
+        if set(p) != set(BOOST_KEYS):
+            raise KeyError(f"weak learner {i}: keys {sorted(p)}, expected "
+                           f"{sorted(BOOST_KEYS)}")
+        w1, w2 = np.shape(p["W1"]), np.shape(p["W2"])
+        if len(w1) != 2 or len(w2) != 2 or w1[1] != w2[0] \
+                or np.shape(p["b1"]) != w1[1:] \
+                or np.shape(p["b2"]) != w2[1:]:
+            raise ValueError(f"weak learner {i}: shapes W1 {w1}, b1 "
+                             f"{np.shape(p['b1'])}, W2 {w2}, b2 "
+                             f"{np.shape(p['b2'])} do not chain")
+        out.append({k: _fp32(p[k], device) for k in BOOST_KEYS})
+    return out

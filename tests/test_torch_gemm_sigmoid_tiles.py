@@ -242,3 +242,51 @@ def test_split_plan_fills_the_card_at_the_cd_shapes():
     assert workspace(60000, 1000, 784) == 2 * 1000 * 784
     assert workspace(60000, 1000, 785) == 2 * 1000 * 788
     assert workspace(60000, 30, 250) == 0
+
+
+# Fig. 8's CD job (``launch/fig8_scaling.py``): RBM 784 x 512 on the whole
+# global batch of 2048 rows at world size 1
+FIG8 = [("hidden", 2048, 784, 512, False), ("visible", 2048, 512, 784, True)]
+
+
+def test_split_plan_at_fig8_shapes():
+    """The hidden phase's 128 output tiles are fewer than the SMs, but its
+    13 splits as blocks would take 1664 blocks, over five waves of the
+    card, where the other route takes one: its splits run inside each
+    block over w's TF32 planes, as do the visible
+    phase's (N 784 through ``W.T``, 208 tiles).  A CD step's 100 rows keep
+    their splits as blocks, up to the five waves."""
+    assert call_plan(2048, 512, 784) == (2, 13, 1, 2 * 512 * 784)
+    assert call_plan(2048, 784, 512) == (2, 8, 1, 2 * 784 * 512)
+    assert grid_splits(100, 512, 784) == 13
+    assert grid_splits(512, 512, 784) == 13          # 416 blocks
+    assert grid_splits(1024, 512, 784) == 1          # 832 blocks
+    assert grid_splits(512, 1000, 784) == 9          # 576 blocks
+    assert grid_splits(4096, 30, 250) == 8           # 256 blocks
+    for _, M, K, N, _ in FIG8:
+        per, splits = split_plan(N, K)
+        assert splits <= MAX_SPLITS
+        assert (splits - 1) * per * SLICE < K <= splits * per * SLICE
+
+
+@pytest.mark.parametrize("mode", ["rne", "rz"])
+@pytest.mark.parametrize("phase,M,K,N,transposed", FIG8,
+                         ids=[c[0] for c in FIG8])
+def test_model_holds_quarter_tolerance_at_fig8(phase, M, K, N, transposed,
+                                              mode):
+    """(c) at Fig. 8's shapes, on 256 of the 2048 rows (the split plan
+    depends on N and K only): the visible phase's x binary, as the CD
+    step's hidden samples are."""
+    rng = np.random.RandomState(K + N)
+    x = rng.rand(256, K).astype(np.float32)
+    if transposed:
+        x = (x < 0.5).astype(np.float32)
+        wt = torch.from_numpy((0.1 * rng.randn(N, K)).astype(np.float32)).T
+    else:
+        wt = torch.from_numpy((0.1 * rng.randn(K, N)).astype(np.float32))
+    xt = torch.from_numpy(x)
+    bt = torch.from_numpy((0.1 * rng.rand(N)).astype(np.float32))
+    got = k8_model(xt, wt, bt, mode=mode)
+    assert torch.isfinite(got).all()
+    assert (got - gemm_sigmoid_plain(xt, wt, bt)).abs().max().item() \
+        <= K8_TOL / 4

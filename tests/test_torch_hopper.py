@@ -531,7 +531,7 @@ def _k8_inputs(device, M, K, N, transposed, dtype):
     (100, 785, 1000, False), (100, 7, 61, True), (60, 20, 30, False),
     (1, 784, 1000, False), (4096, 784, 1000, False),
     (4096, 1000, 784, True), (4096, 784, 30, False),
-    (4096, 785, 61, True)])
+    (4096, 785, 61, True), (2048, 784, 512, False), (2048, 512, 784, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gemm_sigmoid_kernel_matches_plain(cuda, M, K, N, transposed,
                                            dtype):
@@ -539,9 +539,10 @@ def test_gemm_sigmoid_kernel_matches_plain(cuda, M, K, N, transposed,
     phase reads a row-major [N, K] weight as the transposed view), ragged
     M, N and K: K not a multiple of 8 (785, 7), K within one 32-wide slice,
     N of 30 and 61, M of 1 (splits as blocks) and 4096 (splits in each
-    block).  fp32 within 1e-5 (the two sum K products in another order and
-    the sigmoid's slope is at most 1/4); bf16 within one bf16 ulp of each
-    row's largest output."""
+    block), and Fig. 8's CD job at 2048 rows (a cluster of 13 splits a
+    tile; W.T over w's TF32 planes).  fp32 within 1e-5 (the two sum K
+    products in another order and the sigmoid's slope is at most 1/4);
+    bf16 within one bf16 ulp of each row's largest output."""
     x, w, b = _k8_inputs(cuda, M, K, N, transposed, dtype)
     n0 = gemm_sigmoid.launches
     got = gemm_sigmoid(x, w, b)
@@ -557,7 +558,8 @@ def test_gemm_sigmoid_kernel_matches_plain(cuda, M, K, N, transposed,
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,transposed", [
     (100, 784, 1000, False), (100, 1000, 784, True),
-    (4096, 784, 1000, False), (513, 785, 30, True)])
+    (4096, 784, 1000, False), (513, 785, 30, True),
+    (2048, 784, 512, False), (2048, 512, 784, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gemm_sigmoid_bits_repeat_and_rows_alone(cuda, M, K, N,
                                                  transposed, dtype):

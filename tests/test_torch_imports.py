@@ -3,7 +3,8 @@ copies of framework-free ``repro`` modules stay equal to their originals.
 
 * importing ``repro_torch`` and every module of it in a fresh interpreter
   leaves ``jax`` and ``repro`` out of ``sys.modules``;
-* no file of ``src/repro_torch`` nor ``chip_smoke.py`` imports them;
+* no file of ``src/repro_torch``, nor ``chip_smoke.py``, nor an
+  ``examples/*_torch.py`` demo imports them;
 * each copied module's top-level definitions, imports aside, have the same
   AST as the original's, apart from the few listed as deliberately changed.
 """
@@ -78,7 +79,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
