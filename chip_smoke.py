@@ -161,6 +161,33 @@ Phases, each printing its own lines; any failed check exits non-zero:
    layer's forward-propagation job (AdaBoost: 0; Fig. 8's worker reports
    its own).
 
+20. the streaming front end, overload control and fault injection (run
+   right after phase 6, on its weights and its 8 requests, hopper
+   backend): (a) ``run_offline(overlap=True)`` (``Engine.pump()``: step
+   N+1's plan staged while step N runs) against ``run_offline()`` on a
+   fresh engine, tokens bit for bit, plans staged and used (used + dropped
+   = staged), every ``_stage_next`` call under
+   ``torch.cuda.set_sync_debug_mode("error")`` (nothing in staging may
+   wait for the stream), with both loops' decode step p50 and tokens/s and
+   the host pipeline's dispatch / stage / collect sums
+   (``launch.trace_report.host_pipeline``); (b) ``launch.serve_http``'s
+   smoke in this process on an ephemeral port over phase 6's weights: 8
+   SSE streams of up to 256 prompt tokens, each index exactly once and in
+   order, the streamed tokens those of the ``done`` frame and held to the
+   reference replay by the dual gate, ``/metrics``, a 24-client burst
+   with deadlines that must draw 503s with ``Retry-After``, and ``/health``
+   walking starting, healthy, draining, drained; (c) faults on phase 6's
+   workload (admitted one request a prefill by the 256-token chunk
+   budget, in an order the faults do not change: 8 requests in 8 slots
+   and a pool with room for all), bf16 and int8 pages: ``nan_logits``,
+   ``step_error`` and ``client_disconnect`` on three requests, each target
+   ending with its reason (the poisoned row's finite flag False through
+   K1, K1-int8) and every survivor's tokens equal to the fault-free run's
+   of its pool dtype bit for bit; then ``pool_pressure`` (hostage pages
+   that force a preemption), every request surviving, held to the
+   reference replay by the dual gate.  K1's and K2's launches over the
+   phase must be positive.
+
 In phases 7, 10, 13 and 16 a verify step's rows must equal decode steps
 at ``pos + j`` bit for bit, and in 10, 13 and 16 every speculative stream
 must equal the plain stream of its pool dtype.
@@ -1654,6 +1681,187 @@ def phase_int8_serve(torch, cfg, params, prompts, replay, spec=(0, 4)):
     return counts, out
 
 
+FAULTS = "nan_logits:rid=1,at=2;step_error:rid=4,at=3;client_disconnect:rid=6,at=2"
+FAULT_REASONS = {1: "nan_logits", 4: "step_error", 6: "cancelled"}
+PRESSURE = "pool_pressure:at=20,pages=300,steps=10"
+CARD = ""                      # nvidia-smi's name and power limit
+
+
+def phase_frontend(torch, cfg, params, prompts, replay, seed):
+    """Phase 20 (see the module docstring): the overlapped pipeline, the
+    HTTP front end and fault injection on phase 6's weights and requests.
+    Returns (launch counts {K1, K2} over the phase, report)."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels.paged_attention import paged_decode
+    from repro_torch.kernels.ragged_prefill import ragged_prefill
+    from repro_torch.launch import serve_http
+    from repro_torch.launch.trace_report import host_pipeline
+    from repro_torch.serving import Engine, FaultPlan, dual_gate
+    t_phase = time.perf_counter()
+    paged_decode.launches = 0
+    ragged_prefill.launches = 0
+    out = {}
+    with torch.no_grad():
+        # (a) pump() against step() on fresh engines, staging never syncing
+        runs = {}
+        for overlap in (False, True):
+            eng = Engine(cfg, ServeConfig(attn_backend="hopper",
+                                          **serve_kwargs()),
+                         params, seed=seed, device="cuda")
+            stage, n_stage = eng._stage_next, [0]
+
+            def strict(pending, stage=stage, n_stage=n_stage):
+                n_stage[0] += 1
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return stage(pending)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            eng._stage_next = strict
+            results, m = eng.run_offline(prompts, GEN_TOKENS,
+                                         overlap=overlap)
+            torch.cuda.synchronize()
+            if any(r.failed for r in results):
+                fail(f"overlap={overlap}: a request failed")
+            reg = eng.metrics
+            runs[overlap] = {
+                "tokens": [r.tokens for r in results],
+                "tokens_per_s": m["tokens_per_s"],
+                "decode_step_ms_p50": m["decode_step_ms_p50"],
+                "decode_steps": m["decode_steps"], "wall_s": m["wall_s"],
+                "stage_calls": n_stage[0],
+                "staged": reg.value("engine.overlap_staged"),
+                "used": reg.value("engine.overlap_used"),
+                "dropped": reg.value("engine.overlap_dropped"),
+                "host_pipeline_s": host_pipeline(
+                    eng.tracer.to_dict()).get("per_phase_s", {})}
+            del eng
+        sync, ov = runs[False], runs[True]
+        print(f"[smoke] pump vs step ({CARD}): step() {sync['tokens_per_s']:.1f} "
+              f"tok/s, decode step p50 {sync['decode_step_ms_p50']:.3f} ms; "
+              f"pump() {ov['tokens_per_s']:.1f} tok/s, decode step p50 "
+              f"{ov['decode_step_ms_p50']:.3f} ms; plans staged "
+              f"{ov['staged']}, used {ov['used']}, dropped {ov['dropped']} "
+              f"({ov['stage_calls']} _stage_next calls under sync debug "
+              f"mode 'error'); host pipeline "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                          for k, v in ov["host_pipeline_s"].items()),
+              flush=True)
+        if ov["tokens"] != sync["tokens"]:
+            fail("pump() tokens differ from step() tokens")
+        if not (ov["staged"] > 0 and ov["used"] > 0
+                and ov["used"] + ov["dropped"] == ov["staged"]):
+            fail(f"overlap counters staged {ov['staged']}, used {ov['used']}, "
+                 f"dropped {ov['dropped']}")
+        out["overlap"] = {k: {x: v for x, v in r.items() if x != "tokens"}
+                          for k, r in (("step", sync), ("pump", ov))}
+        base = sync["tokens"]
+
+        # (b) the HTTP/SSE front end over phase 6's weights
+        t0 = time.perf_counter()
+        args = serve_http.parse_args([
+            "--smoke", str(N_REQUESTS), "--slots", str(N_REQUESTS),
+            "--prompt-len", "256", "--gen", str(GEN_TOKENS),
+            "--attn-backend", "hopper", "--overload", "--timeout-s", "120",
+            "--seed", str(seed)])
+        eng, _, scfg = serve_http.build_engine(args, params=params)
+        rc, http = serve_http.serve(eng, cfg, scfg, args)
+        del eng
+        http["seconds"] = time.perf_counter() - t0
+        print(f"[smoke] HTTP front end ({CARD}): {http.get('streams')} "
+              f"streams, {http.get('exact_tokens')}/{http.get('tokens')} "
+              f"tokens equal the reference replay's greedy token, "
+              f"{http.get('tokens_per_s', 0):.1f} tok/s, burst of "
+              f"{http.get('overload_clients')}: "
+              f"{http.get('overload_served')} served, "
+              f"{http.get('overload_shed_503')} shed with 503, "
+              f"{http.get('overload_failed')} failed in the engine; health "
+              f"{' -> '.join(http.get('health_history', []))}; "
+              f"{http['seconds']:.1f} s", flush=True)
+        if rc != 0:
+            fail("the serve_http smoke failed (see its lines above)")
+        if http.get("health_history") != ["starting", "healthy", "draining",
+                                          "drained"]:
+            fail(f"health history {http.get('health_history')}")
+        out["http"] = http
+
+        # (c) faults, bf16 and int8: targets end with their reason, every
+        # survivor equals the fault-free run of its pool dtype bit for bit
+        out["faults"] = {}
+        for kv_dtype in ("bf16", "int8"):
+            kw = {**serve_kwargs(), "kv_dtype": kv_dtype}
+            clean = base
+            if kv_dtype == "int8":
+                eng = Engine(cfg, ServeConfig(attn_backend="hopper", **kw),
+                             params, seed=seed, device="cuda")
+                clean = [r.tokens for r in
+                         eng.run_offline(prompts, GEN_TOKENS)[0]]
+                del eng
+            plan = FaultPlan.parse(FAULTS)
+            eng = Engine(cfg, ServeConfig(attn_backend="hopper", **kw),
+                         params, seed=seed, device="cuda", faults=plan)
+            results, _ = eng.run_offline(prompts, GEN_TOKENS, overlap=True)
+            torch.cuda.synchronize()
+            errors = {r.rid: r.error for r in results if r.failed}
+            survivors = [r for r in results if r.rid not in FAULT_REASONS]
+            equal = sum(r.tokens == clean[r.rid] for r in survivors)
+            prefix = all(r.tokens == clean[r.rid][:len(r.tokens)]
+                         for r in results if r.rid in FAULT_REASONS)
+            print(f"[smoke] faults on {kv_dtype} pages ({FAULTS}): "
+                  f"terminals {errors}, {equal}/{len(survivors)} survivors "
+                  f"equal the fault-free run bit for bit, quarantined "
+                  f"{eng.metrics.value('engine.quarantined')}, pages "
+                  f"scrubbed {eng.metrics.value('pool.pages_scrubbed')}",
+                  flush=True)
+            if plan.unfired() or errors != FAULT_REASONS \
+                    or equal != len(survivors) or not prefix \
+                    or not eng.pool.conservation_ok():
+                fail(f"faults on {kv_dtype} pages: unfired {plan.unfired()}, "
+                     f"terminals {errors}, {equal}/{len(survivors)} "
+                     f"survivors exact, target prefixes {prefix}")
+            out["faults"][kv_dtype] = {
+                "errors": errors, "survivors_equal": equal,
+                "survivors": len(survivors)}
+            del eng
+
+        # pool pressure: hostage pages force a preemption; the replayed
+        # prefills may batch differently, so the gate is the dual gate
+        plan = FaultPlan.parse(PRESSURE)
+        eng = Engine(cfg, ServeConfig(attn_backend="hopper",
+                                      **serve_kwargs()),
+                     params, seed=seed, device="cuda", faults=plan)
+        results, _ = eng.run_offline(prompts, GEN_TOKENS, overlap=True)
+        torch.cuda.synchronize()
+        tokens = [r.tokens for r in results]
+        n_pre = sum(r.n_preemptions for r in results)
+        same = sum(a == b for t, u in zip(tokens, base)
+                   for a, b in zip(t, u))
+        del eng
+        rep = dual_gate(replay("reference", "bf16", tokens),
+                        replay("hopper", "bf16", tokens), tokens,
+                        tol=LOGIT_TOL)
+        print(f"[smoke] {PRESSURE}: {n_pre} preemptions, "
+              f"{sum(not r.failed for r in results)}/{len(results)} requests "
+              f"survived, {same}/{sum(map(len, tokens))} tokens equal the "
+              f"fault-free run", flush=True)
+        gate_line("dual gate of the pool-pressure run", rep)
+        if plan.unfired() or any(r.failed for r in results) \
+                or any(len(t) != GEN_TOKENS for t in tokens):
+            fail(f"pool pressure: unfired {plan.unfired()} or a request "
+                 "failed or came back short")
+        out["pool_pressure"] = {"preemptions": n_pre, "tokens_equal": same,
+                                "max_logit_err": rep["max_logit_err"]}
+    torch.cuda.synchronize()
+    counts = {"K1": paged_decode.launches, "K2": ragged_prefill.launches}
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[smoke] launches over phase 20: K1 {counts['K1']}, K2 "
+          f"{counts['K2']}", flush=True)
+    if counts["K1"] <= 0 or counts["K2"] <= 0:
+        fail("K1 or K2 never launched in phase 20")
+    return counts, out
+
+
 # starcoder2-7b's serving workload: 4 requests of 1024, 3072, 4608 and 6144
 # prompt tokens (the last two past the 4096-token window), 256-token
 # chunks, 32 new tokens each, 16-token pages, prefix cache requested
@@ -2943,6 +3151,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     print(f"[smoke] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     secs, libs = build_all()
@@ -2991,6 +3201,12 @@ def main() -> None:
     print(f"[smoke] main path phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
     replay = Replays(cfg, params, prompts, cache)
+    t0 = time.perf_counter()
+    frontend_counts, frontend = phase_frontend(torch, cfg, params, prompts,
+                                               replay, args.seed)
+    counts.update({f"{k} (phase 20)": c for k, c in frontend_counts.items()})
+    print(f"[smoke] front-end phase took {time.perf_counter() - t0:.1f} s "
+          f"({CARD})", flush=True)
     t0 = time.perf_counter()
     counts["K3"], spec = phase_speculate(
         torch, cfg, params, prompts, tokens,
@@ -3150,7 +3366,7 @@ def main() -> None:
         "speculative": spec, "int8": int8, "minitron": minitron,
         "ring_length_bit_equal": ring_lengths, "sliding_window": window,
         "command_r": command_r, "deepseek": deepseek, "paper": paper,
-        "figures": figures, "train": train}),
+        "figures": figures, "train": train, "frontend": frontend}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

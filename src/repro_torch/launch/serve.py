@@ -32,6 +32,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --arch deepseek-v2-236b --speculate-tokens 4 --verify
 
+  # the overlapped pipeline (step N+1's plan staged while step N runs) and
+  # chaos mode: a deterministic fault plan (``serving.faults``) checked
+  # against the exact-survivor contract
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --overlap --inject "nan_logits:rid=1,at=2" --verify
+
 The flags are those of ``repro.launch.serve`` for what the port supports,
 plus ``--device`` (``cuda`` by default: without a card the run raises
 instead of moving to the CPU).  ``--attn-backend`` takes
@@ -42,6 +48,20 @@ greedy tokens agree per request (speculation included: accepted drafts
 leave the greedy stream unchanged); with ``--kv-dtype int8`` it runs the
 dual gate of ``serving.parity.dual_gate_verify`` instead, since quantized
 pages are not token-exact against bf16.
+
+``--overlap`` drives ``Engine.pump()`` instead of ``step()`` (the same
+tokens).  ``--inject SPEC`` runs the workload under a fault plan; with
+``--verify`` it checks the exact-survivor contract: every planned fault
+fired, each targeted request ended with its fault's error and a prefix of
+its clean tokens, every other request's tokens equal the clean ones, and
+the page pool balances after the drain.  The clean tokens are the static
+single-request baseline's on the bf16 ``reference`` path (as in the JAX
+CLI), and elsewhere a fault-free engine run with the same settings: the
+hopper kernels and int8 pages are exact only against themselves.  A plan
+with ``pool_pressure`` preempts and replays requests in other prefill
+batches, whose dense products may round differently off the reference
+path; there the survivors are held to the reference replay by the dual
+gate instead.
 """
 from __future__ import annotations
 
@@ -55,8 +75,9 @@ import torch
 from .. import resolve_device
 from ..configs import ServeConfig, get_arch, reduced as make_reduced
 from ..models.registry import init_params
-from ..serving import (Engine, Tracer, dual_gate_verify, format_report,
-                       generate_static)
+from ..serving import (Engine, FaultPlan, Tracer, dual_gate,
+                       dual_gate_verify, format_report, generate_static,
+                       logit_tol, replay_logits)
 
 
 def make_prompts(args, vocab: int):
@@ -137,6 +158,17 @@ def main(argv=None):
                          "admission)")
     ap.add_argument("--max-len", type=int, default=0,
                     help="per-request length cap (0 -> fitted to workload)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="drive the overlapped host/device pipeline "
+                         "(Engine.pump(): step N+1's plan staged while step "
+                         "N runs on the device) instead of the synchronous "
+                         "step loop; tokens are identical either way")
+    ap.add_argument("--inject", metavar="SPEC", default="",
+                    help="deterministic fault plan, e.g. "
+                         "'nan_logits:rid=2,at=3;step_error:rid=0,at=2'; "
+                         "kinds: nan_logits, step_error, pool_pressure, "
+                         "client_disconnect, detok_stall (continuous engine "
+                         "only; with --verify the exact-survivor check)")
     ap.add_argument("--verify", action="store_true",
                     help="check tokens against the static single-request path")
     ap.add_argument("--trace", metavar="PATH", default="",
@@ -182,19 +214,33 @@ def main(argv=None):
               "engine; the static path decodes one token a step over bf16 "
               "contiguous caches")
 
+    plan = None
+    if args.inject:
+        if engine != "continuous":
+            raise SystemExit("[serve] --inject requires the continuous "
+                             "engine (faults target its seams)")
+        plan = FaultPlan.parse(args.inject, seed=args.seed)
     eng = None
     with torch.no_grad():
         if engine == "continuous":
             eng = Engine(cfg, scfg, seed=args.seed, device=device,
                          tracer=Tracer(
-                             profiler_annotations=args.profiler_annotations))
+                             profiler_annotations=args.profiler_annotations),
+                         faults=plan)
             params = eng.params
-            results, metrics = eng.run_offline(prompts, budgets)
+            results, metrics = eng.run_offline(prompts, budgets,
+                                               overlap=args.overlap)
             tokens = [r.tokens for r in results]
             print(f"[serve] device {metrics['device']}, attention backend "
                   f"{metrics['attn_backend']}, {args.kv_dtype} pages "
                   f"({eng.pool.kv_bytes_per_token:.0f} B per token), decode "
                   f"step p50 {metrics['decode_step_ms_p50']:.1f} ms")
+            if args.overlap:
+                print(f"[serve] overlap: "
+                      f"{eng.metrics.value('engine.overlap_staged')} plans "
+                      f"staged, {eng.metrics.value('engine.overlap_used')} "
+                      f"used, {eng.metrics.value('engine.overlap_dropped')} "
+                      f"dropped")
             if eng.spec_k:
                 print(f"[serve] speculation: K={eng.spec_k}, "
                       f"{metrics['spec_proposed']} drafted, "
@@ -236,7 +282,17 @@ def main(argv=None):
                 json.dump(out, f, indent=2, sort_keys=True)
             print(f"[serve] metrics -> {args.metrics_json}")
 
-        if args.verify and args.kv_dtype == "int8" \
+        if plan is not None:
+            fired = [f.describe() for f in plan.faults if f.fired]
+            print(f"[serve] chaos: {len(fired)}/{len(plan.faults)} planned "
+                  f"faults fired; quarantined="
+                  f"{eng.metrics.value('engine.quarantined')} cancelled="
+                  f"{eng.metrics.value('engine.cancelled')} pages_scrubbed="
+                  f"{eng.metrics.value('pool.pages_scrubbed')}")
+        if args.verify and plan is not None:
+            chaos_verify(cfg, scfg, params, prompts, budgets, results, plan,
+                         eng, overlap=args.overlap)
+        elif args.verify and args.kv_dtype == "int8" \
                 and engine == "continuous":
             # quantized pages are not token-exact against the bf16 static
             # baseline; the contract is the bounded-error + high-margin gate
@@ -262,6 +318,75 @@ def main(argv=None):
             print(f"[serve] verify OK: {len(tokens)} requests match the "
                   f"single-request static baseline exactly")
     return tokens
+
+
+def chaos_verify(cfg, scfg, params, prompts, budgets, results, plan, eng, *,
+                 overlap=False):
+    """The exact-survivor contract of a ``--inject`` run (see the module
+    docstring); raises ``SystemExit`` listing every violation."""
+    expected = {}      # rid -> substring expected in the terminal error
+    for f in plan.faults:
+        if f.kind in ("nan_logits", "step_error") and f.rid >= 0:
+            expected[f.rid] = f.kind
+        elif f.kind == "client_disconnect" and f.rid >= 0:
+            expected[f.rid] = "cancelled"
+    exact = eng.attn_backend == "reference" and scfg.kv_dtype == "bf16"
+    if exact:
+        ref, _ = generate_static(cfg, params, prompts, budgets, scfg,
+                                 batch_size=1)
+        against = "the fault-free static baseline"
+    else:
+        clean = Engine(cfg, scfg, params, device=eng.device)
+        ref = [r.tokens for r in clean.run_offline(prompts, budgets,
+                                                   overlap=overlap)[0]]
+        against = "a fault-free engine run"
+    rebatched = not exact and any(f.kind == "pool_pressure"
+                                  for f in plan.faults)
+    bad = [f"planned fault never fired: {why}" for why in plan.unfired()]
+    for i, res in enumerate(results):
+        if i in expected:
+            if not res.failed or expected[i] not in (res.error or ""):
+                bad.append(f"request {i}: expected terminal "
+                           f"{expected[i]!r}, got error={res.error!r}")
+            elif not rebatched and res.tokens != ref[i][:len(res.tokens)]:
+                bad.append(f"request {i}: partial tokens are not a prefix "
+                           f"of the clean run")
+        elif res.failed:
+            bad.append(f"request {i}: survivor failed: {res.error!r}")
+        elif not rebatched and res.tokens != ref[i]:
+            bad.append(f"request {i}: survivor tokens diverge from "
+                       f"{against}")
+    if rebatched:
+        # preemption replays re-batch prefills: hold every survivor to the
+        # reference replay along its own tokens instead
+        keep = [i for i, r in enumerate(results) if not r.failed]
+        toks = [results[i].tokens for i in keep]
+        rep = dual_gate(
+            [replay_logits(cfg, scfg, params, prompts[i], t)
+             for i, t in zip(keep, toks)],
+            [replay_logits(cfg, scfg, params, prompts[i], t,
+                           attn_backend=eng.attn_backend)
+             for i, t in zip(keep, toks)], toks, tol=logit_tol(cfg))
+        same = sum(a == b for i, t in zip(keep, toks)
+                   for a, b in zip(t, ref[i]))
+        print(f"[serve] pool pressure: {same}/{sum(map(len, toks))} "
+              f"survivor tokens equal {against}; dual gate max |dlogit| "
+              f"{rep['max_logit_err']:.4f}, {rep['high_margin_mismatches']} "
+              f"high-margin mismatches")
+        if not rep["ok"]:
+            bad.append("survivors fail the dual gate against the reference "
+                       "replay")
+    if not eng.pool.conservation_ok():
+        bad.append("page-pool conservation violated after drain")
+    if bad:
+        for why in bad:
+            print(f"[serve] CHAOS VERIFY FAILED: {why}")
+        raise SystemExit(f"[serve] CHAOS VERIFY FAILED ({len(bad)} "
+                         f"violations)")
+    print(f"[serve] chaos verify OK: {len(results) - len(expected)} "
+          f"survivors {'held to' if rebatched else 'identical to'} "
+          f"{against}, {len(expected)} targeted requests quarantined with "
+          f"clean terminals, pool conserved")
 
 
 if __name__ == "__main__":

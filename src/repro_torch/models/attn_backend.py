@@ -184,11 +184,24 @@ def verify_meta(cfg: ArchConfig, page_size: int, tables: np.ndarray,
             "write_off": positions % page_size}
 
 
-def meta_to_device(meta, device) -> Dict[str, torch.Tensor]:
-    """Move a host-built meta dict to the model's device as int32 tensors."""
-    return {k: torch.as_tensor(np.ascontiguousarray(v, np.int32),
-                               device=device)
-            for k, v in meta.items()}
+def meta_to_device(meta, device, *,
+                   non_blocking: bool = False) -> Dict[str, torch.Tensor]:
+    """Move a host-built meta dict to the model's device as int32 tensors.
+
+    ``non_blocking`` (CUDA only) copies from page-locked host buffers
+    without waiting: a copy from pageable memory returns only once every
+    kernel queued before it has run, which would stall a host that plans
+    step N+1 while step N runs.  The caching host allocator keeps each
+    page-locked buffer until its copy has run on the stream, so a buffer is
+    never rewritten under a pending copy."""
+    out = {}
+    for k, v in meta.items():
+        t = torch.from_numpy(np.ascontiguousarray(v, np.int32))
+        if non_blocking and torch.device(device).type == "cuda":
+            out[k] = t.pin_memory().to(device, non_blocking=True)
+        else:
+            out[k] = t.to(device)
+    return out
 
 
 # ----------------------------------------------------------- backend classes

@@ -32,12 +32,41 @@ positions, physical write targets — derived once per step.
 
 The pool lives on the engine's device and the model steps write it in
 place (the JAX engine donated its buffers to jitted steps instead); the COW
-page fork and the quarantine scrub are in-place copies too.  The engine
-runs on ``cuda`` unless constructed with ``device="cpu"``.
+page fork, the quarantine scrub and the fault injector's NaN poison are
+in-place writes too.  The engine runs on ``cuda`` unless constructed with
+``device="cpu"``.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue 1 item: the overlapped ``pump()`` pipeline, fault injection and
-deadline-aware admission control (item 9).
+**Overlapped host/device pipeline.**  Every step is split into a
+*dispatch* half (scheduler decision, host-side meta build, the step's
+launches — on a CUDA device the kernels are queued on the stream and
+control returns while they run) and a *collect* half (the copy of the
+step's tokens to the host, which waits for the device, then token
+bookkeeping and retirement).  ``step()`` runs them back to back;
+``pump()`` additionally *stages* the host plan of step N+1 between the two
+halves: while step N's kernels run, the engine builds the next decode
+step's page tables, positions and ``decode_meta`` and queues their upload
+from page-locked buffers (``meta_to_device(non_blocking=True)``: nothing
+in staging waits for the stream).  At the next dispatch the staged plan is
+used only if its fingerprint (slot, rid, position, page count) equals a
+replan's, so a used plan is bit-identical to a replan and tokens stay
+exact.  ``run_offline(..., overlap=True)`` and the streaming front end
+(``serving.server``) drive ``pump()``; the ``engine.overlap_*`` counters
+count staged, used and dropped plans, and the dispatch / stage / collect
+halves appear on the tracer's host-pipeline track.
+
+**Fault tolerance.**  ``faults=FaultPlan`` (``serving.faults``) fires
+injected faults at the engine's seams: a NaN poison of the target's newest
+exclusively-owned page before a decode launch (its row's finite flag comes
+back False and the row is quarantined), a ``RequestFault`` raised before a
+launch (only that request is quarantined: the pool was not written yet),
+hostage pages (pool pressure), and client disconnects.  A quarantined
+request's exclusively-owned pages are zeroed before they return to the
+free list.  With ``ServeConfig.admission_control`` a request whose
+deadline the calibrated queue model (``admission.AdmissionController``)
+cannot meet is shed at the door with a ``retry_after_s`` hint, and
+admitted requests past their deadline are evicted by a sweep before every
+dispatch; a draining engine sheds every new request.  The state-slot
+families' scheduler action still raises (ROADMAP queue 1 item 13).
 
 ``generate_static`` is the static-batching baseline kept for verification:
 contiguous per-request KV caches, the whole batch padded together and
@@ -64,7 +93,8 @@ from ..models.attn_backend import (decode_meta, meta_to_device, prefill_meta,
 from ..models.params import tree_leaves
 from ..models.registry import build_model, init_cache, init_params
 from ..models.steps import make_serve_step
-from .admission import HealthState
+from .admission import AdmissionController, HealthState
+from .faults import FaultInjector, FaultPlan, RequestFault
 from .kv_pool import NULL_PAGE, PagedKVPool
 from .radix_cache import RadixCache
 from .scheduler import Admission, Request, Scheduler
@@ -87,9 +117,10 @@ class RequestResult:
     tpot_s: float = 0.0               # time per output token after the first
     n_prefill_chunks: int = 0         # prefill calls run (incl. replays)
     preempted: bool = False
-    error: str = ""                   # nonempty: rejected/cancelled/
+    error: str = ""                   # nonempty: rejected/cancelled/shed/
                                       # quarantined; tokens hold whatever the
                                       # request produced before the terminal
+    retry_after_s: float = 0.0        # backoff hint for shed requests
 
     @property
     def failed(self) -> bool:
@@ -106,7 +137,22 @@ class _Pending:
     rows: Any                         # prefill row tuples / decode active list
     out_dev: Any                      # device logits / next-token tensors
     t0: float                         # dispatch start (step span start)
+    t_dispatched: float               # host-side dispatch end
     waiting: bool                     # decode-ready slots parked behind this
+
+
+@dataclasses.dataclass
+class _StagedDecode:
+    """A pre-built plan for the *next* decode step, built while the current
+    step runs on the device.  ``fp`` is the exact post-step fingerprint
+    (slot, rid, pos, owned pages, draft len) the plan assumed; dispatch uses
+    the plan only when reality still matches, so a used plan is
+    bit-identical to a replan.  Only plain decode steps stage (a verify
+    step's draft is unknowable a step ahead), so the staged draft length is
+    always 0."""
+    active: Tuple[int, ...]
+    fp: Tuple[Tuple[int, int, int, int, int], ...]
+    meta: Dict[str, torch.Tensor]     # decode_meta, upload already queued
 
 
 def _copy_page(kv, src: int, dst: int) -> None:
@@ -121,6 +167,15 @@ def _zero_pages(kv, pages: List[int]) -> None:
     in place."""
     for _, leaf in tree_leaves(kv):
         leaf[:, pages] = 0
+
+
+def _poison_pages(kv, pages: List[int]) -> None:
+    """NaN-fill the floating leaves of ``pages`` in place (fault injection
+    only).  int8 payload leaves cannot hold NaN and are left alone: their
+    bf16 scale leaves carry the poison through the dequant instead."""
+    for _, leaf in tree_leaves(kv):
+        if leaf.is_floating_point():
+            leaf[:, pages] = float("nan")
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,14 +206,9 @@ class Engine:
                  params=None, *, seed: int = 0, device="cuda",
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 faults=None):
+                 faults: Optional[FaultPlan] = None):
         self.cfg = cfg
         self.scfg = scfg or ServeConfig()
-        if faults is not None:
-            raise _not_in_slice("fault injection (--inject)", "9")
-        if self.scfg.admission_control or self.scfg.default_deadline_s \
-                or self.scfg.default_ttft_deadline_s:
-            raise _not_in_slice("deadline-aware admission control", "9")
         self.device = resolve_device(device)
         self.model = build_model(cfg)
         self.spec = self.model.cache_spec()
@@ -199,7 +249,14 @@ class Engine:
         # weight-free prompt-lookup proposer (replaceable, e.g. by tests)
         self.spec_k = speculation_k(cfg, self.spec, self.scfg)
         self.proposer = NgramProposer(self.spec_k) if self.spec_k else None
+        # fault tolerance: optional chaos injector, health lifecycle, and
+        # deadline-aware admission control (serving/{faults,admission})
+        self.injector = FaultInjector(faults, self.metrics) \
+            if faults is not None else None
         self.health = HealthState(self.metrics)
+        self.admission = AdmissionController(
+            self.scfg.max_slots, metrics=self.metrics, seed=seed) \
+            if self.scfg.admission_control else None
         self._m_prefill_steps = self.metrics.counter(
             "engine.prefill_steps", "prefill calls (admissions + chunks)")
         self._m_multi_admit = self.metrics.counter(
@@ -235,30 +292,60 @@ class Engine:
             "engine.decode_stall_s", "time decode-ready slots sat parked "
             "behind non-decode steps, per decode step")
         self._stall_accum = 0.0
+        # overlapped-pipeline bookkeeping (pump()): staged next-step plans
+        self._staged: Optional[_StagedDecode] = None
+        self._m_overlap_staged = self.metrics.counter(
+            "engine.overlap_staged", "next-step plans staged while the "
+            "device ran the current step")
+        self._m_overlap_used = self.metrics.counter(
+            "engine.overlap_used", "staged plans whose fingerprint still "
+            "matched at dispatch (host work hidden behind device time)")
+        self._m_overlap_dropped = self.metrics.counter(
+            "engine.overlap_dropped", "staged plans invalidated by a "
+            "retirement/EOS/admission/preemption before dispatch")
         # request-lifecycle admission guards
         self._inflight: set = set()   # rids queued, live, or awaiting collect
         self._m_reject_budget = self.metrics.counter(
             "sched.rejections", "admission attempts blocked, by reason",
             labels=("reason",)).labels(reason="no_budget")
+        # fault-tolerance accounting: quarantines (NaN logits / step errors),
+        # client cancels, deadline evictions, and admission sheds
         self._m_quarantined = self.metrics.counter(
             "engine.quarantined", "requests terminal-failed mid-flight by "
-            "the per-step finite-logits guard")
+            "the per-step fault guard (nan_logits | step_error)")
         self._m_cancelled = self.metrics.counter(
             "engine.cancelled", "requests cancelled by the client "
             "(disconnects), queued or live")
+        self._m_deadline_evict = self.metrics.counter(
+            "engine.deadline_evictions", "requests expired by the deadline "
+            "sweep (queued or mid-flight)")
+        self._m_shed = self.metrics.counter(
+            "admission.shed", "Requests shed at admission, by reason.",
+            labels=("reason",))
         self.on_token: Optional[Callable[[int, int, int, float], None]] = None
 
     # ----------------------------------------------------------- public API
 
     def add_request(self, prompt: Sequence[int], max_new_tokens: int = 16,
-                    rid: Optional[int] = None) -> int:
+                    rid: Optional[int] = None, *,
+                    deadline_s: Optional[float] = None,
+                    ttft_deadline_s: Optional[float] = None) -> int:
         """Queue a prompt; returns the request id.
 
         A request with no token budget under ``max_len`` is rejected
         gracefully: counted under ``sched.rejections{reason=no_budget}`` and
         surfaced from ``collect()`` as a failed ``RequestResult``.  The only
         submission-time exception is a ``rid`` collision with an in-flight
-        request."""
+        request.
+
+        ``deadline_s`` / ``ttft_deadline_s`` are relative QoS budgets
+        (seconds from now; ``ServeConfig.default_*`` fill absent ones).
+        With ``ServeConfig.admission_control`` on, a request whose deadline
+        the calibrated queue model cannot meet is shed at the door (failed
+        result, ``error="shed: overloaded"``, a jittered ``retry_after_s``),
+        and admitted requests that blow their deadline are evicted by the
+        sweep before each dispatch.  A draining engine sheds every new
+        request with reason ``draining``."""
         if rid is None:
             rid = self._next_rid
         elif rid in self._inflight:
@@ -279,8 +366,35 @@ class Engine:
             self.sched.finished.append(req)
             self.tracer.on_rejected(rid, now, "no_budget")
             return rid
-        self.sched.add(Request(rid=rid, prompt=prompt, max_new=max_new,
-                               arrival=now))
+        if deadline_s is None and self.scfg.default_deadline_s > 0:
+            deadline_s = self.scfg.default_deadline_s
+        if ttft_deadline_s is None and self.scfg.default_ttft_deadline_s > 0:
+            ttft_deadline_s = self.scfg.default_ttft_deadline_s
+        if self.health.draining:
+            return self._shed(rid, prompt, now, "draining")
+        if self.admission is not None:
+            reason = self.admission.check(len(self.sched.queue),
+                                          deadline_s, ttft_deadline_s)
+            if reason is not None:
+                return self._shed(rid, prompt, now, reason)
+        self.sched.add(Request(
+            rid=rid, prompt=prompt, max_new=max_new, arrival=now,
+            deadline=now + deadline_s if deadline_s else None,
+            ttft_deadline=now + ttft_deadline_s if ttft_deadline_s else None))
+        return rid
+
+    def _shed(self, rid: int, prompt: List[int], now: float,
+              reason: str) -> int:
+        """Refuse a request at the door: failed result, backoff hint, and a
+        ``rejected`` tracer terminal — the engine never does work for it."""
+        retry = (self.admission.retry_after_s(len(self.sched.queue))
+                 if self.admission is not None else 1.0)
+        self._m_shed.labels(reason=reason).inc()
+        req = Request(rid=rid, prompt=prompt, max_new=0, arrival=now,
+                      error=f"shed: {reason}", retry_after_s=retry)
+        req.t_finish = now
+        self.sched.finished.append(req)
+        self.tracer.on_rejected(rid, now, reason)
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -301,6 +415,7 @@ class Engine:
                 return True
         for i, slot in enumerate(self.sched.slots):
             if slot is not None and slot.req.rid == rid:
+                self._drop_staged()           # slot set is about to change
                 slot.req.error = "cancelled"
                 slot.req.t_finish = now
                 self.sched.retire(i)
@@ -312,15 +427,42 @@ class Engine:
 
     def step(self) -> bool:
         """Run one scheduler action (a prefill, a continuation chunk, or a
-        decode) synchronously.  False when idle."""
-        pending = self._dispatch_next()
+        decode) synchronously.  False when idle.
+
+        A :class:`RequestFault` raised at the pre-launch seam (an injected
+        step error) quarantines only the offending request: the pool was
+        not written yet, so the surviving slots simply run on the next
+        step, token streams intact."""
+        try:
+            pending = self._dispatch_next()
+        except RequestFault as e:
+            self._quarantine_rid(e.rid, e.kind)
+            return True
         if pending is None:
             return False
         self._finish_step(pending)
         return True
 
     def pump(self) -> bool:
-        raise _not_in_slice("the overlapped pump() pipeline", "9")
+        """One *overlapped* step: dispatch the next action, stage the host
+        plan of the step after it while the device computes, then collect.
+        Token for token identical to ``step()`` (a staged plan is used only
+        when it fingerprints equal to a replan); the gain is host time
+        hidden behind device time.  False when idle."""
+        try:
+            pending = self._dispatch_next()
+        except RequestFault as e:
+            self._quarantine_rid(e.rid, e.kind)
+            return True
+        if pending is None:
+            return False
+        self.tracer.host_span("dispatch", pending.t0, pending.t_dispatched,
+                              kind=pending.kind)
+        t_s0 = time.perf_counter()
+        if self._stage_next(pending):
+            self.tracer.host_span("stage", t_s0, time.perf_counter())
+        self._finish_step(pending, overlap=True)
+        return True
 
     def collect(self) -> List[RequestResult]:
         """Pop every finished request as a RequestResult."""
@@ -335,7 +477,8 @@ class Engine:
                 ttft=(req.t_first - req.arrival
                       if req.t_first is not None else 0.0),
                 n_preemptions=req.n_preemptions,
-                cached_tokens=req.cached_tokens, error=req.error)
+                cached_tokens=req.cached_tokens, error=req.error,
+                retry_after_s=req.retry_after_s)
             if rec is not None and rec.t_finish is not None:
                 t_first = rec.t_first if rec.t_first is not None \
                     else rec.t_finish
@@ -345,6 +488,9 @@ class Engine:
                     / max(len(req.generated) - 1, 1)
                 res.n_prefill_chunks = rec.n_chunks
                 res.preempted = rec.n_preemptions > 0
+            if self.admission is not None and not res.failed:
+                # calibrate the queue model on what actually served
+                self.admission.observe_result(res.ttft, res.latency)
             self._inflight.discard(req.rid)
             out.append(res)
         self.sched.finished.clear()
@@ -354,17 +500,23 @@ class Engine:
                     max_new_tokens=16, *,
                     overlap: bool = False) -> Tuple[List[RequestResult], Dict]:
         """Admit every prompt, drive the loop dry, return (results, metrics).
-        ``max_new_tokens`` is an int or a per-prompt sequence."""
-        if overlap:
-            raise _not_in_slice("run_offline(overlap=True)", "9")
+
+        ``max_new_tokens`` is an int or a per-prompt sequence.  With
+        ``overlap=True`` the loop runs the pipelined ``pump()`` instead of
+        the synchronous ``step()`` (same tokens, host work hidden behind
+        device time)."""
         budgets = ([max_new_tokens] * len(prompts)
                    if isinstance(max_new_tokens, int) else list(max_new_tokens))
+        # a reused engine must not leak the previous run's trailing stall
+        # time (or a stale staged plan) into this run's accounting
         self._stall_accum = 0.0
+        self._staged = None
         self.health.mark_healthy()
         t0 = time.perf_counter()
         for p, m in zip(prompts, budgets):
             self.add_request(p, m)
-        while self.step():
+        drive = self.pump if overlap else self.step
+        while drive():
             pass
         wall = time.perf_counter() - t0
         results = sorted(self.collect(), key=lambda r: r.rid)
@@ -405,18 +557,41 @@ class Engine:
 
     # --------------------------------------------------- dispatch / collect
 
+    def _drop_staged(self) -> None:
+        if self._staged is not None:
+            self._m_overlap_dropped.inc()
+            self._staged = None
+
     def _dispatch_next(self) -> Optional[_Pending]:
         """Scheduler decision + host-side meta build + step launch.  On a
         CUDA device the launch returns before the kernels finish.  ``None``
         on drain (trailing stall time is flushed there)."""
-        action = self.sched.next_action()
+        if self.injector is not None:
+            self.injector.on_tick(self)
+        if self.admission is not None:
+            self._evict_deadlines()
+        try:
+            action = self.sched.next_action()
+        except RuntimeError:
+            # injected pool pressure can manufacture a scheduler deadlock the
+            # real pool would never see; give the hostage pages back and
+            # retry once before treating it as genuine exhaustion
+            if self.injector is None \
+                    or not self.injector.release_pressure(self):
+                raise
+            action = self.sched.next_action()
         if action is None:
+            self._drop_staged()
+            if self.injector is not None:
+                self.injector.on_drain(self)
             if self._stall_accum:
                 self._h_stall.observe(self._stall_accum)
                 self._stall_accum = 0.0
             return None
         waiting = bool(self.sched.decode_ready())
         kind, payload = action
+        if kind != "decode":
+            self._drop_staged()
         t0 = time.perf_counter()
         if kind == "prefill":
             rows, out = self._launch_prefill(payload, t0)
@@ -426,17 +601,23 @@ class Engine:
             # speculation on: every decode-ready step runs as a small-q
             # verify step (with an empty draft it degenerates to decode)
             kind = "verify"
+            if self.injector is not None:
+                self.injector.before_launch(self, "verify", payload)
             rows, out = payload, self._launch_verify(payload)
         elif kind == "decode":
+            if self.injector is not None:
+                self.injector.before_launch(self, "decode", payload)
             rows, out = payload, self._launch_decode(payload)
         else:
             raise _not_in_slice(f"scheduler action {kind!r}", "13")
         return _Pending(kind=kind, payload=payload, rows=rows, out_dev=out,
-                        t0=t0, waiting=waiting)
+                        t0=t0, t_dispatched=time.perf_counter(),
+                        waiting=waiting)
 
-    def _finish_step(self, pending: _Pending) -> None:
+    def _finish_step(self, pending: _Pending, overlap: bool = False) -> None:
         """Block on the pending step's device output and run the host-side
         bookkeeping: token appends, retirement, step span, stall account."""
+        t_c0 = time.perf_counter()
         if pending.kind == "decode":
             self._collect_decode(pending)
         elif pending.kind == "verify":
@@ -447,6 +628,8 @@ class Engine:
         self.tracer.step_span(pending.kind, pending.t0, t1,
                               rows=len(pending.payload),
                               decode_waiting=pending.waiting)
+        if overlap:
+            self.tracer.host_span("collect", t_c0, t1, kind=pending.kind)
         if pending.kind in ("decode", "verify"):
             # verify steps *serve* decode-ready slots: both flush the stall
             self._h_stall.observe(self._stall_accum)
@@ -455,7 +638,22 @@ class Engine:
             # decode-ready slots sat out this step: head-of-line stall
             self._stall_accum += t1 - pending.t0
 
-    # ---------------------------------------------------------- quarantine
+    # ---------------------------------------------- quarantine / deadlines
+
+    def poison_slot(self, slot_idx: int) -> None:
+        """Fault injection: NaN-fill the floating leaves of the slot's most
+        recent exclusively-owned page, in place.  At the decode seam the
+        newest page always holds positions past every sharer's prompt, so
+        only the target row ever reads it — the poison is strictly
+        per-request, which is what makes the exact-survivor contract
+        testable."""
+        slot = self.sched.slots[slot_idx]
+        assert slot is not None
+        page = next((p for p in reversed(slot.pages)
+                     if self.pool.ref(p) == 1), None)
+        assert page is not None, \
+            f"slot {slot_idx} owns no exclusive page to poison"
+        _poison_pages(self.pool.kv, [page])
 
     def _scrub_slot(self, slot_idx: int) -> None:
         """Zero a quarantined slot's exclusively-owned pages before they
@@ -475,6 +673,7 @@ class Engine:
         scrub the pages it exclusively owns, release everything through the
         normal retire path, and emit the failure terminal."""
         req = self.sched.slots[slot_idx].req
+        self._drop_staged()
         self._scrub_slot(slot_idx)
         req.error = reason
         req.t_finish = now
@@ -482,6 +681,69 @@ class Engine:
         self._m_quarantined.inc()
         self.tracer.on_finished(req.rid, now, len(req.generated),
                                 error=reason)
+
+    def _quarantine_rid(self, rid: int, reason: str) -> None:
+        """Quarantine by request id (the step-error path: the fault names a
+        rid, not a slot).  No-op if the rid is no longer live."""
+        now = time.perf_counter()
+        for i, slot in enumerate(self.sched.slots):
+            if slot is not None and slot.req.rid == rid:
+                self._quarantine_slot(i, reason, now)
+                return
+
+    def _evict_deadlines(self) -> None:
+        """Expire queued and mid-flight requests whose deadline passed.
+        Mid-flight eviction frees the slot immediately — finishing a request
+        its client already gave up on is negative goodput."""
+        now = time.perf_counter()
+        expired_q, expired_live = self.sched.sweep_deadlines(now)
+        for req in expired_q:
+            req.error = "deadline_exceeded"
+            req.t_finish = now
+            self.sched.finished.append(req)
+            self._m_deadline_evict.inc()
+            self.tracer.on_rejected(req.rid, now, "deadline_exceeded")
+        for i in expired_live:
+            self._drop_staged()
+            req = self.sched.slots[i].req
+            req.error = "deadline_exceeded"
+            req.t_finish = now
+            self.sched.retire(i)
+            self._m_deadline_evict.inc()
+            self.tracer.on_finished(req.rid, now, len(req.generated),
+                                    error="deadline_exceeded")
+
+    def _stage_next(self, pending: _Pending) -> bool:
+        """While the dispatched step runs on the device, build the plan of
+        the *next* decode step and queue its upload.  Staged only when the
+        next action is deterministically the same decode batch one position
+        further: the pending step is a decode, nothing is queued, no slot is
+        mid-prefill, no slot retires on budget at this step's collect (an
+        EOS retirement is caught by the dispatch fingerprint instead), and
+        no slot crosses a page boundary at its next position.  Nothing here
+        waits for the stream.  True when a plan was staged."""
+        if pending.kind != "decode" or self.sched.queue \
+                or self.sched.prefilling_slots():
+            return False
+        active = list(pending.rows)
+        ps = self.scfg.page_size
+        cap = self.pool.table_width
+        for i in active:
+            slot = self.sched.slots[i]
+            if len(slot.req.generated) + 1 >= slot.req.max_new:
+                return False          # retires when this step collects
+            p1 = slot.pos + 1
+            if self.pool.spec.paged and len(slot.pages) < cap \
+                    and p1 % ps == 0 and p1 // ps >= len(slot.pages):
+                return False          # next decode needs page growth
+        self._staged = _StagedDecode(
+            active=tuple(active),
+            fp=tuple((i, self.sched.slots[i].req.rid,
+                      self.sched.slots[i].pos + 1,
+                      len(self.sched.slots[i].pages), 0) for i in active),
+            meta=self._decode_plan(active, pos_offset=1, non_blocking=True))
+        self._m_overlap_staged.inc()
+        return True
 
     # -------------------------------------------------------------- prefill
 
@@ -607,27 +869,47 @@ class Engine:
 
     # --------------------------------------------------------------- decode
 
-    def _decode_plan(self, active: List[int]) -> Dict[str, torch.Tensor]:
-        """Flat per-step decode metadata, derived once on the host."""
+    def _decode_plan(self, active: List[int], pos_offset: int = 0,
+                     non_blocking: bool = False) -> Dict[str, torch.Tensor]:
+        """Flat per-step decode metadata, derived once on the host.
+        ``pos_offset=1`` builds the *next* step's plan while this step's
+        collect has not advanced the cursors yet (staging), and
+        ``non_blocking`` queues its upload without waiting for the
+        stream."""
         B = self.scfg.max_slots
         pos = np.zeros((B,), np.int32)
         tables = np.full((B, max(self.pool.table_width, 1)), NULL_PAGE,
                          np.int32)
         for i in active:
             slot = self.sched.slots[i]
-            pos[i] = slot.pos
+            pos[i] = slot.pos + pos_offset
             tables[i] = slot.table
         return meta_to_device(
             decode_meta(self.cfg, self.scfg.page_size, tables, pos),
-            self.device)
+            self.device, non_blocking=non_blocking)
 
     def _launch_decode(self, active: List[int]):
-        """Launch one fixed-shape decode step; returns (device next-token
-        tensor, device finite flags, launch time) without waiting."""
+        """Launch one fixed-shape decode step, reusing a staged plan when
+        its fingerprint still matches reality (a used plan is bit-identical
+        to a replan — same positions, tables, pages — so tokens are exact).
+        Returns (device next-token tensor, device finite flags, launch time)
+        without waiting."""
         tokens = np.zeros((self.scfg.max_slots,), np.int32)
         for i in active:
             tokens[i] = self.sched.slots[i].req.generated[-1]
-        meta = self._decode_plan(active)
+        meta = None
+        if self._staged is not None:
+            st, self._staged = self._staged, None
+            fp = tuple(
+                (i, self.sched.slots[i].req.rid, self.sched.slots[i].pos,
+                 len(self.sched.slots[i].pages), 0) for i in active)
+            if tuple(active) == st.active and fp == st.fp:
+                meta = st.meta
+                self._m_overlap_used.inc()
+            else:
+                self._m_overlap_dropped.inc()
+        if meta is None:
+            meta = self._decode_plan(active)
         t_launch = time.perf_counter()
         with self.tracer.annotate("decode_step"):
             nxt, ok, self.pool.kv, _ = self._decode(
@@ -645,6 +927,8 @@ class Engine:
         ok = ok_dev.cpu().numpy()
         now = time.perf_counter()
         self._h_decode_step.observe(now - t_launch)
+        if self.admission is not None:
+            self.admission.observe_step(now - t_launch)
         for i in pending.rows:
             slot = self.sched.slots[i]
             if slot is None:
@@ -732,6 +1016,8 @@ class Engine:
         ok = ok_dev.cpu().numpy()
         now = time.perf_counter()
         self._h_decode_step.observe(now - t_launch)
+        if self.admission is not None:
+            self.admission.observe_step(now - t_launch)
         for i in pending.rows:
             slot = self.sched.slots[i]
             if slot is None:
@@ -755,8 +1041,12 @@ class Engine:
                     break             # EOS or budget: the rest is dropped
 
     def _emit_token(self, rid: int, index: int, tok: int, now: float) -> None:
+        """Fire the streaming hook and the injector's token seam (the
+        client-disconnect fault watches the stream, not the scheduler)."""
         if self.on_token is not None:
             self.on_token(rid, index, tok, now)
+        if self.injector is not None:
+            self.injector.on_token(rid, index)
 
     def _maybe_retire(self, slot_idx: int, now: float) -> None:
         req = self.sched.slots[slot_idx].req

@@ -164,14 +164,22 @@ def test_cuda_requested_without_a_card_raises():
     (dict(attn_backend="hopper"), None),
 ])
 def test_unported_modes_refuse(kw, item):
+    """``hopper`` on the CPU refuses; the deadline and admission-control
+    modes, which refused until item 9 was ported, now build an engine that
+    stamps deadlines on queued requests and calibrates its controller."""
     cfg = tconfigs.reduced(tconfigs.get_arch("qwen2-0.5b"))
     scfg = tconfigs.ServeConfig(**{**SCFG, **kw})
     if item is None:                 # hopper launches CUDA kernels only
         with pytest.raises(ValueError, match="hopper"):
             Engine(cfg, scfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=item):
-        Engine(cfg, scfg, device="cpu")
+    eng = Engine(cfg, scfg, device="cpu")
+    assert (eng.admission is not None) == scfg.admission_control
+    eng.add_request([1, 2, 3], 2)
+    (req,) = eng.sched.queue
+    assert (req.deadline is not None) == bool(scfg.default_deadline_s)
+    assert (req.ttft_deadline is not None) \
+        == bool(scfg.default_ttft_deadline_s)
 
 
 def test_unported_families_refuse():

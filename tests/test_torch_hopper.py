@@ -1125,3 +1125,68 @@ def test_hopper_training_step_matches_reference(cuda):
     make_train_step(cfg, ocfg, attn_backend="hopper")(
         params, init_opt_state(params, ocfg), batch)
     assert flash_attention.launches - n0 == cfg.n_layers
+
+
+def _frontend_engine(cuda, **kw):
+    cfg = reduced(get_arch("qwen2-0.5b"), n_heads=14, n_kv_heads=2,
+                  head_dim=64, d_model=896)
+    params = init_params(cfg, 0, cuda)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist()
+               for n in (8, 40, 23, 61)]
+    scfg = ServeConfig(attn_backend="hopper", page_size=16, max_slots=4,
+                       max_len=96, **kw)
+    return cfg, params, prompts, scfg
+
+
+@pytest.mark.cuda
+def test_pump_equals_step_bit_for_bit(cuda):
+    """``Engine.pump()`` (step N+1's plan staged, its upload queued from
+    page-locked buffers, while step N's kernels run) gives the tokens of
+    ``step()`` bit for bit on the hopper backend, with staged plans used
+    and no staging call waiting for the stream."""
+    cfg, params, prompts, scfg = _frontend_engine(cuda)
+    with torch.no_grad():
+        sync = Engine(cfg, scfg, params, device=cuda).run_offline(
+            prompts, 24)[0]
+        eng = Engine(cfg, scfg, params, device=cuda)
+        stage = eng._stage_next
+
+        def strict(pending):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return stage(pending)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        eng._stage_next = strict
+        over = eng.run_offline(prompts, 24, overlap=True)[0]
+    assert [r.tokens for r in over] == [r.tokens for r in sync]
+    staged, used, dropped = (eng.metrics.value(f"engine.overlap_{k}")
+                             for k in ("staged", "used", "dropped"))
+    assert staged > 0 and used > 0 and used + dropped == staged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_poisoned_page_flips_only_its_own_row(cuda, kv_dtype):
+    """A NaN poison of one slot's newest page (its K/V, or for int8 pages
+    its bf16 scales) reaches that row's logits through K1 and K1-int8 —
+    its finite flag comes back False — and no other row's."""
+    from repro_torch.kernels.paged_attention import paged_decode
+    cfg, params, prompts, scfg = _frontend_engine(cuda, kv_dtype=kv_dtype)
+    with torch.no_grad():
+        eng = Engine(cfg, scfg, params, device=cuda)
+        for p in prompts:
+            eng.add_request(p, 8)
+        while eng.sched.queue or len(eng.sched.decode_ready()) < 4:
+            assert eng.step()
+        eng.poison_slot(2)
+        n0 = paged_decode.launches
+        pending = eng._dispatch_next()
+        assert pending.kind == "decode"
+        ok = pending.out_dev[1].cpu().tolist()
+        assert paged_decode.launches - n0 == cfg.n_layers
+        eng._finish_step(pending)
+    assert ok == [True, True, False, True]
+    assert eng.sched.slots[2] is None
+    assert eng.metrics.value("engine.quarantined") == 1

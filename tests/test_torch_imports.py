@@ -39,7 +39,11 @@ COPIES = {
     "serving/telemetry.py": ("serving/telemetry.py",
                              {"Tracer.__doc__", "Tracer.__init__",
                               "Tracer.annotate"}, True),
-    "serving/admission.py": ("serving/admission.py", set(), False),
+    "serving/admission.py": ("serving/admission.py", set(), True),
+    "serving/faults.py": ("serving/faults.py", set(), True),
+    "serving/server.py": ("serving/server.py",
+                          {"ServingLoop._engine_main"}, True),
+    "launch/trace_report.py": ("launch/trace_report.py", set(), True),
     "data/synthetic_mnist.py": ("data/synthetic_mnist.py", set(), True),
     "data/dedup.py": ("data/dedup.py", set(), True),
     "data/pipeline.py": ("data/pipeline.py", set(), True),
