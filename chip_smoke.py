@@ -72,10 +72,11 @@ Phases, each printing its own lines; any failed check exits non-zero:
    positive phase in bf16, and Fig. 8's CD job ([2048, 784] x [784, 512]
    and [2048, 512] x W.T, fp32), each with a second call equal bit for
    bit and rows computed alone equal to theirs in the batch;
-12. full-width, full-depth minitron-4b (32 layers) served as phase 6 serves
-   qwen2-0.5b (K2 at D=128 for every prefill chunk, a profiled rerun with
-   K2's share of the device time), bf16 and int8, each held to the dual
-   gate;
+12. full-width minitron-4b, its depth cut to 16 of 32 layers (since PR
+   29, to keep the smoke under the call's limit on a slow host: phase 21
+   adds ~140 s), served as phase 6 serves qwen2-0.5b (K2 at D=128 for
+   every prefill chunk, a profiled rerun with K2's share of the device
+   time), bf16 and int8, each held to the dual gate;
 13. command-r-plus-104b at full width, its depth cut to 4 of 64 layers
    (full depth is ~210 GB): phase 10's four runs, the speculative ones
    through K3's 60-row ring mode; gate 1 of its dual gates holds each
@@ -188,6 +189,27 @@ Phases, each printing its own lines; any failed check exits non-zero:
    reference replay by the dual gate.  K1's and K2's launches over the
    phase must be positive.
 
+21. the state-slot families (run last; no kernel on their path): full-width,
+   full-depth mamba2-780m (48 SSD layers, d 1536) on phase 6's 8
+   requests (the prefix cache refused with a warning) and
+   recurrentgemma-2b (8 x (RG-LRU, RG-LRU, local attention) + 2 RG-LRU
+   layers, d 2560) on 4 prompts of 1500, 2040, 2100 and 3000 tokens
+   straddling its 2048-token window, so that its ring wraps in a prefill
+   and during decode, 32 new tokens each, random weights from ``--seed``,
+   hopper backend: (a) the engine's own logits (a rerun, which must give
+   the same tokens, records them) held to single-request replays
+   (``replay_logits``) by the dual gate, and the tokens equal to the
+   static single-request baseline's counted; (b) the requests of slots 0
+   and 1 preempted mid-decode (checkpointed to host memory) and restored
+   into each other's slots, every stream equal to the un-preempted run's
+   bit for bit (decode runs at the fixed [max_slots] shape); (c)
+   ``nan_logits`` on request 1 through its state row: it ends with its
+   reason, every survivor equals the fault-free run bit for bit; (d)
+   tokens/s, decode step p50, TTFT p50, the device's busy share (a
+   profiled rerun), peak memory and state bytes a slot, beside the card's
+   name and power limit, and the launches of K1-K9 over the phase (none
+   is expected: the JAX package runs no Pallas kernel there either).
+
 In phases 7, 10, 13 and 16 a verify step's rows must equal decode steps
 at ``pos + j`` bit for bit, and in 10, 13 and 16 every speculative stream
 must equal the plain stream of its pool dtype.
@@ -226,6 +248,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -248,6 +271,8 @@ LOGIT_ROW_ULPS = 2.0           # command-r's bound, in bf16 ulps of the row
 K8_TOL = 1e-5                  # K8 vs plain in fp32 (another sum order)
 CLASSIFIER_LR = 1.0            # examples/quickstart.py's fine-tuning rate
 ULP_FLOOR = 2.0 ** -14         # least kernel-vs-plain bound (ulp at ~0.01)
+
+MINITRON_LAYERS = 16           # of 32: phase 12's depth cut (since PR 29)
 
 # the main path's workload: 8 requests of 128..1024 prompt tokens sharing a
 # 64-token prefix, 16-token pages, 256-token prefill chunks, 32 new tokens
@@ -2895,6 +2920,224 @@ def train_run(torch, seed):
     return launches, report, (cfg, ocfg, step, p0, s0, batches)
 
 
+# the state-slot families' workloads (phase 21): mamba2-780m takes phase
+# 6's 8 requests; recurrentgemma-2b 4 prompts straddling its 2048-token
+# local-attention window, so that its ring wraps inside a prefill and
+# during decode
+RG_PROMPTS = (1500, 2040, 2100, 3000)
+STATE_FAULT = "nan_logits:rid=1,at=4"
+
+
+def state_workload(cfg, seed):
+    """(prompts, serve settings, slots) of phase 21 for ``cfg``."""
+    rng = np.random.RandomState(seed)
+    if cfg.family == "ssm":
+        return serving_workload(rng, cfg.vocab), serve_kwargs()
+    kw = dict(page_size=PAGE, max_slots=len(RG_PROMPTS),
+              max_len=-(-(max(RG_PROMPTS) + GEN_TOKENS) // PAGE) * PAGE)
+    return [rng.randint(1, cfg.vocab, size=n).tolist()
+            for n in RG_PROMPTS], kw
+
+
+def record_logits(torch, eng):
+    """Wrap ``eng``'s prefill and decode steps so that they keep, for every
+    request, the logits each of its tokens was drawn from (copied to the
+    host): {rid: [logits row, ...]}.  The steps compute what the engine's
+    own do (the model's step, argmax, finite flags)."""
+    from repro_torch.models.registry import build_model
+    model = build_model(eng.cfg, eng.attn_backend)
+    rec = {}
+    prefill = eng._prefill
+
+    def prefill_rec(params, kv, state, meta, tokens, extras):
+        logits, kv, state = prefill(params, kv, state, meta, tokens, extras)
+        host = logits.float().cpu().numpy()
+        for r, i in enumerate(meta["slots"].tolist()):
+            if i < len(eng.sched.slots) and eng.sched.slots[i] is not None:
+                rec.setdefault(eng.sched.slots[i].req.rid, []).append(host[r])
+        return logits, kv, state
+
+    def decode_rec(params, kv, state, meta, tokens):
+        logits, kv, state = model.decode_paged(params, kv, state, meta,
+                                               tokens)
+        host = logits.float().cpu().numpy()
+        for i in eng.sched.decode_ready():
+            rec[eng.sched.slots[i].req.rid].append(host[i])
+        return (logits.argmax(-1).to(torch.int32),
+                torch.isfinite(logits).all(-1), kv, state)
+    eng._prefill, eng._decode = prefill_rec, decode_rec
+    return rec
+
+
+def phase_state_slots(torch, seed):
+    """Phase 21 (see the module docstring): mamba2-780m and
+    recurrentgemma-2b at full width and depth on the hopper backend.
+    Returns the report; K1-K9's launches over the phase are printed (the
+    path runs none of them)."""
+    from repro_torch.configs import ServeConfig, get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import (mla_paged_decode,
+                                                     mla_paged_verify,
+                                                     paged_decode,
+                                                     paged_verify)
+    from repro_torch.kernels.ragged_prefill import (mla_build_kv,
+                                                    mla_ragged_prefill,
+                                                    ragged_prefill,
+                                                    windowed_prefill)
+    from repro_torch.kernels.rbm_cd import gemm_sigmoid
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import (Engine, FaultPlan, dual_gate,
+                                     generate_static, replay_logits)
+    kernels = {"K1": paged_decode, "K2": ragged_prefill, "K3": paged_verify,
+               "K4": windowed_prefill, "K5": mla_paged_decode,
+               "K6": mla_ragged_prefill, "K6-kv": mla_build_kv,
+               "K7": mla_paged_verify, "K8": gemm_sigmoid,
+               "K9": flash_attention}
+    for fn in kernels.values():
+        fn.launches = 0
+    out = {}
+    t_phase = time.perf_counter()
+    for arch in ("mamba2-780m", "recurrentgemma-2b"):
+        t_arch = time.perf_counter()
+        cfg = get_arch(arch)
+        prompts, kw = state_workload(cfg, seed)
+        scfg = ServeConfig(attn_backend="hopper", **kw)
+        rep = {"layers": cfg.n_layers,
+               "prompt_tokens": [len(p) for p in prompts]}
+
+        def engine(**extra):
+            return Engine(cfg, scfg, params, seed=seed, device="cuda",
+                          **extra)
+        with torch.no_grad():
+            params = init_params(cfg, seed, "cuda")
+            rep["parameters"] = sum(x.numel() for _, x in tree_leaves(params))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            eng = engine()
+            results, m = eng.run_offline(prompts, GEN_TOKENS)
+            torch.cuda.synchronize()
+            tokens = [r.tokens for r in results]
+            rep.update(tokens_per_s=m["tokens_per_s"],
+                       decode_step_ms_p50=m["decode_step_ms_p50"],
+                       ttft_p50_ms=m["ttft_p50_s"] * 1e3,
+                       prefill_steps=m["prefill_steps"],
+                       decode_steps=m["decode_steps"],
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       state_bytes_per_slot=eng.states.slot_nbytes)
+            print(f"[smoke] {arch} ({cfg.n_layers} layers, "
+                  f"{rep['parameters'] / 1e9:.3f} B parameters) on the "
+                  f"hopper backend ({CARD}): {m['n_requests']} requests, "
+                  f"{m['new_tokens']} tokens in {m['wall_s']:.3f} s = "
+                  f"{m['tokens_per_s']:.1f} tok/s, TTFT p50 "
+                  f"{rep['ttft_p50_ms']:.1f} ms, decode step p50 "
+                  f"{m['decode_step_ms_p50']:.3f} ms over "
+                  f"{m['decode_steps']} steps, {m['prefill_steps']} prefill "
+                  f"steps, peak memory {rep['peak_gb']:.2f} GB, state "
+                  f"{eng.states.slot_nbytes} B a slot", flush=True)
+            if any(r.failed for r in results) \
+                    or any(len(t) != GEN_TOKENS for t in tokens) \
+                    or not all(0 <= x < cfg.vocab_padded for t in tokens
+                               for x in t):
+                fail(f"{arch}: failed, short or out-of-range requests")
+            rep["busy_share"] = profile_rerun(torch, eng, prompts)
+            del eng
+
+            # (a) the engine's own logits (a rerun that records them)
+            # against single-request replays, by the dual gate; and the
+            # tokens equal to the static single-request baseline's
+            eng = engine()
+            rec = record_logits(torch, eng)
+            again = [r.tokens for r in eng.run_offline(prompts,
+                                                       GEN_TOKENS)[0]]
+            del eng
+            if again != tokens:
+                fail(f"{arch}: a rerun's tokens differ from the first run's")
+            replays = [replay_logits(cfg, scfg, params, p, t)
+                       for p, t in zip(prompts, tokens)]
+            gate = dual_gate(replays, [np.stack(rec[i])
+                                       for i in range(len(prompts))],
+                             tokens, tol=LOGIT_TOL)
+            base, _ = generate_static(cfg, params, prompts, GEN_TOKENS, scfg,
+                                      batch_size=1)
+            same = sum(a == b for t, u in zip(tokens, base)
+                       for a, b in zip(t, u))
+            rep["gate"] = {k: gate[k] for k in (
+                "max_logit_err", "max_logit_err_row_ulps", "n_tokens",
+                "greedy_equal_tokens", "high_margin_tokens",
+                "high_margin_mismatches", "ok")}
+            rep["static_equal_tokens"] = same
+            gate_line(f"{arch}: the engine's logits against single-request "
+                      "replays", gate)
+            print(f"[smoke] {arch}: {same}/{sum(map(len, tokens))} tokens "
+                  f"equal the static single-request baseline's (--verify)",
+                  flush=True)
+
+            # (b) checkpoint and restore: the requests of slots 0 and 1
+            # preempted mid-decode (0 first, so each is restored into the
+            # other's slot); every stream equals the first run's
+            eng = engine()
+            for p in prompts:
+                eng.add_request(p, GEN_TOKENS)
+            moved = {}
+            while eng.step():
+                live = [eng.sched.slots[i] for i in (0, 1)]
+                if not moved and not eng.sched.queue and all(
+                        s is not None and len(s.req.generated) >= 4
+                        for s in live):
+                    for i in (0, 1):
+                        moved[eng.sched.slots[i].req.rid] = i
+                        eng.sched.preempt(i)
+                for i, slot in enumerate(eng.sched.slots):
+                    if slot is not None and slot.req.rid in moved \
+                            and moved[slot.req.rid] == i:
+                        fail(f"{arch}: request {slot.req.rid} restored into "
+                             "the slot it left")
+            res = sorted(eng.collect(), key=lambda r: r.rid)
+            restores = eng.metrics.value("engine.state_restores")
+            exact = sum(r.tokens == t for r, t in zip(res, tokens))
+            print(f"[smoke] {arch}: checkpoint/restore of requests "
+                  f"{sorted(moved)} into each other's slots: "
+                  f"{restores} restores, {exact}/{len(res)} streams equal "
+                  f"the un-preempted run bit for bit", flush=True)
+            if len(moved) != 2 or restores != 2 or exact != len(res) \
+                    or eng.states.num_claimed:
+                fail(f"{arch}: checkpoint/restore: {len(moved)} preempted, "
+                     f"{restores} restores, {exact}/{len(res)} exact")
+            rep["restore"] = {"restores": restores, "exact_streams": exact}
+            del eng
+
+            # (c) a NaN-poisoned state row: its request ends with its
+            # reason, every survivor equals the fault-free run bit for bit
+            plan = FaultPlan.parse(STATE_FAULT)
+            eng = engine(faults=plan)
+            res, _ = eng.run_offline(prompts, GEN_TOKENS, overlap=True)
+            torch.cuda.synchronize()
+            errors = {r.rid: r.error for r in res if r.failed}
+            equal = sum(r.tokens == tokens[r.rid] for r in res
+                        if r.rid != 1)
+            print(f"[smoke] {arch}: fault {STATE_FAULT}: terminals "
+                  f"{errors}, {equal}/{len(res) - 1} survivors equal the "
+                  f"fault-free run bit for bit", flush=True)
+            if plan.unfired() or errors != {1: "nan_logits"} \
+                    or equal != len(res) - 1 \
+                    or res[1].tokens != tokens[1][:len(res[1].tokens)]:
+                fail(f"{arch}: state-row poison: unfired {plan.unfired()}, "
+                     f"terminals {errors}, {equal} survivors exact")
+            rep["fault"] = {"errors": errors, "survivors_equal": equal}
+            del eng, params
+        torch.cuda.empty_cache()
+        rep["seconds"] = time.perf_counter() - t_arch
+        out[arch] = rep
+    torch.cuda.synchronize()
+    out["launches"] = {k: fn.launches for k, fn in kernels.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[smoke] launches of K1-K9 over phase 21 (none expected): "
+          + ", ".join(f"{k} {v}" for k, v in out["launches"].items()),
+          flush=True)
+    return out
+
+
 def phase_train(torch, seed):
     """The LM training path: full-width, full-depth qwen2-0.5b with random
     weights from ``seed``.  (a) ``train_run``: ``TR_STEPS`` AdamW steps on
@@ -3222,9 +3465,11 @@ def main() -> None:
     del params, replay, cache
     torch.cuda.empty_cache()
 
-    # minitron-4b: the dense path at head dim 128 (K2-D128), bf16 and int8
+    # minitron-4b: the dense path at head dim 128 (K2-D128), bf16 and int8,
+    # its depth cut for the smoke's time (see phase 12 above)
     t0 = time.perf_counter()
-    mcfg = get_arch("minitron-4b")
+    mcfg = dataclasses.replace(get_arch("minitron-4b"),
+                               n_layers=MINITRON_LAYERS)
     mc, mreport, params, prompts, _, cache = phase_serve(
         torch, mcfg, args.seed)
     m8c, m8 = phase_int8_serve(torch, mcfg, params, prompts,
@@ -3289,6 +3534,11 @@ def main() -> None:
     counts["K9"], train = phase_train(torch, args.seed)
     print(f"[smoke] training phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state_slots = phase_state_slots(torch, args.seed)
+    print(f"[smoke] state-slot phase took {time.perf_counter() - t0:.1f} s "
+          f"({CARD})", flush=True)
     for kid, c in counts.items():
         if c <= 0:
             fail(f"{kid} was never launched on its serving path")
@@ -3366,7 +3616,8 @@ def main() -> None:
         "speculative": spec, "int8": int8, "minitron": minitron,
         "ring_length_bit_equal": ring_lengths, "sliding_window": window,
         "command_r": command_r, "deepseek": deepseek, "paper": paper,
-        "figures": figures, "train": train, "frontend": frontend}),
+        "figures": figures, "train": train, "frontend": frontend,
+        "state_slots": state_slots}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --arch deepseek-v2-236b --speculate-tokens 4 --verify
 
+  # the state-slot families: mamba2 (SSD) and recurrentgemma (RG-LRU +
+  # a local-attention ring), one checkpointable state slot a request
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --arch mamba2-780m --verify
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --arch recurrentgemma-2b --requests 6 --mixed --prompt-len 48 --verify
+
   # the overlapped pipeline (step N+1's plan staged while step N runs) and
   # chaos mode: a deterministic fault plan (``serving.faults``) checked
   # against the exact-survivor contract
@@ -113,7 +120,7 @@ def main(argv=None):
     ap.add_argument("--engine", choices=("auto", "static", "continuous"),
                     default="auto",
                     help="auto: continuous (every family the port builds "
-                         "pages its cache)")
+                         "pages its cache or holds it in state slots)")
     ap.add_argument("--requests", type=int, default=8,
                     help="number of requests (static: also the batch size)")
     ap.add_argument("--batch", type=int, default=0,
@@ -231,10 +238,16 @@ def main(argv=None):
             results, metrics = eng.run_offline(prompts, budgets,
                                                overlap=args.overlap)
             tokens = [r.tokens for r in results]
+            cache = (f"state slots ({eng.states.slot_nbytes} B a slot)"
+                     if eng.states is not None else
+                     f"{args.kv_dtype} pages "
+                     f"({eng.pool.kv_bytes_per_token:.0f} B per token)")
             print(f"[serve] device {metrics['device']}, attention backend "
-                  f"{metrics['attn_backend']}, {args.kv_dtype} pages "
-                  f"({eng.pool.kv_bytes_per_token:.0f} B per token), decode "
-                  f"step p50 {metrics['decode_step_ms_p50']:.1f} ms")
+                  f"{metrics['attn_backend']}, {cache}, decode step p50 "
+                  f"{metrics['decode_step_ms_p50']:.1f} ms")
+            if args.speculate_tokens and not eng.spec_k:
+                print(f"[serve] NOTE: {cfg.name} keeps state slots, which "
+                      "have no verify step: serving non-speculatively")
             if args.overlap:
                 print(f"[serve] overlap: "
                       f"{eng.metrics.value('engine.overlap_staged')} plans "

@@ -5,9 +5,11 @@ cache for the static path, and the paged blocks the serving engine runs.
 The port's counterpart of ``repro.models.attention``, dense subset, with
 the int8 paged pool, the small-q speculative verify block and the
 sliding-window family (page rings for the paged blocks, a ring buffer of
-``min(window, max_len)`` entries for the static cache); the logit softcap
-(no registered arch sets it) is not ported.  Every softmax is spelled
-out as ``exp(s - max) / sum`` — what ``jax.nn.softmax`` computes — and every
+``min(window, max_len)`` entries for the static cache, and for the hybrid
+family's local attention, whose window the callers pass explicitly); the
+logit softcap (no registered arch sets it) is not ported.  Every softmax
+is spelled out as ``exp(s - max) / sum`` — what ``jax.nn.softmax``
+computes — and every
 score and probability-weighted sum is taken in fp32 from the bf16 operands,
 with one cast back at the block output: the rounding points the JAX
 reference and the Hopper kernels share (``repro.kernels.README``).
@@ -157,30 +159,31 @@ def ring_chunk_attention(q, k, v, k_ring, v_ring, start, n_live, *,
     return torch.cat(outs, dim=1)
 
 
-def full_attention_block(cfg: ArchConfig, p, x, freqs, *, q_block=512,
-                         attend=chunked_attention):
+def full_attention_block(cfg: ArchConfig, p, x, freqs, *, window: int = 0,
+                         q_block=512, attend=chunked_attention):
     """Causal self-attention over a full sequence (training and the static
-    prefill), sliding-window masked for windowed families.  ``attend(q, k,
-    v, *, scale, q_block, window)`` is the attend core: ``chunked_attention``
-    by default, the backend's ``train_attend`` in the training forward."""
+    prefill), masked to the last ``window`` keys when ``window > 0``
+    (``cfg.sliding_window`` for windowed families, ``cfg.attn_window`` for
+    the hybrid's local attention).  ``attend(q, k, v, *, scale, q_block,
+    window)`` is the attend core: ``chunked_attention`` by default, the
+    backend's ``train_attend`` in the training forward."""
     q, k, v = qkv(cfg, p, x)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q = apply_rope(q, positions, freqs)
     k = apply_rope(k, positions, freqs)
     o = attend(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim_),
-               q_block=q_block, window=cfg.sliding_window)
+               q_block=q_block, window=window)
     return out_proj(o, p["wo"])
 
 
 # ------------------------------------------------------------------- KV cache
 
-def cache_defs(cfg: ArchConfig, batch: int, max_len: int):
-    """Defs for one layer's contiguous KV cache (static path): a ring
-    buffer of ``min(window, max_len)`` entries for sliding-window
-    families."""
+def cache_defs(cfg: ArchConfig, batch: int, max_len: int, window: int = 0):
+    """Defs for one layer's contiguous KV cache (static path; the hybrid's
+    state slot): a ring buffer of ``min(window, max_len)`` entries when
+    ``window > 0``."""
     hd = cfg.head_dim_
-    w = cfg.sliding_window
-    L = min(w, max_len) if w else max_len
+    L = min(window, max_len) if window else max_len
     return {
         "k": ParamDef((batch, L, cfg.n_kv_heads, hd),
                       ("batch", "seq", "kv_heads", "head_dim"), init="zeros"),
@@ -473,17 +476,18 @@ def paged_verify_attention_block(cfg: ArchConfig, p, xs, cache, meta, freqs,
             for j in range(len(xs))], cache
 
 
-def decode_attention_block(cfg: ArchConfig, p, x, cache, pos, freqs):
+def decode_attention_block(cfg: ArchConfig, p, x, cache, pos, freqs, *,
+                           window: int = 0):
     """One-token decode step against a contiguous per-request cache.
-    x: [B, d]; pos: [B] absolute positions.  Sliding-window families keep a
-    ring of L = ``min(window, max_len)`` entries, written at ``pos % L``
-    and masked by the ring rule with ring length and window L (entries
+    x: [B, d]; pos: [B] absolute positions.  With ``window > 0`` the cache
+    is a ring of L = ``min(window, max_len)`` entries, written at ``pos %
+    L`` and masked by the ring rule with ring length and window L (entries
     older than L are overwritten).  Returns (out [B, d], cache), the cache
     written in place."""
     B = x.shape[0]
     q, k, v = decode_qkv(cfg, p, x, pos, freqs)
     L = cache["k"].shape[1]
-    ring = L if cfg.sliding_window else 0
+    ring = L if window else 0
     slot = pos % L if ring else pos
     b = torch.arange(B, device=x.device)
     cache["k"][b, slot] = k.to(cache["k"].dtype)

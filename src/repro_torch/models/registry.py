@@ -7,14 +7,11 @@ from .transformer import DecoderLM
 
 # where each arch that the port does not build yet arrives (ROADMAP queue 1)
 _NOT_YET = (
-    (lambda c: c.family == "ssm" or c.family == "hybrid",
-     "state-slot families (mamba2, recurrentgemma) arrive with ROADMAP "
-     "queue 1 item 13"),
     (lambda c: c.enc_dec or bool(c.n_image_tokens),
      "enc-dec and vlm families arrive with ROADMAP queue 1 item 14"),
-    (lambda c: c.family not in ("dense", "moe"),
-     "only the dense and MoE decoder families are ported (ROADMAP queue "
-     "1)"),
+    (lambda c: c.family not in ("dense", "moe", "ssm", "hybrid"),
+     "only the dense, MoE and state-slot decoder families are ported "
+     "(ROADMAP queue 1)"),
     (lambda c: bool(c.attn_logit_softcap),
      "the attention logit softcap is not ported (no registered arch sets "
      "it; ROADMAP queue 2, K1 modes)"),

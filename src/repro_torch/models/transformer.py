@@ -1,19 +1,27 @@
 """Decoder-only LM: the port of ``repro.models.transformer.DecoderLM`` for
-the dense family (full causal or sliding-window attention) and the MoE
-family (``dense_blocks`` of ``first_k_dense`` dense layers, then MoE
-``blocks``; GQA attention, or MLA latent attention with ``use_mla``).
+the dense family (full causal or sliding-window attention), the MoE family
+(``dense_blocks`` of ``first_k_dense`` dense layers, then MoE ``blocks``;
+GQA attention, or MLA latent attention with ``use_mla``) and the two
+state-slot families: ``ssm`` (mamba2: a stack of SSD blocks) and
+``hybrid`` (recurrentgemma: groups of (RG-LRU, RG-LRU, local attention)
+layers, then ``tail_blocks`` of RG-LRU layers, with a gemma-style
+``sqrt(d_model)`` embedding scale).
 
 ``loss`` is the LM training objective (next-token CE over the training
-forward ``forward_hidden``).  Parameters keep the JAX package's
-layer-stacked ``[n_layers, ...]`` leaves; the ``jax.lax.scan`` over layers
-becomes a Python loop over layer views of the stacked leaves.  The caches
-stack every layer, dense lead-in layers first, so cache layer ``i`` is the
-i-th layer run.  Paged caches are written in place, so the step functions
-return the same pool objects they were given.
+forward ``forward_hidden``) of the dense and MoE families; the state-slot
+families' training forward is ROADMAP queue 1 item 13b.  Parameters keep
+the JAX package's layer-stacked ``[n_layers, ...]`` leaves; the
+``jax.lax.scan`` over layers becomes a Python loop over layer views of the
+stacked leaves.  The caches stack every layer, dense lead-in layers first,
+so cache layer ``i`` is the i-th layer run.  Paged caches and state slots
+are written in place, so the step functions return the same pool objects
+they were given.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+import math
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -27,7 +35,13 @@ from .layers import (apply_mlp, apply_norm, apply_rope, embed_defs,
 from .mla import (mla_cache_defs, mla_decode_block, mla_defs, mla_full_block,
                   mla_paged_cache_defs, mla_prefill_cache)
 from .moe import moe_apply, moe_decode_apply, moe_defs
-from .params import layer, stack_tree
+from .params import layer, stack_tree, tree_leaves
+from .rglru import (rglru_block, rglru_cache_defs, rglru_decode_block,
+                    rglru_defs)
+from .ssm import (ssm_block, ssm_cache_defs, ssm_decode_block, ssm_defs,
+                  ssm_inputs)
+
+RECURRENT = ("ssm", "hybrid")
 
 
 class DecoderLM:
@@ -64,11 +78,44 @@ class DecoderLM:
             "moe": moe_defs(cfg),
         }
 
+    def _rec_block_defs(self):
+        cfg = self.cfg
+        return {
+            "ln1": norm_defs(cfg, cfg.d_model),
+            "rec": rglru_defs(cfg),
+            "ln2": norm_defs(cfg, cfg.d_model),
+            "mlp": mlp_defs(cfg, cfg.d_model, cfg.d_ff),
+        }
+
+    def _ssm_block_defs(self):
+        return {"ln1": norm_defs(self.cfg, self.cfg.d_model),
+                "ssm": ssm_defs(self.cfg)}
+
+    def _hybrid_counts(self) -> Tuple[int, int, int]:
+        """(n_groups, n_rec_tail, n_attn).  Pattern = (rec, rec, attn);
+        leftover layers are 'rec' by pattern order."""
+        per = len(self.cfg.block_pattern)
+        n_groups = self.cfg.n_layers // per
+        return n_groups, self.cfg.n_layers - n_groups * per, n_groups
+
+    @property
+    def recurrent(self) -> bool:
+        return self.cfg.family in RECURRENT
+
     def param_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
         defs = {"embed": embed_defs(cfg),
                 "final_norm": norm_defs(cfg, cfg.d_model)}
-        if cfg.is_moe:
+        if cfg.family == "ssm":
+            defs["blocks"] = stack_tree(self._ssm_block_defs(), cfg.n_layers)
+        elif cfg.family == "hybrid":
+            n_groups, tail, n_attn = self._hybrid_counts()
+            defs["rec_blocks"] = stack_tree(self._rec_block_defs(),
+                                            2 * n_groups)
+            defs["attn_blocks"] = stack_tree(self._dense_block_defs(), n_attn)
+            if tail:
+                defs["tail_blocks"] = stack_tree(self._rec_block_defs(), tail)
+        elif cfg.is_moe:
             k = cfg.first_k_dense
             if k:
                 defs["dense_blocks"] = stack_tree(
@@ -92,8 +139,19 @@ class DecoderLM:
 
     def _freqs(self, device):
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return None
         hd = cfg.rope_head_dim if cfg.use_mla else cfg.head_dim_
         return rope_freqs(cfg, hd, device=device)
+
+    def _embed(self, params, tokens):
+        """Token embeddings; the hybrid scales them by ``sqrt(d_model)``
+        rounded to the activation dtype first, as JAX rounds a Python
+        scalar (weak type) before a bf16 multiply."""
+        x = embed_tokens(params["embed"], tokens)
+        if self.cfg.family == "hybrid":
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        return x
 
     def _block(self, p, x, attend, moe):
         """One pre-norm residual block; ``attend(p_attn, h)`` returns the
@@ -132,6 +190,10 @@ class DecoderLM:
         (``cfg.remat``); this forward keeps them all, which changes memory,
         not numbers."""
         cfg = self.cfg
+        if self.recurrent:
+            raise NotImplementedError(
+                f"{cfg.name}: the training forward of the state-slot "
+                "families is not ported yet: ROADMAP queue 1 item 13b")
         freqs = self._freqs(x.device)
         aux = []
 
@@ -147,7 +209,8 @@ class DecoderLM:
         else:
             def attend(pa, h):
                 return full_attention_block(
-                    cfg, pa, h, freqs, q_block=cfg.attn_q_block,
+                    cfg, pa, h, freqs, window=cfg.sliding_window,
+                    q_block=cfg.attn_q_block,
                     attend=self.attn_backend.train_attend)
         for p in self._layers(params):
             x = self._block(p, x, attend, moe)
@@ -196,20 +259,55 @@ class DecoderLM:
     # -------------------------------------------------------- static caches
 
     def cache_defs(self, batch: int, max_len: int):
-        per = (mla_cache_defs if self.cfg.use_mla else cache_defs)(
-            self.cfg, batch, max_len)
-        return {"blocks": stack_tree(per, self.cfg.n_layers)}
+        """Defs of the contiguous per-request cache (static path), without
+        ``pos``: K/V (a ring of ``min(window, max_len)`` entries for
+        windowed families) or latents a layer; the state-slot families'
+        conv taps and recurrent state a layer, and the hybrid's
+        local-attention ring of ``min(attn_window, max_len)`` entries."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return {"blocks": stack_tree(ssm_cache_defs(cfg, batch),
+                                         cfg.n_layers)}
+        if cfg.family == "hybrid":
+            n_groups, tail, n_attn = self._hybrid_counts()
+            out = {"rec_blocks": stack_tree(rglru_cache_defs(cfg, batch),
+                                            2 * n_groups),
+                   "attn_blocks": stack_tree(
+                       cache_defs(cfg, batch, max_len,
+                                  window=cfg.attn_window), n_attn)}
+            if tail:
+                out["tail_blocks"] = stack_tree(
+                    rglru_cache_defs(cfg, batch), tail)
+            return out
+        per = mla_cache_defs(cfg, batch, max_len) if cfg.use_mla \
+            else cache_defs(cfg, batch, max_len, window=cfg.sliding_window)
+        return {"blocks": stack_tree(per, cfg.n_layers)}
 
     def prefill(self, params, batch, logits_idx=None):
         """Forward the full prompt; returns (logits at ``logits_idx`` (or the
-        last position) [B, V], contiguous cache {"blocks", "pos"}).  The
-        cache holds the roped K and the V of every position; for
+        last position) [B, V], contiguous cache with ``pos``).  The cache
+        holds the roped K and the V of every position; for
         sliding-window families only the last ``W = min(window, S)``
         positions, ring-buffered at slots ``t % W`` (the layout the static
-        decode reads)."""
+        decode reads).  The state-slot families keep each layer's state
+        after the last position and its conv taps (the hybrid: its ring of
+        the last ``min(attn_window, S)`` keys)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
+        if self.recurrent:
+            n_tail = torch.full((B,), S, dtype=torch.int32,
+                                device=tokens.device)
+            x, layers = self._recurrent_prefill(
+                params, tokens, n_tail, None,
+                min(cfg.attn_window, S) if cfg.family == "hybrid" else 0)
+            cache = {g: {k: torch.stack(v) for k, v in c.items()}
+                     for g, c in layers.items()}
+            cache["pos"] = n_tail
+            x = apply_norm(cfg, params["final_norm"], x)
+            last = x[:, -1] if logits_idx is None \
+                else x[torch.arange(B, device=x.device), logits_idx]
+            return lm_logits(cfg, params["embed"], last), cache
         x = embed_tokens(params["embed"], tokens)
         freqs = self._freqs(x.device)
         positions = torch.arange(S, device=x.device)[None, :]
@@ -235,6 +333,7 @@ class DecoderLM:
             ks.append(k)
             vs.append(v)
             return full_attention_block(cfg, p, h, freqs,
+                                        window=cfg.sliding_window,
                                         q_block=cfg.attn_q_block)
 
         for p in self._layers(params):
@@ -254,9 +353,14 @@ class DecoderLM:
         tokens: [B] int.  Returns (logits [B, V], cache) with pos advanced."""
         cfg = self.cfg
         pos = cache["pos"]
+        if self.recurrent:
+            x = self._recurrent_decode(params, cache, tokens, pos)
+            cache["pos"] = pos + 1
+            return self._logits(params, x), cache
         x = embed_tokens(params["embed"], tokens)
         freqs = self._freqs(x.device)
-        block = mla_decode_block if cfg.use_mla else decode_attention_block
+        block = mla_decode_block if cfg.use_mla else functools.partial(
+            decode_attention_block, window=cfg.sliding_window)
         for i, p in enumerate(self._layers(params)):
             c = layer(cache["blocks"], i)
             x = self._block(
@@ -265,17 +369,177 @@ class DecoderLM:
         cache["pos"] = pos + 1
         return self._logits(params, x), cache
 
+    # ------------------------------------------- the state-slot families
+
+    def _rec_layers(self, params):
+        """(group, index, params) of every recurrent-family layer in the
+        order they run: ssm ``blocks``; hybrid groups of (rec 2g, rec 2g +
+        1, attn g), then ``tail_blocks``."""
+        if self.cfg.family == "ssm":
+            return [("blocks", i, layer(params["blocks"], i))
+                    for i in range(self.cfg.n_layers)]
+        n_groups, tail, _ = self._hybrid_counts()
+        out = []
+        for g in range(n_groups):
+            out += [("rec_blocks", 2 * g, layer(params["rec_blocks"], 2 * g)),
+                    ("rec_blocks", 2 * g + 1,
+                     layer(params["rec_blocks"], 2 * g + 1)),
+                    ("attn_blocks", g, layer(params["attn_blocks"], g))]
+        return out + [("tail_blocks", i, layer(params["tail_blocks"], i))
+                      for i in range(tail)]
+
+    def _recurrent_decode(self, params, cache, tokens, pos):
+        """One token through every state-slot layer against ``cache`` (one
+        state row a batch row, written in place).  Returns the last hidden
+        [B, d] before the final norm."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        freqs = self._freqs(x.device)
+        for g, i, p in self._rec_layers(params):
+            c = layer(cache[g], i)
+            if g == "blocks":
+                x = x + ssm_decode_block(cfg, p["ssm"],
+                                         apply_norm(cfg, p["ln1"], x), c)
+            elif g == "attn_blocks":
+                x = self._block(p, x, lambda pa, h: decode_attention_block(
+                    cfg, pa, h, c, pos, freqs, window=cfg.attn_window)[0],
+                    None)
+            else:
+                x = x + rglru_decode_block(cfg, p["rec"],
+                                           apply_norm(cfg, p["ln1"], x), c)
+                x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        return x
+
+    def _recurrent_prefill(self, params, tokens, n_tail, mask, L_ring,
+                           emit=None):
+        """The one state-slot prefill forward, shared by the static path
+        (unmasked, every row at full length, ring ``min(attn_window, S)``)
+        and the state-slot serving path (length-masked right-padded rows,
+        the ring the pool allocated).  tokens: [B, S]; n_tail: [B] true
+        lengths; mask: [B, S] bool or None.  Each layer's cache leaves at
+        its row's true length — conv taps, recurrent state, the hybrid's
+        K/V ring — go to ``emit(group, index, leaves)``; without ``emit``
+        they are collected.  Returns (hidden [B, S, d] before the final
+        norm, {group: {leaf: [per-layer tensors]}})."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        dev = tokens.device
+        x = self._embed(params, tokens)
+        freqs = self._freqs(dev)
+        w1 = cfg.conv_width - 1
+        idx = n_tail.long()[:, None] - w1 + torch.arange(w1, device=dev)
+        valid = (idx >= 0)[..., None]
+        rows = torch.arange(B, device=dev)[:, None]
+
+        def conv_tail(u):
+            """The last ``conv_width - 1`` rows of ``u`` before each row's
+            true length; zeros where the prompt is shorter than the conv
+            receptive field (the zeroed decode conv cache)."""
+            return torch.where(valid, u[rows, idx.clamp(min=0)],
+                               torch.zeros((), dtype=u.dtype, device=dev))
+
+        collected: Dict[str, Dict[str, list]] = {}
+        if emit is None:
+            def emit(g, i, leaves):
+                for k, v in leaves.items():
+                    collected.setdefault(g, {}).setdefault(k, []).append(v)
+
+        if L_ring:
+            positions = torch.arange(S, device=dev)[None, :]
+            t = n_tail.long()[:, None] - L_ring \
+                + torch.arange(L_ring, device=dev)[None, :]       # [B, R]
+            ring = t % L_ring
+            t_ok = (t >= 0)[..., None, None]
+        for g, i, p in self._rec_layers(params):
+            h = apply_norm(cfg, p["ln1"], x)
+            if g == "blocks":
+                inputs = ssm_inputs(cfg, p["ssm"], h)
+                s, final = ssm_block(cfg, p["ssm"], h, length_mask=mask,
+                                     inputs=inputs)
+                x = x + s
+                emit(g, i, {"conv_x": conv_tail(inputs[1]),
+                            "conv_B": conv_tail(inputs[2]),
+                            "conv_C": conv_tail(inputs[3]), "state": final})
+            elif g == "attn_blocks":
+                # ring-buffer each row's last L_ring *true* keys at slots
+                # t % L_ring: positions past a row's prompt never enter it
+                _, k, v = qkv(cfg, p["attn"], h)
+                k = apply_rope(k, positions, freqs)
+                zero = torch.zeros((), dtype=k.dtype, device=dev)
+                ck = torch.zeros((B, L_ring) + k.shape[2:], dtype=k.dtype,
+                                 device=dev)
+                cv = torch.zeros_like(ck)
+                ck[rows, ring] = torch.where(t_ok, k[rows, t.clamp(min=0)],
+                                             zero)
+                cv[rows, ring] = torch.where(t_ok, v[rows, t.clamp(min=0)],
+                                             zero)
+                x = x + full_attention_block(cfg, p["attn"], h, freqs,
+                                             window=cfg.attn_window,
+                                             q_block=cfg.attn_q_block)
+                x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+                emit(g, i, {"k": ck, "v": cv})
+            else:
+                u_raw = h @ p["rec"]["w_in"]
+                r, final = rglru_block(cfg, p["rec"], h, length_mask=mask,
+                                       u_raw=u_raw)
+                x = x + r
+                x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+                emit(g, i, {"conv": conv_tail(u_raw), "state": final})
+        return x, collected
+
+    def _prefill_state_slots(self, params, kv, state, slots, n_tail,
+                             tokens):
+        """Full-prompt prefill for the state-slot families: the masked
+        full-sequence forward (right padding is a recurrence no-op under
+        the length mask), each layer's state and conv taps at the *true*
+        prompt length scattered in place into the state pool at rows
+        ``slots`` (out-of-range rows — batch padding — are dropped).
+        Returns (last-real-token logits [B, V], kv, state)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        dev = tokens.device
+        n_tail = n_tail.long()
+        mask = torch.arange(S, device=dev)[None, :] < n_tail[:, None]
+        n_slots = next(tree_leaves(state))[1].shape[1]
+        keep = slots.long() < n_slots
+        dst = slots.long()[keep]
+
+        def emit(g, i, leaves):
+            for k, v in leaves.items():
+                pool = state[g][k]
+                pool[i, dst] = v[keep].to(pool.dtype)
+
+        L_ring = state["attn_blocks"]["k"].shape[2] \
+            if cfg.family == "hybrid" else 0
+        x, _ = self._recurrent_prefill(params, tokens, n_tail, mask, L_ring,
+                                       emit)
+        x = apply_norm(cfg, params["final_norm"], x)
+        last = x[torch.arange(B, device=dev), n_tail - 1]
+        return lm_logits(cfg, params["embed"], last), kv, state
+
     # -------------------------------------------------------- paged serving
 
     def cache_spec(self) -> CacheFamilySpec:
         """The decode-cache taxonomy the serving stack schedules against:
         latent pages for MLA, a page ring of O(window) pages for
         sliding-window families (not prefix-cacheable: ring slots are
-        recycled in place), plain paged KV otherwise."""
-        if self.cfg.use_mla:
+        recycled in place), plain paged KV otherwise; the state-slot
+        families hold their whole cache (the hybrid's local-attention ring
+        included) in one checkpointable slot a request."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return CacheFamilySpec(kinds=(CacheSpec("state_slot"),),
+                                   paged=False, state_slots=True,
+                                   checkpointable=True)
+        if cfg.family == "hybrid":
+            return CacheFamilySpec(
+                kinds=(CacheSpec("state_slot"),
+                       CacheSpec("state_slot", window=cfg.attn_window)),
+                paged=False, state_slots=True, checkpointable=True)
+        if cfg.use_mla:
             return CacheFamilySpec(kinds=(CacheSpec("paged_mla"),),
                                    paged=True, prefix_cacheable=True)
-        w = self.cfg.sliding_window
+        w = cfg.sliding_window
         if w:
             return CacheFamilySpec(kinds=(CacheSpec("windowed_kv", window=w),),
                                    paged=True, window=w)
@@ -286,20 +550,35 @@ class DecoderLM:
                          kv_dtype: str = "bf16"):
         """Defs for the layer-stacked paged pool: [L, P, ps, K, D] K/V
         pages, or [L, P, ps, kv_lora] + [L, P, ps, rope] latent pages for
-        MLA (int8 pools add their [L, P, ps, ...] bf16 scale pages)."""
+        MLA (int8 pools add their [L, P, ps, ...] bf16 scale pages); {} for
+        the state-slot families."""
+        if not self.cache_spec().paged:
+            return {}
         per = mla_paged_cache_defs if self.cfg.use_mla else paged_cache_defs
         return stack_tree(per(self.cfg, num_pages, page_size,
                               kv_dtype=kv_dtype), self.cfg.n_layers)
+
+    def state_slot_defs(self, n_slots: int, max_len: int):
+        """Defs of the per-request state-slot pool ({} for the paged
+        families): ``cache_defs(n_slots, max_len)``, so the slot axis is
+        axis 1 of every layer-stacked leaf and the contiguous decode path
+        runs on the pool as it is."""
+        return self.cache_defs(n_slots, max_len) if self.recurrent else {}
 
     def decode_paged(self, params, kv, state, meta, tokens):
         """One-token continuous-batching decode step.
 
         kv: layer-stacked paged pool (written in place); state: the
-        state-slot pool ({} for this family); meta: flat per-step metadata
-        from ``attn_backend.decode_meta`` on the model's device; tokens: [B]
-        int.  Idle rows ride along with null-page tables.  Returns
-        (logits [B, V], kv, state)."""
+        state-slot pool ({} for the paged families; slot i is batch row
+        i, written in place by the contiguous decode path); meta: flat
+        per-step metadata from ``attn_backend.decode_meta`` on the model's
+        device; tokens: [B] int.  Idle rows ride along with null-page
+        tables; their state rows are overwritten at the next admission.
+        Returns (logits [B, V], kv, state)."""
         cfg = self.cfg
+        if self.recurrent:
+            x = self._recurrent_decode(params, state, tokens, meta["pos"])
+            return self._logits(params, x), kv, state
         x = embed_tokens(params["embed"], tokens)
         freqs = self._freqs(x.device)
         for i, p in enumerate(self._layers(params)):
@@ -310,7 +589,9 @@ class DecoderLM:
         return self._logits(params, x), kv, state
 
     def prefill_paged(self, params, kv, state, meta, tokens, extras=None):
-        """Chunk prefill at per-row offsets, straight into the paged pool.
+        """Chunk prefill at per-row offsets, straight into the paged pool
+        (or, for the state-slot families, a whole prompt into the state
+        pool at rows ``meta["slots"]``).
 
         meta: flat per-step metadata from ``attn_backend.prefill_meta`` on
         the model's device; tokens: [B, T] int, right-padded.  With
@@ -319,6 +600,9 @@ class DecoderLM:
         already resident — radix-cache hits and earlier chunks alike.
         Returns (last-live-token logits [B, V], kv, state)."""
         cfg = self.cfg
+        if self.recurrent:
+            return self._prefill_state_slots(params, kv, state, meta["slots"],
+                                             meta["n_tail"], tokens)
         x = embed_tokens(params["embed"], tokens)
         freqs = self._freqs(x.device)
         B = x.shape[0]
@@ -353,8 +637,13 @@ class DecoderLM:
         row j still equals the decode step at ``pos + j``.  MLA layers run
         ``mla.mla_paged_verify_block`` by the same rule (one latent verify
         attend, kernel K7 on the card).  Returns (logits [B, Q, V], kv,
-        state)."""
+        state).  Speculation is gated to the paged families
+        (``serving.speculate.speculation_k``): the state-slot families have
+        no verify step."""
         cfg = self.cfg
+        if self.recurrent:
+            raise ValueError(f"{cfg.name}: speculative verify requires a "
+                             "paged cache family")
         xs = [embed_tokens(params["embed"], tokens[:, j])
               for j in range(tokens.shape[1])]                 # Q x [B, d]
         freqs = self._freqs(xs[0].device)

@@ -1,9 +1,10 @@
 """repro_torch.serving — the continuous-batching engine of the port.
 
-``kv_pool`` (paged KV pool on the device, host-side page accounting),
-``radix_cache`` (page-quantized prefix cache), ``scheduler`` (admission,
-chunked prefill, growth, preemption), ``speculate`` and ``telemetry`` are
-the host-side layers of ``repro.serving`` (the last four verbatim copies);
+``kv_pool`` (paged KV pool and state-slot pool on the device, host-side
+accounting), ``radix_cache`` (page-quantized prefix cache), ``scheduler``
+(admission, chunked prefill, growth, preemption), ``speculate`` and
+``telemetry`` are the host-side layers of ``repro.serving`` (the last four
+verbatim copies);
 ``engine`` drives the model steps on the device (synchronously with
 ``step()``, or overlapped with ``pump()``: step N+1's plan staged while
 step N runs), and ``parity`` holds the teacher-forced replay and dual gate
@@ -20,7 +21,7 @@ from .admission import AdmissionController, HealthState  # noqa: F401
 from .engine import Engine, RequestResult, generate_static  # noqa: F401
 from .faults import (  # noqa: F401
     FAULT_KINDS, Fault, FaultInjector, FaultPlan, RequestFault)
-from .kv_pool import NULL_PAGE, PagedKVPool  # noqa: F401
+from .kv_pool import NULL_PAGE, PagedKVPool, StateSlotPool  # noqa: F401
 from .parity import (dual_gate, dual_gate_verify,  # noqa: F401
                      format_report, logit_tol, replay_logits)
 from .radix_cache import MatchResult, RadixCache  # noqa: F401

@@ -1,5 +1,6 @@
 """Synchronous continuous-batching inference engine (dense and MoE
-families: GQA K/V pages, sliding-window page rings, MLA latent pages).
+families: GQA K/V pages, sliding-window page rings, MLA latent pages; the
+state-slot families: SSM and RG-LRU + local-attention state slots).
 
 ``Engine`` exposes the classic three-call serving API:
 
@@ -10,10 +11,10 @@ families: GQA K/V pages, sliding-window page rings, MLA latent pages).
     results = eng.collect()                  # finished RequestResults
 
 plus ``run_offline(prompts)``, the batch driver used by ``launch/serve.py``.
-It is the port of ``repro.serving.engine`` for the paged-KV families the
-port builds (full attention, and sliding-window page rings of O(window)
-pages, which the radix cache cannot share): prefill writes straight into
-the paged pool (``prefill_paged``)
+It is the port of ``repro.serving.engine`` for the families the port
+builds (full attention, sliding-window page rings of O(window) pages, which
+the radix cache cannot share, and per-request state slots): prefill writes
+straight into the paged pool or the state-slot pool (``prefill_paged``)
 — the whole prompt, or with the radix prefix cache only its uncached tail —
 at a bucketed length, several same-bucket queued requests admitted in one
 batched call; with ``ServeConfig.prefill_chunk_tokens > 0`` long prompts
@@ -65,8 +66,16 @@ free list.  With ``ServeConfig.admission_control`` a request whose
 deadline the calibrated queue model (``admission.AdmissionController``)
 cannot meet is shed at the door with a ``retry_after_s`` hint, and
 admitted requests past their deadline are evicted by a sweep before every
-dispatch; a draining engine sheds every new request.  The state-slot
-families' scheduler action still raises (ROADMAP queue 1 item 13).
+dispatch; a draining engine sheds every new request.
+
+**State slots.**  For the ssm and hybrid families the whole cache lives
+in a ``StateSlotPool`` slot per request (slot index = decode row): the
+prefill scatters each row's final state in place, the decode step
+advances every slot's state in place, and a preemption checkpoints the
+slot to host memory; the scheduler's ``restore`` action writes it back
+into a free slot, and decoding resumes where it stopped
+(``engine.state_restores``).  The fault injector's NaN poison and the
+quarantine scrub fill the slot's state row.
 
 ``generate_static`` is the static-batching baseline kept for verification:
 contiguous per-request KV caches, the whole batch padded together and
@@ -90,12 +99,12 @@ from .. import resolve_device
 from ..configs.base import ArchConfig, ServeConfig
 from ..models.attn_backend import (decode_meta, meta_to_device, prefill_meta,
                                    resolve_backend, verify_meta)
-from ..models.params import tree_leaves
+from ..models.params import tree_leaves, tree_map
 from ..models.registry import build_model, init_cache, init_params
 from ..models.steps import make_serve_step
 from .admission import AdmissionController, HealthState
 from .faults import FaultInjector, FaultPlan, RequestFault
-from .kv_pool import NULL_PAGE, PagedKVPool
+from .kv_pool import NULL_PAGE, PagedKVPool, StateSlotPool
 from .radix_cache import RadixCache
 from .scheduler import Admission, Request, Scheduler
 from .speculate import NgramProposer, accept_length, speculation_k
@@ -132,7 +141,7 @@ class _Pending:
     """One launched-but-not-collected engine step: on a CUDA device the
     kernels may still be running; ``_finish_step`` blocks on ``out_dev``
     and runs the host-side bookkeeping."""
-    kind: str       # prefill | prefill_chunk | decode | verify
+    kind: str       # prefill | prefill_chunk | restore | decode | verify
     payload: Any                      # scheduler action payload
     rows: Any                         # prefill row tuples / decode active list
     out_dev: Any                      # device logits / next-token tensors
@@ -194,13 +203,9 @@ def _pow2_pad(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1 item {item}")
-
-
 class Engine:
-    """Continuous-batching engine over the paged KV pool."""
+    """Continuous-batching engine over the paged KV and state-slot
+    pools."""
 
     def __init__(self, cfg: ArchConfig, scfg: Optional[ServeConfig] = None,
                  params=None, *, seed: int = 0, device="cuda",
@@ -228,6 +233,9 @@ class Engine:
         self.tracer = tracer if tracer is not None else Tracer()
         self.pool = PagedKVPool(cfg, self.scfg, metrics=self.metrics,
                                 device=self.device)
+        self.states = StateSlotPool(cfg, self.scfg, metrics=self.metrics,
+                                    device=self.device) \
+            if self.spec.state_slots else None
         if self.scfg.prefix_cache and not self.spec.prefix_cacheable:
             print(f"[engine] WARNING: prefix cache disabled for {cfg.name}: "
                   f"cache family {self.spec.describe()} is not "
@@ -238,7 +246,7 @@ class Engine:
                                     self.scfg.cache_eviction,
                                     metrics=self.metrics) \
                 if self.scfg.prefix_cache else None
-        self.sched = Scheduler(self.scfg, self.pool, self.radix, None,
+        self.sched = Scheduler(self.scfg, self.pool, self.radix, self.states,
                                metrics=self.metrics, tracer=self.tracer)
         self._next_rid = 0
         self.attn_backend = resolve_backend(self.scfg.attn_backend,
@@ -265,6 +273,8 @@ class Engine:
             "engine.chunked_prefill_steps", "continuation-chunk calls")
         self._m_cow = self.metrics.counter(
             "engine.cow_forks", "copy-on-write page forks run")
+        self._m_restores = self.metrics.counter(
+            "engine.state_restores", "checkpoint-restore re-admissions")
         # prefill work accounting: padded counts what the device computed
         # (pow2 rows x bucket), actual counts real prompt tokens — the gap is
         # padding waste, the thing chunking + bucketing are trading against
@@ -323,6 +333,14 @@ class Engine:
             "admission.shed", "Requests shed at admission, by reason.",
             labels=("reason",))
         self.on_token: Optional[Callable[[int, int, int, float], None]] = None
+
+    @property
+    def _restores(self) -> int:
+        return self._m_restores.value
+
+    def _state(self):
+        """The state-slot pool's device tree ({} for the paged families)."""
+        return self.states.state if self.states is not None else {}
 
     # ----------------------------------------------------------- public API
 
@@ -535,6 +553,7 @@ class Engine:
         metrics["rejected_requests"] = len(results) - len(ok)
         metrics["multi_admit_prefills"] = self._m_multi_admit.value
         metrics["chunked_prefill_steps"] = self._m_chunk_steps.value
+        metrics["state_restores"] = self._m_restores.value
         metrics["attn_backend"] = self.attn_backend
         if self.spec_k:
             metrics["spec_tokens"] = self.spec_k
@@ -597,6 +616,9 @@ class Engine:
             rows, out = self._launch_prefill(payload, t0)
         elif kind == "prefill_chunk":
             rows, out = self._launch_chunks(payload)
+        elif kind == "restore":
+            self._run_restore(payload, t0)
+            rows, out = None, None
         elif kind == "decode" and self.spec_k:
             # speculation on: every decode-ready step runs as a small-q
             # verify step (with an empty draft it degenerates to decode)
@@ -604,12 +626,10 @@ class Engine:
             if self.injector is not None:
                 self.injector.before_launch(self, "verify", payload)
             rows, out = payload, self._launch_verify(payload)
-        elif kind == "decode":
+        else:
             if self.injector is not None:
                 self.injector.before_launch(self, "decode", payload)
             rows, out = payload, self._launch_decode(payload)
-        else:
-            raise _not_in_slice(f"scheduler action {kind!r}", "13")
         return _Pending(kind=kind, payload=payload, rows=rows, out_dev=out,
                         t0=t0, t_dispatched=time.perf_counter(),
                         waiting=waiting)
@@ -622,11 +642,11 @@ class Engine:
             self._collect_decode(pending)
         elif pending.kind == "verify":
             self._collect_verify(pending)
-        else:
+        elif pending.kind in ("prefill", "prefill_chunk"):
             self._collect_prefill(pending)
         t1 = time.perf_counter()
-        self.tracer.step_span(pending.kind, pending.t0, t1,
-                              rows=len(pending.payload),
+        n_rows = 1 if pending.kind == "restore" else len(pending.payload)
+        self.tracer.step_span(pending.kind, pending.t0, t1, rows=n_rows,
                               decode_waiting=pending.waiting)
         if overlap:
             self.tracer.host_span("collect", t_c0, t1, kind=pending.kind)
@@ -642,30 +662,36 @@ class Engine:
 
     def poison_slot(self, slot_idx: int) -> None:
         """Fault injection: NaN-fill the floating leaves of the slot's most
-        recent exclusively-owned page, in place.  At the decode seam the
-        newest page always holds positions past every sharer's prompt, so
-        only the target row ever reads it — the poison is strictly
-        per-request, which is what makes the exact-survivor contract
-        testable."""
+        recent exclusively-owned page (or its state-slot row), in place.
+        At the decode seam the newest page always holds positions past
+        every sharer's prompt, and a state row belongs to its decode row
+        alone, so only the target row ever reads it — the poison is
+        strictly per-request, which is what makes the exact-survivor
+        contract testable."""
         slot = self.sched.slots[slot_idx]
         assert slot is not None
-        page = next((p for p in reversed(slot.pages)
-                     if self.pool.ref(p) == 1), None)
-        assert page is not None, \
-            f"slot {slot_idx} owns no exclusive page to poison"
-        _poison_pages(self.pool.kv, [page])
+        if self.pool.spec.paged and slot.pages:
+            page = next((p for p in reversed(slot.pages)
+                         if self.pool.ref(p) == 1), None)
+            assert page is not None, \
+                f"slot {slot_idx} owns no exclusive page to poison"
+            _poison_pages(self.pool.kv, [page])
+        elif self.states is not None:
+            self.states.poison(slot_idx)
 
     def _scrub_slot(self, slot_idx: int) -> None:
-        """Zero a quarantined slot's exclusively-owned pages before they
-        return to the free list: masked attention is a zero-*weight*
-        multiply, so a NaN in a recycled page would poison every later
-        request whose table points at it.  Shared (radix) pages are
-        co-owned and left alone."""
+        """Zero a quarantined slot's exclusively-owned pages (and state row)
+        before they return to the free list: masked attention is a
+        zero-*weight* multiply, so a NaN in a recycled page would poison
+        every later request whose table points at it.  Shared (radix)
+        pages are co-owned and left alone."""
         slot = self.sched.slots[slot_idx]
         excl = [p for p in slot.pages if self.pool.ref(p) == 1]
         if excl:
             _zero_pages(self.pool.kv, excl)
             self.pool.note_scrubbed(len(excl))
+        if self.states is not None:
+            self.states.scrub(slot_idx)
 
     def _quarantine_slot(self, slot_idx: int, reason: str,
                          now: float) -> None:
@@ -788,7 +814,7 @@ class Engine:
         tokens = torch.as_tensor(toks, device=self.device)
         with self.tracer.annotate("prefill_step"):
             logits, self.pool.kv, _ = self._prefill(
-                self.params, self.pool.kv, {}, meta, tokens, {})
+                self.params, self.pool.kv, self._state(), meta, tokens, {})
         self._m_padded.inc(B * bucket)
         self._m_actual.inc(sum(c for _, _, _, c in rows))
         return logits
@@ -867,6 +893,17 @@ class Engine:
             self._after_chunk(slot_idx, req, n_done, n_chunk, logits[r],
                               now, pages)
 
+    def _run_restore(self, adm: Admission, t0: float) -> None:
+        """Re-admit a checkpointed (preempted) request: write its state
+        snapshot back, in place, into the claimed slot and resume decoding
+        where it left off — no prompt replay (the scheduler already bound
+        the slot at the checkpointed position)."""
+        self.tracer.on_admitted(adm.req.rid, t0, kind="restore")
+        _, saved = adm.restore
+        self.states.restore(adm.slot_idx, saved)
+        self._m_restores.inc()
+        self.tracer.on_restored(adm.req.rid, time.perf_counter())
+
     # --------------------------------------------------------------- decode
 
     def _decode_plan(self, active: List[int], pos_offset: int = 0,
@@ -913,7 +950,7 @@ class Engine:
         t_launch = time.perf_counter()
         with self.tracer.annotate("decode_step"):
             nxt, ok, self.pool.kv, _ = self._decode(
-                self.params, self.pool.kv, {}, meta,
+                self.params, self.pool.kv, self._state(), meta,
                 torch.as_tensor(tokens, device=self.device))
         return nxt, ok, t_launch
 
@@ -999,7 +1036,7 @@ class Engine:
         t_launch = time.perf_counter()
         with self.tracer.annotate("verify_step"):
             nxt, ok, self.pool.kv, _ = self._verify(
-                self.params, self.pool.kv, {}, meta,
+                self.params, self.pool.kv, self._state(), meta,
                 torch.as_tensor(tokens, device=self.device))
         return nxt, ok, t_launch, drafts
 
@@ -1075,11 +1112,13 @@ def generate_static(cfg: ArchConfig, params, prompts: Sequence[Sequence[int]],
                                                            Dict]:
     """Static-batching reference on the device the params live on:
     contiguous KV caches (a ring of ``min(window, max_len)`` entries for
-    sliding-window families), arrival-order batches padded to a shared
-    bucket (windowed families: to the batch max),
-    each batch decoded until its slowest request is done.  ``batch_size=1``
-    is the exact single-request greedy baseline the engine's output is
-    verified against.  ``eos_id`` defaults to ``scfg.eos_id``."""
+    sliding-window families; conv taps and recurrent state, and the
+    hybrid's local-attention ring, for the state-slot families),
+    arrival-order batches padded to a shared bucket (windowed and
+    state-slot families: to the batch max), each batch decoded until its
+    slowest request is done.  ``batch_size=1`` is the exact single-request
+    greedy baseline the engine's output is verified against.  ``eos_id``
+    defaults to ``scfg.eos_id``."""
     scfg = scfg or ServeConfig()
     eos = scfg.eos_id if eos_id is None else eos_id
     budgets = ([max_new_tokens] * len(prompts)
@@ -1098,25 +1137,27 @@ def generate_static(cfg: ArchConfig, params, prompts: Sequence[Sequence[int]],
         B = len(idxs)
         lens = [len(prompts[i]) for i in idxs]
         budget = [min(budgets[i], scfg.max_len - len(prompts[i])) for i in idxs]
-        # the sliding-window ring is filled from the final prompt positions,
-        # so the prompt end must be the sequence end: windowed families pad
-        # to the batch max instead of a bucket (exact at batch_size=1 or
-        # equal lengths)
-        bucket = max(lens) if cfg.sliding_window \
-            else scfg.bucket_of(max(lens))
+        # recurrent state absorbs pad tokens and the sliding-window ring is
+        # filled from the final prompt positions: both need the prompt end
+        # to be the sequence end, so those families pad to the batch max
+        # instead of a bucket (exact at batch_size=1 or equal lengths)
+        bucket = (max(lens)
+                  if cfg.family in ("ssm", "hybrid") or cfg.sliding_window
+                  else scfg.bucket_of(max(lens)))
         toks = np.zeros((B, bucket), np.int32)
         for r, i in enumerate(idxs):
             toks[r, :lens[r]] = prompts[i]
         batch = {"tokens": torch.as_tensor(toks, device=device)}
         last_idx = torch.as_tensor([n - 1 for n in lens], device=device)
         logits, cache = prefill(params, batch, last_idx)
-        # grow the contiguous cache to max_len
+        # grow the contiguous cache to max_len (only a sequence or ring
+        # axis is shorter than the fresh cache's)
+        cache.pop("pos")
         fresh = init_cache(cfg, B, scfg.max_len, device)
-        for name, leaf in cache["blocks"].items():
-            fresh["blocks"][name][:, :, :leaf.shape[2]] = leaf
-        cache = {"blocks": fresh["blocks"],
-                 "pos": torch.as_tensor(lens, dtype=torch.int32,
-                                        device=device)}
+        tree_map(lambda f, c: f[tuple(slice(0, n) for n in c.shape)]
+                 .copy_(c), fresh, cache)
+        cache = {**fresh, "pos": torch.as_tensor(lens, dtype=torch.int32,
+                                                 device=device)}
         cur = logits.argmax(-1).to(torch.int32)
         gen = [cur.cpu().numpy()]
         t_first = time.perf_counter() - t0       # batch's first tokens exist

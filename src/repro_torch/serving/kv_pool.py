@@ -1,11 +1,11 @@
 """Paged KV pool: the page allocator behind the engine.
 
 (The port's counterpart of ``repro.serving.kv_pool``: the pool tensors live
-on the model's device and are written in place by the model steps.  The
-``StateSlotPool`` of the recurrent and enc-dec families arrives with ROADMAP
-queue 1 item 13.)
+on the model's device and are written in place by the model steps.)
 
 ``PagedKVPool`` — fixed-size pages, free-list allocation, refcounts.
+``StateSlotPool`` — one fixed-size recurrent-state slot per decode row, with
+the preemption checkpoint/restore (state-slot families).
 
 The pool replaces the old ``pad_cache_to`` whole-cache zero-pad copy with
 vLLM/MaxText-style paging: the token-addressable cache for *all* live
@@ -42,14 +42,14 @@ masks positions > pos, so stale bytes are softmax-zero).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, ServeConfig
 from ..models.cache_spec import CacheFamilySpec, window_pages
-from ..models.params import init_tree, tree_leaves
+from ..models.params import init_tree, tree_leaves, tree_map
 from ..models.registry import build_model
 from .telemetry import MetricsRegistry
 
@@ -233,3 +233,103 @@ class PagedKVPool:
     def new_table(self) -> np.ndarray:
         """An all-null page table row ([table_width] int32)."""
         return np.full((max(self.table_width, 1),), NULL_PAGE, np.int32)
+
+
+class StateSlotPool:
+    """Per-request fixed-size state slots, one per decode row.
+
+    The device state is one layer-stacked tree on the model's device whose
+    slot axis is axis 1 and whose slot index equals the engine's decode
+    row, so the decode step reads and writes it in place with no gather.
+    ``claim``/``release`` book-keep which rows are live;
+    ``checkpoint``/``restore`` are the preemption half of the slot
+    lifetime (alloc -> checkpoint-on-preempt -> restore -> free): a
+    checkpoint copies the slot's rows to host memory and waits for the
+    copy, so the next admission may overwrite the slot on the stream, and
+    a restore writes a snapshot back in place, into any claimed slot."""
+
+    def __init__(self, cfg: ArchConfig, scfg: ServeConfig,
+                 metrics: Optional[MetricsRegistry] = None, *,
+                 device="cpu"):
+        self.cfg = cfg
+        self.scfg = scfg
+        self.device = torch.device(device)
+        defs = build_model(cfg).state_slot_defs(scfg.max_slots, scfg.max_len)
+        self.state: Dict[str, Any] = init_tree(defs, 0, self.device)
+        self.n_slots = scfg.max_slots
+        for _, leaf in tree_leaves(self.state):
+            assert leaf.shape[1] == self.n_slots, (
+                f"state leaf {tuple(leaf.shape)} has no slot axis 1 of "
+                f"{self.n_slots}")
+        self._claimed: Set[int] = set()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._m_resident = self.metrics.gauge(
+            "states.slots_claimed", "state slots held by live requests")
+        self._m_claims = self.metrics.counter(
+            "states.claims", "state-slot claims (admissions)")
+        self._m_ckpt = self.metrics.counter(
+            "states.checkpoints", "slot snapshots taken on preemption")
+        self._m_restore = self.metrics.counter(
+            "states.restores", "checkpointed snapshots written back")
+
+    # ------------------------------------------------------------ accounting
+
+    @property
+    def num_claimed(self) -> int:
+        return len(self._claimed)
+
+    @property
+    def claimed(self) -> Set[int]:
+        return set(self._claimed)
+
+    @property
+    def slot_nbytes(self) -> int:
+        """Device bytes one slot occupies across every layer and leaf."""
+        return sum(leaf.numel() // self.n_slots * leaf.element_size()
+                   for _, leaf in tree_leaves(self.state))
+
+    def claim(self, slot: int) -> None:
+        assert 0 <= slot < self.n_slots, slot
+        assert slot not in self._claimed, f"double claim of state slot {slot}"
+        self._claimed.add(slot)
+        self._m_claims.inc()
+        self._m_resident.set(len(self._claimed))
+
+    def release(self, slot: int) -> None:
+        assert slot in self._claimed, f"release of unclaimed state slot {slot}"
+        self._claimed.remove(slot)
+        self._m_resident.set(len(self._claimed))
+
+    # ------------------------------------------------- checkpoint / restore
+
+    def checkpoint(self, slot: int) -> Any:
+        """Snapshot one slot's state to host memory (preemption); returns
+        once the copy is complete."""
+        assert slot in self._claimed, f"checkpoint of unclaimed slot {slot}"
+        self._m_ckpt.inc()
+        return tree_map(lambda a: a[:, slot].to("cpu", copy=True),
+                        self.state)
+
+    def restore(self, slot: int, saved: Any) -> None:
+        """Write a checkpointed snapshot back, in place, into (a possibly
+        different) claimed slot."""
+        assert slot in self._claimed, f"restore into unclaimed slot {slot}"
+        self._m_restore.inc()
+        tree_map(lambda a, s: a[:, slot].copy_(s), self.state, saved)
+
+    # --------------------------------------------------- fault-tolerance hooks
+
+    def _fill_row(self, slot: int, value: float) -> None:
+        for _, leaf in tree_leaves(self.state):
+            if leaf.is_floating_point():
+                leaf[:, slot] = value
+
+    def scrub(self, slot: int) -> None:
+        """Zero one slot row (quarantine cleanup).  Rows are overwritten at
+        the next claim anyway; scrubbing keeps every idle row finite, so a
+        stale NaN can never leak through a masked read."""
+        self._fill_row(slot, 0.0)
+
+    def poison(self, slot: int) -> None:
+        """Fill one slot row with NaN (fault injection only)."""
+        self._fill_row(slot, float("nan"))

@@ -36,7 +36,7 @@ import torch
 from ..configs.base import ArchConfig, ServeConfig
 from ..models.attn_backend import decode_meta, meta_to_device, prefill_meta
 from ..models.registry import build_model
-from .kv_pool import PagedKVPool
+from .kv_pool import PagedKVPool, StateSlotPool
 
 # per-arch max-abs-logit-error bounds of the int8 gate (the JAX package's
 # ``quant_verify.LOGIT_TOL``); MLA's wider bound arrives with its family
@@ -57,7 +57,8 @@ def replay_logits(cfg: ArchConfig, scfg: ServeConfig, params,
                   kv_dtype: Optional[str] = None) -> np.ndarray:
     """Teacher-force one request through single-request paged steps on the
     params' device: prefill ``prompt`` into a fresh one-request pool of
-    ``kv_dtype`` pages (``scfg.kv_dtype`` by default), then decode feeding
+    ``kv_dtype`` pages (``scfg.kv_dtype`` by default; for the state-slot
+    families a one-slot ``StateSlotPool``), then decode feeding
     ``gen[:-1]``, collecting the logits that predicted each ``gen[i]``.
     Returns fp32 [len(gen), vocab_padded]."""
     if not gen:
@@ -67,6 +68,8 @@ def replay_logits(cfg: ArchConfig, scfg: ServeConfig, params,
                               kv_dtype=kv_dtype or scfg.kv_dtype)
     model = build_model(cfg, attn_backend)
     pool = PagedKVPool(cfg, sub, device=device)
+    state = StateSlotPool(cfg, sub, device=device).state \
+        if pool.spec.state_slots else {}
     pages = pool.alloc(pool.pages_for(len(prompt) + len(gen)))
     assert pages is not None, "single-request replay pool sized too small"
     table = pool.new_table()
@@ -82,13 +85,13 @@ def replay_logits(cfg: ArchConfig, scfg: ServeConfig, params,
     tokens = np.zeros((1, Tp), np.int32)
     tokens[0, :T] = prompt
     logits, kv, _ = model.prefill_paged(
-        params, pool.kv, {}, meta, torch.as_tensor(tokens, device=device))
+        params, pool.kv, state, meta, torch.as_tensor(tokens, device=device))
     out = [logits[0].float().cpu().numpy()]
     for i, tok in enumerate(gen[:-1]):
         meta = meta_to_device(decode_meta(
             cfg, sub.page_size, tables, np.array([T + i], np.int32)), device)
         logits, kv, _ = model.decode_paged(
-            params, kv, {}, meta, torch.tensor([tok], device=device))
+            params, kv, state, meta, torch.tensor([tok], device=device))
         out.append(logits[0].float().cpu().numpy())
     return np.stack(out)
 

@@ -58,7 +58,7 @@ from typing import Any, Deque, List, Optional, Tuple
 import numpy as np
 
 from ..configs.base import ServeConfig
-from .kv_pool import PagedKVPool
+from .kv_pool import PagedKVPool, StateSlotPool
 from .radix_cache import RadixCache, RadixNode
 from .speculate import speculation_k
 from .telemetry import MetricsRegistry, Tracer

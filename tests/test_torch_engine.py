@@ -53,15 +53,19 @@ def seeded_params(jcfg, seed):
     """The JAX model's parameter tree drawn with numpy from ``seed`` by the
     rules of ``repro.models.params`` (``init_params`` itself folds in
     ``hash(path)``, which changes with PYTHONHASHSEED from one process to
-    the next), as bf16 JAX arrays: the same values in every run."""
+    the next), as JAX arrays of each leaf's dtype (bf16, or fp32 for the
+    recurrent families' ``A_log``, ``D`` and ``lam``): the same values in
+    every run."""
     rng = np.random.RandomState(seed)
 
     def draw(d):
         if d.init in ("zeros", "ones"):
-            return jnp.full(d.shape, d.init == "ones", jnp.bfloat16)
+            return jnp.full(d.shape, d.init == "ones", d.dtype)
+        if d.init.startswith("const:"):
+            return jnp.full(d.shape, float(d.init[6:]), d.dtype)
         scale = 0.02 if d.init == "embed" \
             else 1.0 / np.sqrt(max(1, int(np.prod(d.shape[:-1]))))
-        return jnp.asarray(rng.randn(*d.shape) * scale, jnp.bfloat16)
+        return jnp.asarray(rng.randn(*d.shape) * scale, d.dtype)
     return jax.tree.map(draw, j_build(jcfg).param_defs(),
                         is_leaf=lambda x: isinstance(x, JParamDef))
 
@@ -183,8 +187,7 @@ def test_unported_modes_refuse(kw, item):
 
 
 def test_unported_families_refuse():
-    for name, kw, item in (("mamba2-780m", {}, "item 13"),
-                           ("llava-next-34b", {}, "item 14")):
+    for name, kw, item in (("llava-next-34b", {}, "item 14"),):
         cfg = tconfigs.reduced(tconfigs.get_arch(name))
         with pytest.raises(NotImplementedError, match=item):
             Engine(cfg, tconfigs.ServeConfig(**kw), device="cpu")

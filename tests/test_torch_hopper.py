@@ -32,7 +32,9 @@ its backward (torch ops) to autograd through the plain version within
 1e-5 relative L2, and a small fp32 qwen2-0.5b's loss and gradients on the
 hopper backend to the reference backend's within 1e-5 and 1e-4.  The hopper engine passes the dual gate against the reference
 engine (``serving.parity``, max |dlogit| <= 0.25), with and without
-speculation and int8 pages, dense, sliding-window and MLA.
+speculation and int8 pages, dense, sliding-window and MLA.  The state-slot
+engines (no kernel on their path) restore preempted requests into other
+slots bit for bit.
 """
 import numpy as np
 import pytest
@@ -1190,3 +1192,48 @@ def test_poisoned_page_flips_only_its_own_row(cuda, kv_dtype):
     assert ok == [True, True, False, True]
     assert eng.sched.slots[2] is None
     assert eng.metrics.value("engine.quarantined") == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-2b"])
+def test_state_slot_engine_checkpoint_restore_on_the_card(cuda, name):
+    """Reduced mamba2-780m and recurrentgemma-2b (window 32, prompts past
+    it) served on the hopper backend, whose path runs no kernel: every
+    token is the single-request replay's greedy token wherever that
+    replay's top-two margin exceeds 0.5 (twice the dual gate's 0.25); the
+    requests of slots 0 and 1 preempted mid-decode and restored into each
+    other's slots give the un-preempted streams bit for bit (decode runs
+    at the fixed [max_slots] shape); every slot is released."""
+    cfg = reduced(get_arch(name))
+    scfg = ServeConfig(page_size=8, max_slots=3, max_len=80,
+                       attn_backend="hopper")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist()
+               for n in (5, 40, 13, 27)]
+    with torch.no_grad():
+        params = init_params(cfg, 0, cuda)
+        base = [r.tokens for r in Engine(cfg, scfg, params, device=cuda)
+                .run_offline(prompts, 12)[0]]
+        eng = Engine(cfg, scfg, params, device=cuda)
+        for p in prompts:
+            eng.add_request(p, 12)
+        moved = {}
+        while eng.step():
+            live = eng.sched.slots[:2]
+            if not moved and all(s is not None and len(s.req.generated) >= 3
+                                 for s in live):
+                for i in (0, 1):
+                    moved[eng.sched.slots[i].req.rid] = i
+                    eng.sched.preempt(i)
+            for i, slot in enumerate(eng.sched.slots):
+                assert slot is None or moved.get(slot.req.rid) != i
+        got = [r.tokens for r in sorted(eng.collect(), key=lambda r: r.rid)]
+        replays = [replay_logits(cfg, scfg, params, p, t)
+                   for p, t in zip(prompts, base)]
+    assert len(moved) == 2 and eng.metrics.value("engine.state_restores") == 2
+    assert got == base
+    assert eng.states.num_claimed == 0 and eng.pool.conservation_ok()
+    for r, t in zip(replays, base):
+        top2 = np.sort(r, axis=-1)[:, -2:]
+        high = top2[:, 1] - top2[:, 0] > 2 * 0.25
+        assert (r.argmax(-1) == np.asarray(t))[high].all()
