@@ -51,8 +51,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    K/V laid out in a 257-page and in a 258-page ring at positions past the
    wrap, bit for bit (the ring kernels sum in the order of absolute
    positions, so the ring's length changes nothing);
-10. the sliding-window path: full-width starcoder2-7b, its depth cut to 16
-   of 32 layers to keep the run near ten minutes (random weights from
+10. the sliding-window path: full-width starcoder2-7b, its depth cut to 8
+   of 32 layers (16 before phase 22 added ~130 s: the whole smoke must
+   stay within the call's limit on a slow host; random weights from
    ``--seed``) on the hopper backend, 4 requests of
    1024, 3072, 4608 and 6144 prompt tokens, 256-token chunks, 32 new
    tokens, prefix cache requested (and refused: a page ring is not
@@ -72,9 +73,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    positive phase in bf16, and Fig. 8's CD job ([2048, 784] x [784, 512]
    and [2048, 512] x W.T, fp32), each with a second call equal bit for
    bit and rows computed alone equal to theirs in the batch;
-12. full-width minitron-4b, its depth cut to 16 of 32 layers (since PR
-   29, to keep the smoke under the call's limit on a slow host: phase 21
-   adds ~140 s), served as phase 6 serves qwen2-0.5b (K2 at D=128 for
+12. full-width minitron-4b, its depth cut to 8 of 32 layers (to keep the
+   smoke under the call's limit on a slow host, where phases 21 and 22
+   add up to ~400 s), served as phase 6 serves qwen2-0.5b (K2 at D=128 for
    every prefill chunk, a profiled rerun with K2's share of the device
    time), bf16 and int8, each held to the dual gate;
 13. command-r-plus-104b at full width, its depth cut to 4 of 64 layers
@@ -189,7 +190,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    reference replay by the dual gate.  K1's and K2's launches over the
    phase must be positive.
 
-21. the state-slot families (run last; no kernel on their path): full-width,
+21. the state-slot families (no kernel on their path): full-width,
    full-depth mamba2-780m (48 SSD layers, d 1536) on phase 6's 8
    requests (the prefix cache refused with a warning) and
    recurrentgemma-2b (8 x (RG-LRU, RG-LRU, local attention) + 2 RG-LRU
@@ -209,6 +210,32 @@ Phases, each printing its own lines; any failed check exits non-zero:
    profiled rerun), peak memory and state bytes a slot, beside the card's
    name and power limit, and the launches of K1-K9 over the phase (none
    is expected: the JAX package runs no Pallas kernel there either).
+
+22. the frontend-conditioned families (run last), random weights from
+   ``--seed``, hopper backend: (a) at their new shapes, each against its
+   plain version, timed beside SDPA with its bound: K1 and K2, bf16 and
+   int8, at seamless-m4t's 16 KV heads of 64 with one query head each
+   (G = 1; K2's chunk split at token 96, not a multiple of 64, bit for
+   bit), K1, K2 and K3 at llava's 8 KV x 7 query heads of 128, and K9 in
+   its full mode at the encoder's shape (B 2, S 4096, 16 / 16 heads of
+   64); (b) full-width, full-depth seamless-m4t-large-v2 (24 encoder + 24
+   decoder layers) on 8 requests of 32..512 decoder prompt tokens, each
+   conditioned on 4096 frames (``enc_len``), 128-token chunks, 32 new
+   tokens, bf16 then int8 pages: K1 a decode step a layer, K2 a prefill
+   step a layer, K9 an encoder layer a first-chunk prefill (continuation
+   chunks run no encoder), 402,653,184 B of cross K/V a slot, and the
+   engine's logits (recorded in the run, one device-to-host copy a step)
+   held to single-request reference replays of its pool dtype by the dual
+   gate;
+   (c) full-width llava-next-34b cut to 16 of 60 layers on 4 requests of
+   576 image + 64..512 text tokens (prefix cache asked for and refused,
+   a 256-token chunk budget that never chunks), 32 new tokens: bf16, gated
+   the same way, then speculation at K = 4 with n-gram and with oracle
+   drafts (K3 a verify step a layer, K1 never), each stream equal to the
+   plain stream bit for bit.  tok/s, TTFT p50 and decode step p50 of each
+   run, and the device's busy share of a rerun of the bf16 runs traced on
+   the device alone (their ~10^5 host ops a rerun take the profiler
+   minutes to record).
 
 In phases 7, 10, 13 and 16 a verify step's rows must equal decode steps
 at ``pos + j`` bit for bit, and in 10, 13 and 16 every speculative stream
@@ -272,7 +299,8 @@ K8_TOL = 1e-5                  # K8 vs plain in fp32 (another sum order)
 CLASSIFIER_LR = 1.0            # examples/quickstart.py's fine-tuning rate
 ULP_FLOOR = 2.0 ** -14         # least kernel-vs-plain bound (ulp at ~0.01)
 
-MINITRON_LAYERS = 16           # of 32: phase 12's depth cut (since PR 29)
+MINITRON_LAYERS = 8            # of 32: phase 12's depth cut
+STARCODER_LAYERS = 8           # of 32: phase 10's depth cut
 
 # the main path's workload: 8 requests of 128..1024 prompt tokens sharing a
 # 64-token prefix, 16-token pages, 256-token prefill chunks, 32 new tokens
@@ -440,14 +468,17 @@ def kv_bytes(tokens: int, K: int, D: int, int8: bool) -> int:
     return tokens * K * 2 * (D + 2 if int8 else 2 * D)
 
 
-def phase_decode(torch, rng, timer, int8=False):
-    """K1 against its plain version at full-width qwen2 decode shapes;
-    ``int8``: its int8 mode, on the pool quantized by ``quantize_int8``."""
+def phase_decode(torch, rng, timer, int8=False, K=2, G=7, D=64,
+                 label="K1"):
+    """K1 against its plain version at full-width decode shapes: qwen2's 2
+    KV x 7 query heads of 64 by default, seamless-m4t's 16 x 1 of 64 or
+    llava's 8 x 7 of 128 in phase 22; ``int8``: its int8 mode, on the pool
+    quantized by ``quantize_int8``."""
     from repro_torch.kernels.paged_attention import (paged_decode,
                                                      paged_decode_plain)
     from repro_torch.models.attention import gather_kv
-    B, K, G, D, ps, width = 8, 2, 7, 64, 16, 128
-    H, name = K * G, "K1-int8" if int8 else "K1"
+    B, ps, width = 8, 16, 128
+    H, name = K * G, label + ("-int8" if int8 else "")
     pos = [2047, 1500, 1023, 1024, 15, 0, 777, 1900]   # page edges, 0, last
     k, v, tables = paged_pool(torch, rng, [p + 1 for p in pos], K, D, ps,
                               width)
@@ -547,12 +578,13 @@ def phase_prefill(torch, rng, timer, int8=False, K=2, G=7, D=64,
             "library_ms": library_ms, "chunk_split_bit_equal": split_equal}
 
 
-def verify_inputs(torch, rng):
-    """K3's full-width qwen2 verify shapes: B=8 rows of Q=5 queries (the
-    last token and four drafts), 2 KV x 7 query heads of 64, 16-token
-    pages; ragged live counts 1..5 at positions up to 2043, a row at a page
-    edge, and two idle rows (pos 0, one query, null table)."""
-    B, K, G, D, ps, width, Q = 8, 2, 7, 64, 16, 128, 5
+def verify_inputs(torch, rng, K=2, G=7, D=64):
+    """K3's full-width verify shapes: B=8 rows of Q=5 queries (the last
+    token and four drafts), qwen2's 2 KV x 7 query heads of 64 by default
+    (llava's 8 x 7 of 128 in phase 22), 16-token pages; ragged live counts
+    1..5 at positions up to 2043, a row at a page edge, and two idle rows
+    (pos 0, one query, null table)."""
+    B, ps, width, Q = 8, 16, 128, 5
     pos = [2043, 1500, 1023, 0, 15, 0, 777, 1900]
     n_q = [5, 3, 1, 1, 5, 1, 2, 4]
     lengths = [p + n for p, n in zip(pos, n_q)]
@@ -577,16 +609,19 @@ def verify_mask(torch, pos, n_q, Q, S):
     return m[:, None]
 
 
-def phase_verify(torch, rng, timer, int8=False):
-    """K3 against its plain version at full-width qwen2 verify shapes, and
-    with one live query per row against K1 bit for bit."""
+def phase_verify(torch, rng, timer, int8=False, K=2, G=7, D=64,
+                 label="K3"):
+    """K3 against its plain version at full-width verify shapes
+    (``verify_inputs``), and with one live query per row against K1 bit for
+    bit."""
     from repro_torch.kernels.paged_attention import (paged_decode,
                                                      paged_verify,
                                                      paged_verify_plain)
     from repro_torch.models.attention import gather_kv
-    q, k, v, tables, pos, n_q, G = verify_inputs(torch, rng)
+    q, k, v, tables, pos, n_q, G = verify_inputs(torch, rng, K, G, D)
     B, Q, H, D = q.shape
-    K, scale, name = H // G, 1.0 / math.sqrt(D), "K3-int8" if int8 else "K3"
+    K, scale = H // G, 1.0 / math.sqrt(D)
+    name = label + ("-int8" if int8 else "")
     kw = {}
     if int8:
         k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
@@ -1451,11 +1486,14 @@ class Replays:
 
 
 def serve_run(torch, cfg, params, prompts, label, proposer=None, base=None,
-              **kw):
+              seed=0, record=False, **kw):
     """One hopper engine run of ``prompts`` (``GEN_TOKENS`` new tokens
-    each, serve settings ``base`` updated by ``kw``) with every launch count
-    set to 0 just before and read just after.  Returns (tokens, metrics,
-    counts, engine)."""
+    each, serve settings ``base`` updated by ``kw``, the engine's frontend
+    inputs drawn from ``seed``) with every launch count set to 0 just
+    before and read just after; ``record``: the engine's logits kept too
+    (``record_logits``, one device-to-host copy a step), as
+    ``engine.recorded``.  Returns (tokens, metrics, counts, engine)."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.configs import ServeConfig
     from repro_torch.kernels.paged_attention import (mla_paged_decode,
                                                      mla_paged_verify,
@@ -1468,13 +1506,15 @@ def serve_run(torch, cfg, params, prompts, label, proposer=None, base=None,
     from repro_torch.serving import Engine
     eng = Engine(cfg, ServeConfig(attn_backend="hopper",
                                   **{**(base or serve_kwargs()), **kw}),
-                 params, device="cuda")
+                 params, seed=seed, device="cuda")
     if proposer is not None:
         eng.proposer = proposer
+    if record:
+        eng.recorded = record_logits(torch, eng)
     kernels = {"K1": paged_decode, "K2": ragged_prefill, "K3": paged_verify,
                "K4": windowed_prefill, "K5": mla_paged_decode,
                "K6": mla_ragged_prefill, "K6-kv": mla_build_kv,
-               "K7": mla_paged_verify}
+               "K7": mla_paged_verify, "K9": flash_attention}
     for fn in kernels.values():
         fn.launches = 0
     results, m = eng.run_offline(prompts, GEN_TOKENS)
@@ -2721,21 +2761,84 @@ def k9_bound(B, S, H, K, D, causal, esize, terms=1):
             flops, nbytes)
 
 
-def phase_flash(torch, timer):
-    """K9 against its plain version: qwen2-0.5b's training shape (B 8, S
-    1024, 14 / 2 heads of 64) causal in bf16 (the main path's call), the
-    same full (causal=False) and in fp32, and minitron-4b's heads (24 / 8 of
-    128) causal in bf16; bf16 within one bf16 ulp of the row's max, fp32
-    within ``K9_FP32_TOL``.  Bit for bit: each request alone against its
-    rows in the batch, and, causal, rows 0..999 of the same inputs cut to
-    S = 1000 against the S = 1024 call's.  Each timed beside the plain
-    version and ``scaled_dot_product_attention`` on K/V repeated to the
-    query heads (the yardstick; the port never calls it), with the
-    function's bound and, in bf16, the two-term body's.  Then the ``ptxas``
-    lines of K9's library and the differentiable form's gradients against
-    autograd through the plain version in fp32.  Returns the main shape's
-    numbers with the others under "shapes"."""
+def flash_case(torch, timer, gen, label, B, S, H, K, D, causal, dt):
+    """K9 on random inputs of one shape against its plain version (bf16
+    within one bf16 ulp of the row's max, fp32 within ``K9_FP32_TOL``);
+    bit for bit, each request alone against its rows in the batch and,
+    causal, rows 0..999 of the inputs cut to S = 1000 against the full
+    call's; timed beside the plain version and
+    ``scaled_dot_product_attention`` on K/V repeated to the query heads
+    (the yardstick; the port never calls it), with the function's bound
+    and, in bf16, the two-term body's.  Returns the numbers."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention)
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dt)
+    name = f"K9 flash_attention {label} D={D} {str(dt)[6:]}"
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if dt == torch.float32:
+        err = (got - want).abs().max().item()
+        ratio = err / K9_FP32_TOL
+        ok = bool(torch.isfinite(got).all().item()) and ratio <= 1.0
+        print(f"[smoke] {name}: max|kernel - plain| = {err:.6g} (tol "
+              f"{K9_FP32_TOL}) -> {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{name} disagrees with its plain version")
+    else:
+        err, ratio = check_kernel(torch, name, got, want)
+    del want
+    alone = rows_alone(torch, name, got, lambda b: flash_attention(
+        q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal))
+    prefix = None
+    if causal:
+        cut = 1000
+        prefix = torch.equal(flash_attention(
+            *(t[:, :cut].contiguous() for t in (q, k, v)),
+            causal=True), got[:, :cut])
+        print(f"[smoke] {name}: rows 0..{cut - 1} of the inputs cut to "
+              f"S = {cut} equal the S = {S} call's bit for bit "
+              f"{'-> OK' if prefix else '-> DIFFER'}", flush=True)
+        if not prefix:
+            fail(f"{name}: a causal row depends on the keys past it")
+    ms = timer(lambda: flash_attention(q, k, v, causal=causal))
+    plain_ms = timer(lambda: attention_plain(q, k, v, causal=causal))
+    G = H // K
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(G, 1)
+    vh = v.transpose(1, 2).repeat_interleave(G, 1)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=causal))
+    esize = q.element_size()
+    bms, by, flops, nbytes = k9_bound(B, S, H, K, D, causal, esize)
+    two = (k9_bound(B, S, H, K, D, causal, esize, terms=2)[0]
+           if dt == torch.bfloat16 else None)
+    print(f"[smoke] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)"
+          + (f", two-term bound {two:.4f} ms (6 D flops a pair)"
+             if two else "")
+          + f"; {flops / ms / 1e9:.2f} TFLOP/s of the function",
+          flush=True)
+    return {"shape": f"{label} B={B} S={S} H={H} K={K} D={D}",
+            "dtype": str(dt)[6:], "max_abs_err": err,
+            "err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by,
+            "bound_two_term_ms": two, "library_ms": library_ms,
+            "alone_bit_equal": alone, "prefix_bit_equal": prefix}
+
+
+def phase_flash(torch, timer):
+    """K9 against its plain version (``flash_case``): qwen2-0.5b's training
+    shape (B 8, S 1024, 14 / 2 heads of 64) causal in bf16 (the main path's
+    call), the same full (causal=False) and in fp32, and minitron-4b's heads
+    (24 / 8 of 128) causal in bf16.  Then the ``ptxas`` lines of K9's
+    library and the differentiable form's gradients against autograd
+    through the plain version in fp32.  Returns the main shape's numbers
+    with the others under "shapes"."""
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import (
         attention_plain, flash_attention, flash_attention_train)
@@ -2744,64 +2847,8 @@ def phase_flash(torch, timer):
              ("qwen2-0.5b full", 14, 2, 64, False, torch.bfloat16),
              ("qwen2-0.5b causal", 14, 2, 64, True, torch.float32),
              ("minitron-4b causal", 24, 8, 128, True, torch.bfloat16)]
-    out = []
-    for label, H, K, D, causal, dt in cases:
-        B, S = TR_B, TR_S
-        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
-        k = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dt)
-        v = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dt)
-        name = f"K9 flash_attention {label} D={D} {str(dt)[6:]}"
-        got = flash_attention(q, k, v, causal=causal)
-        want = attention_plain(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        if dt == torch.float32:
-            err = (got - want).abs().max().item()
-            ratio = err / K9_FP32_TOL
-            ok = bool(torch.isfinite(got).all().item()) and ratio <= 1.0
-            print(f"[smoke] {name}: max|kernel - plain| = {err:.6g} (tol "
-                  f"{K9_FP32_TOL}) -> {'OK' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                fail(f"{name} disagrees with its plain version")
-        else:
-            err, ratio = check_kernel(torch, name, got, want)
-        alone = rows_alone(torch, name, got, lambda b: flash_attention(
-            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal))
-        prefix = None
-        if causal:
-            cut = 1000
-            prefix = torch.equal(flash_attention(
-                *(t[:, :cut].contiguous() for t in (q, k, v)),
-                causal=True), got[:, :cut])
-            print(f"[smoke] {name}: rows 0..{cut - 1} of the inputs cut to "
-                  f"S = {cut} equal the S = {S} call's bit for bit "
-                  f"{'-> OK' if prefix else '-> DIFFER'}", flush=True)
-            if not prefix:
-                fail(f"{name}: a causal row depends on the keys past it")
-        ms = timer(lambda: flash_attention(q, k, v, causal=causal))
-        plain_ms = timer(lambda: attention_plain(q, k, v, causal=causal))
-        G = H // K
-        qh = q.transpose(1, 2)
-        kh = k.transpose(1, 2).repeat_interleave(G, 1)
-        vh = v.transpose(1, 2).repeat_interleave(G, 1)
-        library_ms = timer(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=causal))
-        esize = q.element_size()
-        bms, by, flops, nbytes = k9_bound(B, S, H, K, D, causal, esize)
-        two = (k9_bound(B, S, H, K, D, causal, esize, terms=2)[0]
-               if dt == torch.bfloat16 else None)
-        print(f"[smoke] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)"
-              + (f", two-term bound {two:.4f} ms (6 D flops a pair)"
-                 if two else "")
-              + f"; {flops / ms / 1e9:.2f} TFLOP/s of the function",
-              flush=True)
-        out.append({"shape": f"{label} B={B} S={S} H={H} K={K} D={D}",
-                    "dtype": str(dt)[6:], "max_abs_err": err,
-                    "err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bms, "bound_by": by,
-                    "bound_two_term_ms": two, "library_ms": library_ms,
-                    "alone_bit_equal": alone, "prefix_bit_equal": prefix})
+    out = [flash_case(torch, timer, gen, label, TR_B, TR_S, H, K, D, causal,
+                      dt) for label, H, K, D, causal, dt in cases]
 
     _, libs = build_all()
     ptxas = print_ptxas("flash_attention",
@@ -2940,22 +2987,30 @@ def state_workload(cfg, seed):
 
 
 def record_logits(torch, eng):
-    """Wrap ``eng``'s prefill and decode steps so that they keep, for every
-    request, the logits each of its tokens was drawn from (copied to the
-    host): {rid: [logits row, ...]}.  The steps compute what the engine's
-    own do (the model's step, argmax, finite flags)."""
+    """Wrap ``eng``'s prefill (first and continuation chunk) and decode
+    steps so that they keep, for every request, the logits each of its
+    tokens was drawn from (copied to the host): {rid: [logits row, ...]}.
+    The steps compute what the engine's own do (the model's step, argmax,
+    finite flags)."""
     from repro_torch.models.registry import build_model
     model = build_model(eng.cfg, eng.attn_backend)
     rec = {}
-    prefill = eng._prefill
 
-    def prefill_rec(params, kv, state, meta, tokens, extras):
-        logits, kv, state = prefill(params, kv, state, meta, tokens, extras)
-        host = logits.float().cpu().numpy()
-        for r, i in enumerate(meta["slots"].tolist()):
-            if i < len(eng.sched.slots) and eng.sched.slots[i] is not None:
-                rec.setdefault(eng.sched.slots[i].req.rid, []).append(host[r])
-        return logits, kv, state
+    def recording(prefill):
+        def prefill_rec(params, kv, state, meta, tokens, extras):
+            logits, kv, state = prefill(params, kv, state, meta, tokens,
+                                        extras)
+            host = logits.float().cpu().numpy()
+            n_live = meta["n_tail"].tolist()
+            for r, i in enumerate(meta["slots"].tolist()):
+                slot = eng.sched.slots[i] if i < len(eng.sched.slots) \
+                    else None
+                # only a prompt's last chunk draws its first token
+                if slot is not None and slot.n_filled + n_live[r] \
+                        >= len(slot.req.prompt):
+                    rec.setdefault(slot.req.rid, []).append(host[r])
+            return logits, kv, state
+        return prefill_rec
 
     def decode_rec(params, kv, state, meta, tokens):
         logits, kv, state = model.decode_paged(params, kv, state, meta,
@@ -2965,7 +3020,8 @@ def record_logits(torch, eng):
             rec[eng.sched.slots[i].req.rid].append(host[i])
         return (logits.argmax(-1).to(torch.int32),
                 torch.isfinite(logits).all(-1), kv, state)
-    eng._prefill, eng._decode = prefill_rec, decode_rec
+    eng._prefill, eng._decode = recording(eng._prefill), decode_rec
+    eng._prefill_cont = recording(eng._prefill_cont)
     return rec
 
 
@@ -3040,7 +3096,8 @@ def phase_state_slots(torch, seed):
                     or not all(0 <= x < cfg.vocab_padded for t in tokens
                                for x in t):
                 fail(f"{arch}: failed, short or out-of-range requests")
-            rep["busy_share"] = profile_rerun(torch, eng, prompts)
+            rep["busy_share"] = profile_rerun(torch, eng, prompts,
+                                              device_only=True)
             del eng
 
             # (a) the engine's own logits (a rerun that records them)
@@ -3136,6 +3193,212 @@ def phase_state_slots(torch, seed):
           + ", ".join(f"{k} {v}" for k, v in out["launches"].items()),
           flush=True)
     return out
+
+
+# phase 22: seamless-m4t-large-v2 at full width and depth, 8 requests of
+# 32..512 decoder prompt tokens, each conditioned on 4096 frames (the JAX
+# package's ENC_LEN_DECODE), 128-token chunks; llava-next-34b at full width
+# cut to 16 of 60 layers, 4 requests of 576 image + 64..512 text tokens
+SM_ENC_LEN, SM_CHUNK = 4096, 128
+SM_PROMPTS = [int(x) for x in np.linspace(32, 512, 8)]
+LV_LAYERS = 16
+LV_PROMPTS = [int(x) for x in np.linspace(64, 512, 4)]
+
+
+def frontend_gate(torch, cfg, params, prompts, tokens, rec, scfg, seed,
+                  label):
+    """The engine's own logits ``rec`` (``serve_run(record=True)``) along
+    its ``tokens`` against single-request ``replay_logits`` on the
+    reference backend with the same pool dtype and each request's frontend
+    input, by the dual gate.  Returns the gate's report."""
+    from repro_torch.serving import dual_gate, replay_logits
+    from repro_torch.serving.engine import _synthetic_frontend
+    t0 = time.perf_counter()
+    replays = [replay_logits(cfg, scfg, params, p, t,
+                             attn_backend="reference",
+                             frontend=_synthetic_frontend(cfg, scfg, seed, i))
+               for i, (p, t) in enumerate(zip(prompts, tokens))]
+    gate = dual_gate(replays, [np.stack(rec[i]) for i in range(len(prompts))],
+                     tokens, tol=LOGIT_TOL)
+    print(f"[smoke] {label}: {len(replays)} reference replays and the gate "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gate_line(f"{label}: the engine's logits against single-request "
+              f"reference replays", gate)
+    return {k: gate[k] for k in (
+        "max_logit_err", "max_logit_err_row_ulps", "n_tokens",
+        "greedy_equal_tokens", "high_margin_tokens", "high_margin_mismatches",
+        "ok")}
+
+
+def frontend_metrics(m):
+    return {"tokens_per_s": m["tokens_per_s"],
+            "ttft_p50_ms": m["ttft_p50_s"] * 1e3,
+            "decode_step_ms_p50": m["decode_step_ms_p50"],
+            "prefill_steps": m["prefill_steps"],
+            "chunked_prefill_steps": m["chunked_prefill_steps"],
+            "decode_steps": m["decode_steps"]}
+
+
+def phase_frontend_families(torch, rng, timer, seed):
+    """Phase 22 (see the module docstring): (a) K1, K2 (bf16, int8) at
+    G = 1 with 16 KV heads of 64, K1, K2 and K3 at G = 7 with 8 KV heads of
+    128, and K9 in its full mode at the encoder's shape, each against its
+    plain version; (b) seamless-m4t-large-v2 and (c) llava-next-34b served
+    on the hopper backend.  Returns (launch counts, kernel numbers,
+    report)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.registry import init_params
+    t_phase = time.perf_counter()
+    kern = {}
+    for q in (False, True):
+        sfx = "-int8" if q else ""
+        kern["K1-G1" + sfx] = phase_decode(torch, rng, timer, int8=q, K=16,
+                                           G=1, D=64, label="K1-G1")
+        kern["K2-G1" + sfx] = phase_prefill(torch, rng, timer, int8=q, K=16,
+                                            G=1, D=64, label="K2-G1")
+    kern["K1-G7-D128"] = phase_decode(torch, rng, timer, K=8, G=7, D=128,
+                                      label="K1-G7-D128")
+    kern["K2-G7-D128"] = phase_prefill(torch, rng, timer, K=8, G=7, D=128,
+                                       label="K2-G7-D128")
+    kern["K3-G7-D128"] = phase_verify(torch, rng, timer, K=8, G=7, D=128,
+                                      label="K3-G7-D128")
+    gen = torch.Generator(device="cuda").manual_seed(92)
+    kern["K9-full"] = flash_case(torch, timer, gen, "seamless encoder full",
+                                 2, SM_ENC_LEN, 16, 16, 64, False,
+                                 torch.bfloat16)
+    torch.cuda.empty_cache()
+    out = {"kernel_checks_s": time.perf_counter() - t_phase}
+    counts = {}
+
+    # (b) seamless-m4t-large-v2: 24 + 24 layers, bf16 then int8 pages
+    t0 = time.perf_counter()
+    cfg = get_arch("seamless-m4t-large-v2")
+    L = cfg.n_dec_layers
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist() for n in SM_PROMPTS]
+    base = dict(page_size=PAGE, max_slots=len(prompts),
+                max_len=-(-(max(SM_PROMPTS) + GEN_TOKENS) // PAGE) * PAGE,
+                enc_len=SM_ENC_LEN, prefill_chunk_tokens=SM_CHUNK)
+    rep = {"prompt_tokens": SM_PROMPTS, "enc_len": SM_ENC_LEN}
+    with torch.no_grad():
+        params = init_params(cfg, seed, "cuda")
+        rep["parameters"] = sum(x.numel() for _, x in tree_leaves(params))
+        for kv in ("bf16", "int8"):
+            label = f"seamless-m4t-large-v2 {kv}"
+            tokens, m, c, eng = serve_run(torch, cfg, params, prompts, label,
+                                          base=base, seed=seed, kv_dtype=kv,
+                                          record=True)
+            slot = eng.states.slot_nbytes
+            first = m["prefill_steps"] - m["chunked_prefill_steps"]
+            r = {**frontend_metrics(m), "slot_bytes": slot,
+                 "launches": {k: c[k] for k in ("K1", "K2", "K9")}}
+            print(f"[smoke] {label} (24 + 24 layers, "
+                  f"{rep['parameters'] / 1e9:.3f} B parameters, hopper, "
+                  f"{CARD}): {m['n_requests']} requests, {m['new_tokens']} "
+                  f"tokens in {m['wall_s']:.3f} s = {m['tokens_per_s']:.1f} "
+                  f"tok/s, TTFT p50 {r['ttft_p50_ms']:.1f} ms, decode step "
+                  f"p50 {m['decode_step_ms_p50']:.3f} ms over "
+                  f"{m['decode_steps']} steps, {m['prefill_steps']} prefill "
+                  f"steps ({m['chunked_prefill_steps']} continuation "
+                  f"chunks), {slot} B of cross K/V a slot; launches K1 "
+                  f"{c['K1']}, K2 {c['K2']}, K9 {c['K9']}", flush=True)
+            if c["K1"] != m["decode_steps"] * L \
+                    or c["K2"] != m["prefill_steps"] * L \
+                    or c["K9"] != first * cfg.n_enc_layers \
+                    or not m["chunked_prefill_steps"] \
+                    or slot != 2 * L * SM_ENC_LEN * 16 * 64 * 2:
+                fail(f"{label}: launches K1 {c['K1']}, K2 {c['K2']}, K9 "
+                     f"{c['K9']} for {m['decode_steps']} decode and "
+                     f"{m['prefill_steps']} prefill steps ({first} first "
+                     f"chunks), or {slot} B a slot")
+            if kv == "bf16":
+                # ~10^5 host ops a rerun: trace the device alone, once
+                t1 = time.perf_counter()
+                r["busy_share"] = profile_rerun(torch, eng, prompts,
+                                                device_only=True)
+                print(f"[smoke] {label}: profiled rerun "
+                      f"{time.perf_counter() - t1:.1f} s", flush=True)
+            r["gate"] = frontend_gate(torch, cfg, params, prompts, tokens,
+                                      eng.recorded, eng.scfg, seed, label)
+            del eng
+            sfx = "" if kv == "bf16" else "-int8"
+            counts["K1-G1" + sfx] = c["K1"]
+            counts["K2-G1" + sfx] = c["K2"]
+            counts["K9-full"] = counts.get("K9-full", 0) + c["K9"]
+            rep[kv] = r
+        del params
+    torch.cuda.empty_cache()
+    rep["seconds"] = time.perf_counter() - t0
+    out["seamless-m4t-large-v2"] = rep
+
+    # (c) llava-next-34b at full width, 16 of 60 layers: bf16, then n-gram
+    # speculation at K = 4, whose stream must equal the plain one
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("llava-next-34b"), n_layers=LV_LAYERS)
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist() for n in LV_PROMPTS]
+    base = dict(page_size=PAGE, max_slots=len(prompts),
+                max_len=-(-(max(LV_PROMPTS) + GEN_TOKENS) // PAGE) * PAGE,
+                prefix_cache=True, prefill_chunk_tokens=256)
+    rep = {"layers": LV_LAYERS, "image_tokens": cfg.n_image_tokens,
+           "prompt_tokens": LV_PROMPTS}
+    with torch.no_grad():
+        params = init_params(cfg, seed, "cuda")
+        rep["parameters"] = sum(x.numel() for _, x in tree_leaves(params))
+        label = "llava-next-34b bf16"
+        tokens, m, c, eng = serve_run(torch, cfg, params, prompts, label,
+                                      base=base, seed=seed, record=True)
+        print(f"[smoke] {label} ({LV_LAYERS} of 60 layers, "
+              f"{rep['parameters'] / 1e9:.3f} B parameters, hopper, {CARD}): "
+              f"{m['n_requests']} requests of {cfg.n_image_tokens} image + "
+              f"{LV_PROMPTS} text tokens, {m['new_tokens']} tokens in "
+              f"{m['wall_s']:.3f} s = {m['tokens_per_s']:.1f} tok/s, TTFT "
+              f"p50 {m['ttft_p50_s'] * 1e3:.1f} ms, decode step p50 "
+              f"{m['decode_step_ms_p50']:.3f} ms over {m['decode_steps']} "
+              f"steps, {m['prefill_steps']} prefill steps "
+              f"({m['chunked_prefill_steps']} chunked), prefix cache "
+              f"{'refused' if eng.radix is None else 'ON'}; launches K1 "
+              f"{c['K1']}, K2 {c['K2']}, K3 {c['K3']}", flush=True)
+        if eng.radix is not None or m["chunked_prefill_steps"] \
+                or c["K1"] != m["decode_steps"] * LV_LAYERS \
+                or c["K2"] != m["prefill_steps"] * LV_LAYERS:
+            fail(f"{label}: the prefix cache was not refused, a prompt was "
+                 f"chunked, or launches K1 {c['K1']}, K2 {c['K2']} do not "
+                 "match the steps")
+        r = {**frontend_metrics(m),
+             "launches": {k: c[k] for k in ("K1", "K2", "K3")},
+             "busy_share": profile_rerun(torch, eng, prompts,
+                                         device_only=True),
+             "gate": frontend_gate(torch, cfg, params, prompts, tokens,
+                                   eng.recorded, eng.scfg, seed, label)}
+        del eng
+        counts["K1-G7-D128"], counts["K2-G7-D128"] = c["K1"], c["K2"]
+        rep["bf16"] = r
+        # n-gram drafts (what users run), then an oracle drafting the
+        # plain run's own tokens, so that verify rows of up to five live
+        # queries and accepted drafts really run at llava's shapes
+        for how, proposer in (("ngram", None),
+                              ("oracle", Oracle(4, prompts, tokens))):
+            stokens, m, c, eng = serve_run(
+                torch, cfg, params, prompts, f"llava-next-34b {how}",
+                proposer=proposer, base=base, seed=seed, speculate_tokens=4)
+            del eng
+            rep[how] = {**frontend_metrics(m), **spec_report(
+                f"llava-next-34b speculative serve ({how}, K = 4)", m, c,
+                stokens, tokens, LV_LAYERS)}
+            if stokens != tokens:
+                fail(f"llava-next-34b: the speculative ({how}) stream "
+                     "differs from the plain stream")
+            if how == "ngram":
+                counts["K3-G7-D128"] = c["K3"]
+                counts["K2-G7-D128"] += c["K2"]
+        if rep["oracle"]["accepted"] <= 0:
+            fail("llava-next-34b: the oracle run accepted no draft")
+        del params
+    torch.cuda.empty_cache()
+    rep["seconds"] = time.perf_counter() - t0
+    out["llava-next-34b"] = rep
+    out["seconds"] = time.perf_counter() - t_phase
+    return counts, kern, out
 
 
 def phase_train(torch, seed):
@@ -3308,16 +3571,18 @@ def print_profile(what, wall_us, kernels, every_us):
     return busy / wall_us
 
 
-def profile_rerun(torch, eng, prompts, n_new=8):
+def profile_rerun(torch, eng, prompts, n_new=8, device_only=False):
     """Where the time goes: rerun the requests (prefixes now cached) for
     ``n_new`` tokens under ``torch.profiler`` and print the device's busy
     share of the wall time, its top kernels by self device time and, where
-    K2 ran, K2's share of the device time.  Returns the busy share (None:
-    not measured)."""
+    K2 ran, K2's share of the device time (``device_only``: tracing the
+    device alone, for an engine whose host ops are too many to record in
+    the smoke's time).  Returns the busy share (None: not measured)."""
     reg = eng.metrics
     steps0 = (reg.value("engine.prefill_steps"),
               reg.get("engine.decode_step_s").count)
-    res = profile_device(torch, lambda: eng.run_offline(prompts, n_new))
+    res = profile_device(torch, lambda: eng.run_offline(prompts, n_new),
+                         device_only=device_only)
     if res is None:
         return None
     prefill_steps = reg.value("engine.prefill_steps") - steps0[0]
@@ -3491,8 +3756,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     window_counts, window = phase_window_serve(
-        torch, args.seed, n_layers=16,
-        why="to keep the smoke near ten minutes")
+        torch, args.seed, n_layers=STARCODER_LAYERS,
+        why="to keep the smoke within the call's limit on a slow host")
     counts.update(window_counts)
     print(f"[smoke] sliding-window serving phase took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -3539,6 +3804,12 @@ def main() -> None:
     state_slots = phase_state_slots(torch, args.seed)
     print(f"[smoke] state-slot phase took {time.perf_counter() - t0:.1f} s "
           f"({CARD})", flush=True)
+    t0 = time.perf_counter()
+    ff_counts, ff_kernels, families = phase_frontend_families(
+        torch, rng, timer, args.seed)
+    counts.update(ff_counts)
+    print(f"[smoke] frontend-families phase took "
+          f"{time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
     for kid, c in counts.items():
         if c <= 0:
             fail(f"{kid} was never launched on its serving path")
@@ -3603,6 +3874,24 @@ def main() -> None:
               "paged_attention/kernel.py:432", k7q),
         entry("K9", "flash_attention", "flash_attention.cu",
               "flash_attention/kernel.py:79", k9),
+        entry("K9-full", "flash_attention", "flash_attention.cu",
+              "flash_attention/kernel.py:79", ff_kernels["K9-full"]),
+        *(entry(kid, name, src, at, ff_kernels[kid])
+          for kid, name, src, at in (
+              ("K1-G1", "paged_decode", "paged_decode.cu",
+               "paged_attention/kernel.py:139"),
+              ("K1-G1-int8", "paged_decode", "paged_decode.cu",
+               "paged_attention/kernel.py:139"),
+              ("K2-G1", "ragged_prefill", "ragged_prefill.cu",
+               "ragged_prefill/kernel.py:141"),
+              ("K2-G1-int8", "ragged_prefill", "ragged_prefill.cu",
+               "ragged_prefill/kernel.py:141"),
+              ("K1-G7-D128", "paged_decode", "paged_decode.cu",
+               "paged_attention/kernel.py:139"),
+              ("K2-G7-D128", "ragged_prefill", "ragged_prefill.cu",
+               "ragged_prefill/kernel.py:141"),
+              ("K3-G7-D128", "paged_verify", "paged_verify.cu",
+               "paged_attention/kernel.py:241"))),
     ]
     print(json.dumps({"kernels": kernels, "serve": {
         k: report[k] for k in ("max_logit_err", "n_tokens",
@@ -3617,7 +3906,7 @@ def main() -> None:
         "ring_length_bit_equal": ring_lengths, "sliding_window": window,
         "command_r": command_r, "deepseek": deepseek, "paper": paper,
         "figures": figures, "train": train, "frontend": frontend,
-        "state_slots": state_slots}),
+        "state_slots": state_slots, "frontend_families": families}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,7 +85,7 @@ ROOT = Path(__file__).resolve().parents[3]      # the checkout holding chip_smok
 K2_KERNEL = "ragged_prefill_kernel"
 K4_KERNEL = "windowed_prefill_kernel"
 K6_KERNELS = ("mla_prefill_kernel", "mla_build_kv_kernel")   # both stages
-WINDOW_LAYERS = 16                 # chip_smoke's depth cut of starcoder2-7b
+WINDOW_LAYERS = 16                 # starcoder2-7b cut to 16 of 32 layers
 
 
 def kernels(smoke) -> dict:

@@ -39,6 +39,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --arch recurrentgemma-2b --requests 6 --mixed --prompt-len 48 --verify
 
+  # the frontend-conditioned families: seamless-m4t (enc-dec: frames
+  # encoded once a request, cross K/V pinned in a state slot, continuation
+  # chunks without the encoder; serves non-speculatively) and llava (an
+  # image prefix before the text; never chunked, no prefix cache)
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --arch seamless-m4t-large-v2 --prefill-chunk-tokens 16 --verify
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --arch llava-next-34b --speculate-tokens 4 --verify
+
   # the overlapped pipeline (step N+1's plan staged while step N runs) and
   # chaos mode: a deterministic fault plan (``serving.faults``) checked
   # against the exact-survivor contract
@@ -49,7 +58,9 @@ The flags are those of ``repro.launch.serve`` for what the port supports,
 plus ``--device`` (``cuda`` by default: without a card the run raises
 instead of moving to the CPU).  ``--attn-backend`` takes
 ``auto|reference|hopper``; ``auto`` is ``hopper`` on ``cuda``.  Weights are
-random, drawn from ``--seed`` on the chosen device.  ``--verify`` replays
+random, drawn from ``--seed`` on the chosen device, and so are the
+enc-dec frames and vlm image embeddings (``_synthetic_frontend``, by
+``--seed`` and request index).  ``--verify`` replays
 every request through the static single-request baseline and checks the
 greedy tokens agree per request (speculation included: accepted drafts
 leave the greedy stream unchanged); with ``--kv-dtype int8`` it runs the
@@ -85,6 +96,7 @@ from ..models.registry import init_params
 from ..serving import (Engine, FaultPlan, Tracer, dual_gate,
                        dual_gate_verify, format_report, generate_static,
                        logit_tol, replay_logits)
+from ..serving.engine import _synthetic_frontend
 
 
 def make_prompts(args, vocab: int):
@@ -238,16 +250,19 @@ def main(argv=None):
             results, metrics = eng.run_offline(prompts, budgets,
                                                overlap=args.overlap)
             tokens = [r.tokens for r in results]
-            cache = (f"state slots ({eng.states.slot_nbytes} B a slot)"
-                     if eng.states is not None else
-                     f"{args.kv_dtype} pages "
-                     f"({eng.pool.kv_bytes_per_token:.0f} B per token)")
+            cache = " + ".join(
+                ([f"{args.kv_dtype} pages ({eng.pool.kv_bytes_per_token:.0f}"
+                  " B per token)"] if eng.pool.spec.paged else [])
+                + ([f"state slots ({eng.states.slot_nbytes} B a slot)"]
+                   if eng.states is not None else []))
             print(f"[serve] device {metrics['device']}, attention backend "
                   f"{metrics['attn_backend']}, {cache}, decode step p50 "
                   f"{metrics['decode_step_ms_p50']:.1f} ms")
             if args.speculate_tokens and not eng.spec_k:
-                print(f"[serve] NOTE: {cfg.name} keeps state slots, which "
-                      "have no verify step: serving non-speculatively")
+                print(f"[serve] WARNING: speculation disabled for "
+                      f"{cfg.name}: cache family {eng.spec.describe()} has "
+                      f"no paged small-q verify step; serving "
+                      f"non-speculatively")
             if args.overlap:
                 print(f"[serve] overlap: "
                       f"{eng.metrics.value('engine.overlap_staged')} plans "
@@ -276,7 +291,8 @@ def main(argv=None):
         else:
             params = init_params(cfg, args.seed, device)
             tokens, metrics = generate_static(cfg, params, prompts, budgets,
-                                              scfg, batch_size=slots)
+                                              scfg, batch_size=slots,
+                                              seed=args.seed)
             print(f"[serve] {cfg.name} static(batch={slots}): "
                   f"{metrics['n_requests']} reqs, {metrics['new_tokens']} "
                   f"toks in {metrics['wall_s']*1e3:.1f} ms "
@@ -304,13 +320,17 @@ def main(argv=None):
                   f"{eng.metrics.value('pool.pages_scrubbed')}")
         if args.verify and plan is not None:
             chaos_verify(cfg, scfg, params, prompts, budgets, results, plan,
-                         eng, overlap=args.overlap)
+                         eng, overlap=args.overlap, seed=args.seed)
         elif args.verify and args.kv_dtype == "int8" \
                 and engine == "continuous":
             # quantized pages are not token-exact against the bf16 static
             # baseline; the contract is the bounded-error + high-margin gate
-            report = dual_gate_verify(cfg, scfg, params, prompts, tokens,
-                                      attn_backend=eng.attn_backend)
+            # the frontend inputs the engine drew for each request id
+            report = dual_gate_verify(
+                cfg, scfg, params, prompts, tokens,
+                attn_backend=eng.attn_backend,
+                frontends=[_synthetic_frontend(cfg, scfg, args.seed, i)
+                           for i in range(len(prompts))])
             print(format_report(report))
             if not report["ok"]:
                 raise SystemExit(
@@ -324,7 +344,7 @@ def main(argv=None):
                   "requests")
         elif args.verify:
             ref, _ = generate_static(cfg, params, prompts, budgets, scfg,
-                                     batch_size=1)
+                                     batch_size=1, seed=args.seed)
             bad = [i for i, (a, b) in enumerate(zip(tokens, ref)) if a != b]
             if bad:
                 raise SystemExit(f"[serve] VERIFY FAILED for requests {bad}")
@@ -334,7 +354,7 @@ def main(argv=None):
 
 
 def chaos_verify(cfg, scfg, params, prompts, budgets, results, plan, eng, *,
-                 overlap=False):
+                 overlap=False, seed=0):
     """The exact-survivor contract of a ``--inject`` run (see the module
     docstring); raises ``SystemExit`` listing every violation."""
     expected = {}      # rid -> substring expected in the terminal error
@@ -346,10 +366,10 @@ def chaos_verify(cfg, scfg, params, prompts, budgets, results, plan, eng, *,
     exact = eng.attn_backend == "reference" and scfg.kv_dtype == "bf16"
     if exact:
         ref, _ = generate_static(cfg, params, prompts, budgets, scfg,
-                                 batch_size=1)
+                                 batch_size=1, seed=seed)
         against = "the fault-free static baseline"
     else:
-        clean = Engine(cfg, scfg, params, device=eng.device)
+        clean = Engine(cfg, scfg, params, seed=seed, device=eng.device)
         ref = [r.tokens for r in clean.run_offline(prompts, budgets,
                                                    overlap=overlap)[0]]
         against = "a fault-free engine run"
@@ -374,12 +394,14 @@ def chaos_verify(cfg, scfg, params, prompts, budgets, results, plan, eng, *,
         # reference replay along its own tokens instead
         keep = [i for i, r in enumerate(results) if not r.failed]
         toks = [results[i].tokens for i in keep]
+        fronts = [_synthetic_frontend(cfg, scfg, seed, i) for i in keep]
         rep = dual_gate(
-            [replay_logits(cfg, scfg, params, prompts[i], t)
-             for i, t in zip(keep, toks)],
+            [replay_logits(cfg, scfg, params, prompts[i], t, frontend=f)
+             for i, t, f in zip(keep, toks, fronts)],
             [replay_logits(cfg, scfg, params, prompts[i], t,
-                           attn_backend=eng.attn_backend)
-             for i, t in zip(keep, toks)], toks, tol=logit_tol(cfg))
+                           attn_backend=eng.attn_backend, frontend=f)
+             for i, t, f in zip(keep, toks, fronts)], toks,
+            tol=logit_tol(cfg))
         same = sum(a == b for i, t in zip(keep, toks)
                    for a, b in zip(t, ref[i]))
         print(f"[serve] pool pressure: {same}/{sum(map(len, toks))} "

@@ -72,9 +72,11 @@ def softmax(s: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------- chunked core attention
 
 def chunked_attention(q, k, v, *, scale: float, q_block: int = 512,
-                      q_offset=0, window: int = 0):
+                      q_offset=0, window: int = 0, causal: bool = True):
     """Causal attention, scores times ``scale``; ``window > 0`` also masks
-    keys at or before ``q_pos - window`` (sliding window).  q: [B, Sq, H,
+    keys at or before ``q_pos - window`` (sliding window); ``causal=False``
+    without a window masks nothing (the encoder's self-attention and
+    cross-attention, where ``Sk`` need not equal ``Sq``).  q: [B, Sq, H,
     D]; k, v: [B, Sk, K, D].  Query blocks of ``q_block`` rows bound the
     live fp32 score tensor at [B, K, G, q_block, Sk].  ``q_offset`` is the
     absolute position of q[:, 0] relative to k[:, 0]: an int, or a [B]
@@ -93,10 +95,13 @@ def chunked_attention(q, k, v, *, scale: float, q_block: int = 512,
         qi = qi.reshape(B, n, K, G, D).float()
         qpos = qoff + i0 + torch.arange(n, device=q.device)[None, :]
         s = torch.einsum("bqkgd,bskd->bkgqs", qi, kf) * scale
-        mask = kpos[None, None, :] <= qpos[:, :, None]           # [B|1, n, Sk]
+        mask = kpos[None, None, :] <= qpos[:, :, None] if causal \
+            else None                                    # [B|1, n, Sk]
         if window:
-            mask = mask & (kpos[None, None, :] > qpos[:, :, None] - window)
-        s = torch.where(mask[:, None, None], s, NEG_INF)
+            w = kpos[None, None, :] > qpos[:, :, None] - window
+            mask = w if mask is None else mask & w
+        if mask is not None:
+            s = torch.where(mask[:, None, None], s, NEG_INF)
         a = softmax(s).to(v.dtype)
         o = torch.einsum("bkgqs,bskd->bqkgd", a.float(), vf).to(v.dtype)
         outs.append(o.reshape(B, n, H, v.shape[-1]))
@@ -160,19 +165,55 @@ def ring_chunk_attention(q, k, v, k_ring, v_ring, start, n_live, *,
 
 
 def full_attention_block(cfg: ArchConfig, p, x, freqs, *, window: int = 0,
-                         q_block=512, attend=chunked_attention):
-    """Causal self-attention over a full sequence (training and the static
-    prefill), masked to the last ``window`` keys when ``window > 0``
-    (``cfg.sliding_window`` for windowed families, ``cfg.attn_window`` for
-    the hybrid's local attention).  ``attend(q, k, v, *, scale, q_block,
-    window)`` is the attend core: ``chunked_attention`` by default, the
-    backend's ``train_attend`` in the training forward."""
+                         q_block=512, attend=None, causal: bool = True):
+    """Self-attention over a full sequence (training and the static
+    prefill), causal unless ``causal=False`` (the enc-dec encoder, which
+    still ropes q and k), masked to the last ``window`` keys when ``window
+    > 0`` (``cfg.sliding_window`` for windowed families, ``cfg.attn_window``
+    for the hybrid's local attention).  ``attend`` is the attend core:
+    ``chunked_attention`` by default; the backend's ``train_attend(q, k, v,
+    *, scale, q_block, window)`` in the training forward, or its
+    ``full_attend(q, k, v, *, scale, q_block)`` for the encoder."""
     q, k, v = qkv(cfg, p, x)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q = apply_rope(q, positions, freqs)
     k = apply_rope(k, positions, freqs)
-    o = attend(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim_),
-               q_block=q_block, window=window)
+    scale = 1.0 / math.sqrt(cfg.head_dim_)
+    if attend is None:
+        o = chunked_attention(q, k, v, scale=scale, q_block=q_block,
+                              window=window, causal=causal)
+    elif causal:
+        o = attend(q, k, v, scale=scale, q_block=q_block, window=window)
+    else:
+        o = attend(q, k, v, scale=scale, q_block=q_block)
+    return out_proj(o, p["wo"])
+
+
+def cross_kv(p, enc_out):
+    """The cross-attention K/V of encoder output enc_out [B, S, d]: no
+    rope, plus ``bk`` / ``bv`` when the layer has biases.  Returns (k, v)
+    [B, S, K, D]."""
+    k = torch.einsum("bsd,dhe->bshe", enc_out, p["wk"])
+    v = torch.einsum("bsd,dhe->bshe", enc_out, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
+
+
+def cross_attention_block(cfg: ArchConfig, p, x, kv, *, q_block=512):
+    """Decoder cross-attention: queries of x [B, T, d] (no rope, plus
+    ``bq``) against the encoder output's K/V ``kv`` (``cross_kv``: fresh,
+    or as pinned in a state slot), no mask.  The attend is the plain non-causal chunked
+    core on every backend: the TPU kernel behind the encoder's
+    self-attention computes one sequence length ``S`` for queries and keys
+    alike, and the JAX package computes this ``Sq != Sk`` attend in XLA,
+    outside any Pallas kernel.  Returns [B, T, d]."""
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    k, v = kv
+    o = chunked_attention(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim_),
+                          q_block=q_block, causal=False)
     return out_proj(o, p["wo"])
 
 

@@ -34,6 +34,11 @@ self-attention over a whole sequence, differentiable.  ``reference`` runs
 attention); ``hopper`` runs kernel K9 (``kernels.flash_attention``, the TPU
 target of that attention) wherever the layer is full-causal GQA, and the
 chunked core for sliding-window layers, where the TPU has no kernel either.
+The enc-dec encoder's bidirectional self-attention has its own core,
+``full_attend`` (``Sq == Sk``, no mask): the chunked core with
+``causal=False`` on ``reference``, K9 in full mode on ``hopper``.  The
+decoder's cross-attention (``Sq != Sk``) stays the plain non-causal core
+on both: the TPU kernel takes one sequence length for queries and keys.
 The static ``prefill`` keeps the chunked core on every backend.
 
 Selection follows ``ServeConfig.attn_backend`` (``auto`` | ``reference`` |
@@ -48,7 +53,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..kernels.flash_attention import flash_attention_train
+from ..kernels.flash_attention import (flash_attention,
+                                       flash_attention_train)
 from ..kernels.paged_attention import (mla_paged_decode,
                                       mla_paged_decode_plain,
                                       mla_paged_verify,
@@ -137,12 +143,15 @@ def prefill_meta(cfg: ArchConfig, page_size: int, tables: np.ndarray,
     count, and the physical (page, offset) write target of every chunk
     position — padding positions, and for sliding-window families the
     positions that age out of the ring before the chunk ends, routed to the
-    reserved null page.  ``T`` is the chunk width (the prefill bucket).
-    numpy in, numpy out."""
+    reserved null page.  ``T`` is the chunk's *text* width (the prefill
+    bucket); positions and write targets cover the hidden width
+    ``cfg.n_image_tokens + T`` (a vlm prepends its image prefix).  numpy
+    in, numpy out."""
     B = tables.shape[0]
-    positions = start[:, None] + np.arange(T)[None, :]            # [B, T]
+    Th = cfg.n_image_tokens + T
+    positions = start[:, None] + np.arange(Th)[None, :]           # [B, Th]
     n_live = n_tail + cfg.n_image_tokens
-    live = np.arange(T)[None, :] < n_live[:, None]
+    live = np.arange(Th)[None, :] < n_live[:, None]
     col = positions // page_size
     if cfg.sliding_window:
         # ring modulus = table width (see decode_meta); a chunk longer than
@@ -287,6 +296,13 @@ class AttentionBackend:
         return chunked_attention(q, k, v, scale=scale, q_block=q_block,
                                  window=window)
 
+    def full_attend(self, q, k, v, *, scale: float, q_block: int = 512):
+        """Bidirectional self-attention of the enc-dec encoder: q [B, S, H,
+        D], k, v [B, S, K, D], no mask, scores times ``scale``.  Returns
+        [B, S, H, D]."""
+        return chunked_attention(q, k, v, scale=scale, q_block=q_block,
+                                 causal=False)
+
     def mla_decode_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
                           tables, pos, *, scale: float, ckv_scale=None,
                           krope_scale=None):
@@ -384,7 +400,8 @@ def _on_card(q: torch.Tensor) -> None:
 @register_backend
 class HopperBackend(AttentionBackend):
     """The hand-written Hopper kernels: K9 (``flash_attention``) for the
-    full-causal self-attention of the training forward; K1
+    full-causal self-attention of the training forward and, in its full
+    mode, for the enc-dec encoder's self-attention; K1
     (``paged_decode``) for decode, K2 (``ragged_prefill``) for chunk
     prefill, K3 (``paged_verify``) for speculative verify and K4
     (``windowed_prefill``) for sliding-window chunk prefill, each in its
@@ -404,6 +421,11 @@ class HopperBackend(AttentionBackend):
         return flash_attention_train(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=True,
                                      scale=scale, q_block=q_block)
+
+    def full_attend(self, q, k, v, *, scale: float, q_block: int = 512):
+        _on_card(q)
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=False, scale=scale)
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
                       scale: float, window: int = 0, k_scale=None,

@@ -82,7 +82,12 @@ def make_serve_step(cfg: ArchConfig, kind: str,
          finiteness over both the Q and vocab axes.
        kind='prefill_paged': step(params, kv, state, meta, tokens, extras)
          -> (logits, kv, state) — batched chunk prefill straight into the
-         pool; ``meta`` from ``attn_backend.prefill_meta``.
+         pool; ``meta`` from ``attn_backend.prefill_meta``; ``extras`` the
+         frontend inputs ({"frames"} for enc-dec, {"image_embeds"} for vlm,
+         {} otherwise).
+       kind='prefill_paged_cont': the same for enc-dec chunks after the
+         first: no encoder, the cross K/V read from the state slots
+         (``extras`` unused).
 
        ``attn_backend`` selects the backend the paged kinds route through
        (``reference`` gather+attend | ``hopper`` kernels)."""
@@ -112,6 +117,11 @@ def make_serve_step(cfg: ArchConfig, kind: str,
         def step(params, kv, state, meta, tokens, extras):
             return model.prefill_paged(params, kv, state, meta, tokens,
                                        extras)
+        return step
+    if kind == "prefill_paged_cont":
+        def step(params, kv, state, meta, tokens, extras):
+            return model.prefill_paged(params, kv, state, meta, tokens,
+                                       continuation=True)
         return step
     if kind == "prefill_at":
         def step(params, batch, last_idx):

@@ -5,11 +5,15 @@ GQA attention, or MLA latent attention with ``use_mla``) and the two
 state-slot families: ``ssm`` (mamba2: a stack of SSD blocks) and
 ``hybrid`` (recurrentgemma: groups of (RG-LRU, RG-LRU, local attention)
 layers, then ``tail_blocks`` of RG-LRU layers, with a gemma-style
-``sqrt(d_model)`` embedding scale).
+``sqrt(d_model)`` embedding scale), and the ``vlm`` family (llava: the
+dense family behind an image prefix of ``n_image_tokens`` precomputed patch
+embeddings, projected by ``vision_proj`` and placed before the text at
+positions ``[0, n_image_tokens)``).
 
 ``loss`` is the LM training objective (next-token CE over the training
 forward ``forward_hidden``) of the dense and MoE families; the state-slot
-families' training forward is ROADMAP queue 1 item 13b.  Parameters keep
+families' training forward is ROADMAP queue 1 item 13b, the vlm's (its
+label mask over the image prefix) item 14b.  Parameters keep
 the JAX package's layer-stacked ``[n_layers, ...]`` leaves; the
 ``jax.lax.scan`` over layers becomes a Python loop over layer views of the
 stacked leaves.  The caches stack every layer, dense lead-in layers first,
@@ -35,7 +39,7 @@ from .layers import (apply_mlp, apply_norm, apply_rope, embed_defs,
 from .mla import (mla_cache_defs, mla_decode_block, mla_defs, mla_full_block,
                   mla_paged_cache_defs, mla_prefill_cache)
 from .moe import moe_apply, moe_decode_apply, moe_defs
-from .params import layer, stack_tree, tree_leaves
+from .params import ParamDef, layer, stack_tree, tree_leaves
 from .rglru import (rglru_block, rglru_cache_defs, rglru_decode_block,
                     rglru_defs)
 from .ssm import (ssm_block, ssm_cache_defs, ssm_decode_block, ssm_defs,
@@ -106,6 +110,9 @@ class DecoderLM:
         cfg = self.cfg
         defs = {"embed": embed_defs(cfg),
                 "final_norm": norm_defs(cfg, cfg.d_model)}
+        if cfg.n_image_tokens:
+            defs["vision_proj"] = ParamDef((cfg.frontend_dim, cfg.d_model),
+                                           (None, "embed"))
         if cfg.family == "ssm":
             defs["blocks"] = stack_tree(self._ssm_block_defs(), cfg.n_layers)
         elif cfg.family == "hybrid":
@@ -152,6 +159,16 @@ class DecoderLM:
         if self.cfg.family == "hybrid":
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         return x
+
+    def _with_image(self, params, x, extras):
+        """A vlm's hidden sequence: the image prefix (``image_embeds`` [B,
+        n_img, frontend_dim] in the activation dtype, times
+        ``vision_proj``) before the text embeddings x [B, T, d]; x itself
+        for the other families."""
+        if not self.cfg.n_image_tokens:
+            return x
+        img = extras["image_embeds"].to(x.dtype) @ params["vision_proj"]
+        return torch.cat([img, x], dim=1)
 
     def _block(self, p, x, attend, moe):
         """One pre-norm residual block; ``attend(p_attn, h)`` returns the
@@ -228,6 +245,10 @@ class DecoderLM:
         "aux", "tokens"}); MoE models add ``router_aux_coef * aux /
         n_layers`` to the loss."""
         cfg = self.cfg
+        if cfg.n_image_tokens:
+            raise NotImplementedError(
+                f"{cfg.name}: the vlm training loss (its label mask over the "
+                "image prefix) is not ported yet: ROADMAP queue 1 item 14b")
         tokens = batch["tokens"]
         x = embed_tokens(params["embed"], tokens)
         hidden, aux = self.forward_hidden(params, x)
@@ -308,7 +329,9 @@ class DecoderLM:
             last = x[:, -1] if logits_idx is None \
                 else x[torch.arange(B, device=x.device), logits_idx]
             return lm_logits(cfg, params["embed"], last), cache
-        x = embed_tokens(params["embed"], tokens)
+        x = self._with_image(params, embed_tokens(params["embed"], tokens),
+                             batch)
+        S = x.shape[1]
         freqs = self._freqs(x.device)
         positions = torch.arange(S, device=x.device)[None, :]
         ks, vs = [], []
@@ -543,8 +566,11 @@ class DecoderLM:
         if w:
             return CacheFamilySpec(kinds=(CacheSpec("windowed_kv", window=w),),
                                    paged=True, window=w)
+        # vlm prompts are image-conditioned: equal token prefixes do not
+        # mean equal K/V, so the radix cache must not share them
         return CacheFamilySpec(kinds=(CacheSpec("paged_kv"),), paged=True,
-                               prefix_cacheable=True)
+                               prefix_cacheable=not cfg.n_image_tokens,
+                               prefix_tokens=cfg.n_image_tokens)
 
     def paged_cache_defs(self, num_pages: int, page_size: int,
                          kv_dtype: str = "bf16"):
@@ -558,11 +584,12 @@ class DecoderLM:
         return stack_tree(per(self.cfg, num_pages, page_size,
                               kv_dtype=kv_dtype), self.cfg.n_layers)
 
-    def state_slot_defs(self, n_slots: int, max_len: int):
+    def state_slot_defs(self, n_slots: int, max_len: int, enc_len: int = 0):
         """Defs of the per-request state-slot pool ({} for the paged
         families): ``cache_defs(n_slots, max_len)``, so the slot axis is
         axis 1 of every layer-stacked leaf and the contiguous decode path
-        runs on the pool as it is."""
+        runs on the pool as it is.  ``enc_len`` is the enc-dec model's and
+        unused here."""
         return self.cache_defs(n_slots, max_len) if self.recurrent else {}
 
     def decode_paged(self, params, kv, state, meta, tokens):
@@ -597,13 +624,18 @@ class DecoderLM:
         the model's device; tokens: [B, T] int, right-padded.  With
         ``start == 0`` this is a whole (or first-chunk) prompt; with
         ``start > 0`` the first ``start`` positions are read from pages
-        already resident — radix-cache hits and earlier chunks alike.
-        Returns (last-live-token logits [B, V], kv, state)."""
+        already resident — radix-cache hits and earlier chunks alike.  A
+        vlm's hidden sequence is its image prefix (``extras["image_embeds"]``
+        [B, n_img, frontend_dim], always live, at positions ``[0, n_img)``:
+        a vlm prompt is never chunked) then the tokens; ``meta["n_live"]``
+        counts both.  Returns (last-live-token logits [B, V], kv,
+        state)."""
         cfg = self.cfg
         if self.recurrent:
             return self._prefill_state_slots(params, kv, state, meta["slots"],
                                              meta["n_tail"], tokens)
-        x = embed_tokens(params["embed"], tokens)
+        x = self._with_image(params, embed_tokens(params["embed"], tokens),
+                             extras)
         freqs = self._freqs(x.device)
         B = x.shape[0]
         for i, p in enumerate(self._layers(params)):

@@ -77,6 +77,15 @@ into a free slot, and decoding resumes where it stopped
 (``engine.state_restores``).  The fault injector's NaN poison and the
 quarantine scrub fill the slot's state row.
 
+**Frontend inputs.**  An enc-dec arch (seamless-m4t) conditions each
+request on ``ServeConfig.enc_len`` frames of encoder input, a vlm (llava)
+on ``n_image_tokens`` image embeddings: both are stubs drawn by
+``_synthetic_frontend`` from (engine seed, request id), uploaded once a
+first-chunk prefill.  The enc-dec prefill encodes them and pins the
+request's cross K/V in its ``StateSlotPool`` slot; its continuation chunks
+(``prefill_paged_cont``) read the pinned rows and run no encoder.  A vlm's
+image prefix takes the first ``n_image_tokens`` positions of its pages.
+
 ``generate_static`` is the static-batching baseline kept for verification:
 contiguous per-request KV caches, the whole batch padded together and
 decoded until its slowest member finishes.
@@ -189,11 +198,41 @@ def _poison_pages(kv, pages: List[int]) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _paged_steps(cfg: ArchConfig, attn_backend: str):
-    """(prefill_paged, decode_paged, verify_paged) step functions per
-    (config, backend)."""
-    return (make_serve_step(cfg, "prefill_paged", attn_backend),
-            make_serve_step(cfg, "decode_paged", attn_backend),
-            make_serve_step(cfg, "verify_paged", attn_backend))
+    """(prefill_paged, prefill_paged_cont, decode_paged, verify_paged) step
+    functions per (config, backend)."""
+    return tuple(make_serve_step(cfg, kind, attn_backend) for kind in (
+        "prefill_paged", "prefill_paged_cont", "decode_paged",
+        "verify_paged"))
+
+
+def _synthetic_frontend(cfg: ArchConfig, scfg: ServeConfig, seed: int,
+                        rid: int) -> Optional[np.ndarray]:
+    """Deterministic per-request frontend input (enc-dec frames [enc_len,
+    frontend_dim], vlm image embeddings [n_image_tokens, frontend_dim]):
+    standard normals from ``np.random.default_rng([seed, rid])`` rounded to
+    bf16 (held in fp32), a fixed shape, so every serving path (any batch
+    shape, any engine) sees the same values.  None for text-only archs."""
+    if cfg.enc_dec:
+        n = scfg.enc_len
+    elif cfg.n_image_tokens:
+        n = cfg.n_image_tokens
+    else:
+        return None
+    x = np.random.default_rng([seed, rid]).standard_normal(
+        (n, cfg.frontend_dim), np.float32)
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+def _frontend_batch(cfg: ArchConfig, rows: List[np.ndarray], B: int,
+                    device) -> Dict[str, torch.Tensor]:
+    """The frontend inputs of a batch, rows past ``len(rows)`` zero, as
+    bf16 on ``device`` under the model's key ("frames" or
+    "image_embeds")."""
+    out = torch.zeros((B,) + rows[0].shape, dtype=torch.bfloat16)
+    for i, r in enumerate(rows):
+        out[i] = torch.from_numpy(r)
+    key = "frames" if cfg.enc_dec else "image_embeds"
+    return {key: out.to(device)}
 
 
 def _pow2_pad(n: int, cap: int) -> int:
@@ -251,8 +290,8 @@ class Engine:
         self._next_rid = 0
         self.attn_backend = resolve_backend(self.scfg.attn_backend,
                                             self.device)
-        self._prefill, self._decode, self._verify = _paged_steps(
-            cfg, self.attn_backend)
+        self._prefill, self._prefill_cont, self._decode, self._verify = \
+            _paged_steps(cfg, self.attn_backend)
         # speculative decoding: draft length after the family gate and the
         # weight-free prompt-lookup proposer (replaceable, e.g. by tests)
         self.spec_k = speculation_k(cfg, self.spec, self.scfg)
@@ -773,13 +812,25 @@ class Engine:
 
     # -------------------------------------------------------------- prefill
 
-    def _prefill_launch(self, rows: List[Tuple[int, Any, int, int]]):
+    def _extras(self, rids: List[int], B: int) -> Dict[str, torch.Tensor]:
+        """Frontend inputs of a padded prefill batch on the engine's device
+        ({} for text-only archs)."""
+        if not (self.cfg.enc_dec or self.cfg.n_image_tokens):
+            return {}
+        return _frontend_batch(
+            self.cfg, [_synthetic_frontend(self.cfg, self.scfg, self.seed, r)
+                       for r in rids], B, self.device)
+
+    def _prefill_launch(self, rows: List[Tuple[int, Any, int, int]],
+                        continuation: bool = False):
         """Launch one batched chunk-prefill call.  ``rows`` holds
         (slot_idx, req, n_done, n_chunk): each row prefills prompt tokens
         [n_done, n_done + n_chunk) into its bound pages.  The batch is padded
         to a pow2 row count and the tokens to a bucket, so the set of step
-        shapes stays bounded.  Returns the per-row last-real-token logits,
-        still on the device."""
+        shapes stays bounded.  ``continuation`` marks a batch of chunks
+        after the first: no frontend inputs (a vlm never chunks; enc-dec
+        reads its pinned cross K/V instead of encoding again).  Returns the
+        per-row last-real-token logits, still on the device."""
         bucket = self.scfg.bucket_of(max(c for _, _, _, c in rows))
         B = _pow2_pad(len(rows), self.scfg.max_slots)
         toks = np.zeros((B, bucket), np.int32)
@@ -812,9 +863,14 @@ class Engine:
             self.cfg, ps, tables[:, :width], slots, start, n_tail, bucket),
             self.device)
         tokens = torch.as_tensor(toks, device=self.device)
+        extras = {} if continuation \
+            else self._extras([req.rid for _, req, _, _ in rows], B)
+        step = self._prefill_cont if continuation and self.cfg.enc_dec \
+            else self._prefill
         with self.tracer.annotate("prefill_step"):
-            logits, self.pool.kv, _ = self._prefill(
-                self.params, self.pool.kv, self._state(), meta, tokens, {})
+            logits, self.pool.kv, _ = step(
+                self.params, self.pool.kv, self._state(), meta, tokens,
+                extras)
         self._m_padded.inc(B * bucket)
         self._m_actual.inc(sum(c for _, _, _, c in rows))
         return logits
@@ -867,7 +923,7 @@ class Engine:
             n_done = slot.n_filled
             n_chunk = self.sched._chunk_len(n_done, len(slot.req.prompt))
             rows.append((i, slot.req, n_done, n_chunk))
-        out = self._prefill_launch(rows)
+        out = self._prefill_launch(rows, continuation=True)
         self._m_prefill_steps.inc()
         self._m_chunk_steps.inc()
         return rows, out
@@ -1107,9 +1163,8 @@ def _static_steps(cfg: ArchConfig):
 
 def generate_static(cfg: ArchConfig, params, prompts: Sequence[Sequence[int]],
                     max_new_tokens=16, scfg: Optional[ServeConfig] = None,
-                    *, batch_size: int = 1,
-                    eos_id: Optional[int] = None) -> Tuple[List[List[int]],
-                                                           Dict]:
+                    *, batch_size: int = 1, eos_id: Optional[int] = None,
+                    seed: int = 0) -> Tuple[List[List[int]], Dict]:
     """Static-batching reference on the device the params live on:
     contiguous KV caches (a ring of ``min(window, max_len)`` entries for
     sliding-window families; conv taps and recurrent state, and the
@@ -1118,13 +1173,16 @@ def generate_static(cfg: ArchConfig, params, prompts: Sequence[Sequence[int]],
     state-slot families: to the batch max), each batch decoded until its
     slowest request is done.  ``batch_size=1`` is the exact single-request
     greedy baseline the engine's output is verified against.  ``eos_id``
-    defaults to ``scfg.eos_id``."""
+    defaults to ``scfg.eos_id``.  Enc-dec and vlm archs get the frontend
+    inputs ``_synthetic_frontend`` draws from (``seed``, request index):
+    those an engine of that seed draws for the same request ids."""
     scfg = scfg or ServeConfig()
     eos = scfg.eos_id if eos_id is None else eos_id
     budgets = ([max_new_tokens] * len(prompts)
                if isinstance(max_new_tokens, int) else list(max_new_tokens))
     prefill, decode = _static_steps(cfg)
     device = params["embed"]["tok"].device
+    n_img = cfg.n_image_tokens
 
     all_tokens: List[Optional[List[int]]] = [None] * len(prompts)
     latencies: List[float] = [0.0] * len(prompts)
@@ -1148,16 +1206,24 @@ def generate_static(cfg: ArchConfig, params, prompts: Sequence[Sequence[int]],
         for r, i in enumerate(idxs):
             toks[r, :lens[r]] = prompts[i]
         batch = {"tokens": torch.as_tensor(toks, device=device)}
-        last_idx = torch.as_tensor([n - 1 for n in lens], device=device)
+        if cfg.enc_dec or n_img:
+            batch.update(_frontend_batch(
+                cfg, [_synthetic_frontend(cfg, scfg, seed, i) for i in idxs],
+                B, device))
+        # a vlm's hidden sequence is its image prefix, then the text
+        last_idx = torch.as_tensor([n_img + n - 1 for n in lens],
+                                   device=device)
         logits, cache = prefill(params, batch, last_idx)
         # grow the contiguous cache to max_len (only a sequence or ring
         # axis is shorter than the fresh cache's)
         cache.pop("pos")
-        fresh = init_cache(cfg, B, scfg.max_len, device)
+        fresh = init_cache(cfg, B, n_img + scfg.max_len, device,
+                           **({"enc_len": scfg.enc_len} if cfg.enc_dec
+                              else {}))
         tree_map(lambda f, c: f[tuple(slice(0, n) for n in c.shape)]
                  .copy_(c), fresh, cache)
-        cache = {**fresh, "pos": torch.as_tensor(lens, dtype=torch.int32,
-                                                 device=device)}
+        cache = {**fresh, "pos": torch.as_tensor(
+            [n_img + n for n in lens], dtype=torch.int32, device=device)}
         cur = logits.argmax(-1).to(torch.int32)
         gen = [cur.cpu().numpy()]
         t_first = time.perf_counter() - t0       # batch's first tokens exist

@@ -4,8 +4,9 @@
 on the model's device and are written in place by the model steps.)
 
 ``PagedKVPool`` — fixed-size pages, free-list allocation, refcounts.
-``StateSlotPool`` — one fixed-size recurrent-state slot per decode row, with
-the preemption checkpoint/restore (state-slot families).
+``StateSlotPool`` — one fixed-size state slot per decode row: the
+recurrent state of the state-slot families, with the preemption
+checkpoint/restore, or an enc-dec request's pinned cross K/V.
 
 The pool replaces the old ``pad_cache_to`` whole-cache zero-pad copy with
 vLLM/MaxText-style paging: the token-addressable cache for *all* live
@@ -254,7 +255,9 @@ class StateSlotPool:
         self.cfg = cfg
         self.scfg = scfg
         self.device = torch.device(device)
-        defs = build_model(cfg).state_slot_defs(scfg.max_slots, scfg.max_len)
+        # enc-dec slots pin ``enc_len`` encoder positions of cross K/V
+        defs = build_model(cfg).state_slot_defs(scfg.max_slots, scfg.max_len,
+                                                enc_len=scfg.enc_len)
         self.state: Dict[str, Any] = init_tree(defs, 0, self.device)
         self.n_slots = scfg.max_slots
         for _, leaf in tree_leaves(self.state):

@@ -36,6 +36,7 @@ import torch
 from ..configs.base import ArchConfig, ServeConfig
 from ..models.attn_backend import decode_meta, meta_to_device, prefill_meta
 from ..models.registry import build_model
+from .engine import _frontend_batch
 from .kv_pool import PagedKVPool, StateSlotPool
 
 # per-arch max-abs-logit-error bounds of the int8 gate (the JAX package's
@@ -54,16 +55,26 @@ def logit_tol(cfg: ArchConfig) -> float:
 def replay_logits(cfg: ArchConfig, scfg: ServeConfig, params,
                   prompt: Sequence[int], gen: Sequence[int], *,
                   attn_backend: str = "reference",
-                  kv_dtype: Optional[str] = None) -> np.ndarray:
+                  kv_dtype: Optional[str] = None,
+                  frontend: Optional[np.ndarray] = None) -> np.ndarray:
     """Teacher-force one request through single-request paged steps on the
     params' device: prefill ``prompt`` into a fresh one-request pool of
     ``kv_dtype`` pages (``scfg.kv_dtype`` by default; for the state-slot
-    families a one-slot ``StateSlotPool``), then decode feeding
-    ``gen[:-1]``, collecting the logits that predicted each ``gen[i]``.
-    Returns fp32 [len(gen), vocab_padded]."""
+    families, and for enc-dec's pinned cross K/V, a one-slot
+    ``StateSlotPool``), then decode feeding ``gen[:-1]``, collecting the
+    logits that predicted each ``gen[i]``.  ``frontend`` is the request's
+    frontend input for enc-dec and vlm archs (what the engine drew for it,
+    ``engine._synthetic_frontend``).  Returns fp32 [len(gen),
+    vocab_padded]."""
     if not gen:
         return np.zeros((0, cfg.vocab_padded), np.float32)
     device = params["embed"]["tok"].device
+    extras = {}
+    if cfg.enc_dec or cfg.n_image_tokens:
+        if frontend is None:
+            raise ValueError(f"{cfg.name}: a replay needs the request's "
+                             "frontend input")
+        extras = _frontend_batch(cfg, [frontend], 1, device)
     sub = dataclasses.replace(scfg, max_slots=1, num_pages=0,
                               kv_dtype=kv_dtype or scfg.kv_dtype)
     model = build_model(cfg, attn_backend)
@@ -85,11 +96,13 @@ def replay_logits(cfg: ArchConfig, scfg: ServeConfig, params,
     tokens = np.zeros((1, Tp), np.int32)
     tokens[0, :T] = prompt
     logits, kv, _ = model.prefill_paged(
-        params, pool.kv, state, meta, torch.as_tensor(tokens, device=device))
+        params, pool.kv, state, meta, torch.as_tensor(tokens, device=device),
+        extras)
     out = [logits[0].float().cpu().numpy()]
+    T0 = T + pool.spec.prefix_tokens      # a vlm's text follows its image
     for i, tok in enumerate(gen[:-1]):
         meta = meta_to_device(decode_meta(
-            cfg, sub.page_size, tables, np.array([T + i], np.int32)), device)
+            cfg, sub.page_size, tables, np.array([T0 + i], np.int32)), device)
         logits, kv, _ = model.decode_paged(
             params, kv, state, meta, torch.tensor([tok], device=device))
         out.append(logits[0].float().cpu().numpy())
@@ -155,21 +168,24 @@ def dual_gate_verify(cfg: ArchConfig, scfg: ServeConfig, params,
                      prompts: Sequence[Sequence[int]],
                      engine_tokens: Sequence[Sequence[int]], *,
                      attn_backend: str = "reference",
-                     tol: Optional[float] = None) -> Dict:
+                     tol: Optional[float] = None,
+                     frontends: Optional[Sequence[np.ndarray]] = None) -> Dict:
     """The int8 gate over every request of an int8 engine run: replay the
     engine's tokens through an int8 and a bf16 pool (same params, same
     backend) and hold them to each other.  ``report["ok"]`` is replay
     fidelity (the int8 replay's greedy tokens are the engine's), bounded
     error (``max |int8 - bf16| <= tol``, ``logit_tol`` by default) and no
     mismatch against the bf16 greedy token where its margin exceeds twice
-    that error."""
+    that error.  ``frontends`` are the requests' frontend inputs (enc-dec
+    and vlm archs)."""
     tol = logit_tol(cfg) if tol is None else tol
-    li = [replay_logits(cfg, scfg, params, p, g, attn_backend=attn_backend,
-                        kv_dtype="int8")
-          for p, g in zip(prompts, engine_tokens)]
-    lb = [replay_logits(cfg, scfg, params, p, g, attn_backend=attn_backend,
-                        kv_dtype="bf16")
-          for p, g in zip(prompts, engine_tokens)]
+    fronts = list(frontends) if frontends is not None \
+        else [None] * len(prompts)
+    li, lb = ([replay_logits(cfg, scfg, params, p, g,
+                             attn_backend=attn_backend, kv_dtype=dt,
+                             frontend=f)
+               for p, g, f in zip(prompts, engine_tokens, fronts)]
+              for dt in ("int8", "bf16"))
     report = dual_gate(lb, li, engine_tokens, tol=tol)
     replay_bad = sum(bool(len(g)) and not np.array_equal(
         np.argmax(x, axis=-1), np.asarray(g))

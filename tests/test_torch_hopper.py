@@ -1237,3 +1237,111 @@ def test_state_slot_engine_checkpoint_restore_on_the_card(cuda, name):
         top2 = np.sort(r, axis=-1)[:, -2:]
         high = top2[:, 1] - top2[:, 0] > 2 * 0.25
         assert (r.argmax(-1) == np.asarray(t))[high].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,G,D", [(16, 1, 64), (8, 7, 128)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_frontend_family_kernel_shapes_match_plain(cuda, K, G, D, int8):
+    """The shapes the enc-dec and vlm families give K1, K2 and K3:
+    seamless-m4t's 16 KV heads of 64 with one query head each (G = 1: one
+    live row in K1's 16-row block, 64-row K2 tiles of 64 tokens of one
+    head) and llava's 8 KV x 7 query heads of 128; K2 on chunks of 24 and
+    of 100 tokens (neither a multiple of 64), K3 at Q = 5."""
+    rng = np.random.RandomState(K + G + int8)
+    ps = 16
+    k, v, t = _pool(rng, [300, 17, 1, 164], ps, K, D, 20, cuda)
+    kw = dict(scale=D ** -0.5)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+    q = torch.from_numpy(rng.randn(4, K * G, D).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    pos = torch.tensor([299, 16, 0, 163], dtype=torch.int32, device=cuda)
+    assert _within_one_ulp(paged_decode(q, k, v, t, pos, **kw),
+                           paged_decode_plain(q, k, v, t, pos, **kw))
+    _prefill_matches_plain(rng, k, v, t, G, D, kw, cuda)
+    qp = torch.from_numpy(rng.randn(2, 100, K * G, D).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    st = torch.tensor([200, 64], dtype=torch.int32, device=cuda)
+    tt = t[[0, 3]].contiguous()
+    assert _within_one_ulp(ragged_prefill(qp, k, v, tt, st, **kw),
+                           ragged_prefill_plain(qp, k, v, tt, st, **kw))
+    Q = 5
+    qv = torch.from_numpy(rng.randn(4, Q, K * G, D).astype(np.float32)) \
+        .bfloat16().to(cuda)
+    pv = torch.tensor([290, 10, 0, 150], dtype=torch.int32, device=cuda)
+    n_q = torch.tensor([5, 3, 1, 4], dtype=torch.int32, device=cuda)
+    assert _within_one_ulp(paged_verify(qv, k, v, t, pv, n_q, **kw),
+                           paged_verify_plain(qv, k, v, t, pv, n_q, **kw))
+
+
+@pytest.mark.cuda
+def test_flash_full_mode_at_the_encoder_heads(cuda):
+    """K9 in its full (non-causal) mode at seamless-m4t's encoder heads (16
+    query = 16 KV heads of 64), S = 1000 (a masked key tail), within one
+    bf16 ulp of the row's max of its plain version."""
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v = (torch.randn((2, 1000, 16, 64), generator=gen,
+                           device=cuda).bfloat16() for _ in range(3))
+    assert _within_one_ulp(flash_attention(q, k, v, causal=False),
+                           attention_plain(q, k, v, causal=False))
+
+
+def _frontend_arch(name):
+    """Reduced seamless-m4t at G = 1 with heads of 64, or reduced llava at
+    G = 7 with heads of 128: the full-width models' kernel shapes."""
+    if name == "seamless-m4t-large-v2":
+        return reduced(get_arch(name), d_model=256, n_heads=4, n_kv_heads=4,
+                       frontend_dim=256)
+    return reduced(get_arch(name), d_model=512, n_heads=14, n_kv_heads=2,
+                   head_dim=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kv_dtype", [
+    ("seamless-m4t-large-v2", "bf16"), ("seamless-m4t-large-v2", "int8"),
+    ("llava-next-34b", "bf16")])
+def test_frontend_family_engines_pass_the_dual_gate(cuda, name, kv_dtype):
+    """The enc-dec (frames encoded through K9's full mode, continuation
+    chunks reading the pinned cross K/V) and vlm (an image prefix through
+    K2) engines on the hopper backend: every request's tokens replayed on
+    hopper and on reference (the same pool dtype, the request's frontend
+    input) pass the dual gate; for llava the n-gram speculative stream
+    equals the plain one."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serving.engine import _synthetic_frontend
+    cfg = _frontend_arch(name)
+    kw = dict(page_size=16, max_slots=4, max_len=128, kv_dtype=kv_dtype,
+              prefill_chunk_tokens=32)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist()
+               for n in (5, 90, 40, 17)]
+    with torch.no_grad():
+        params = init_params(cfg, 0, cuda)
+        n9 = flash_attention.launches
+        eng = Engine(cfg, ServeConfig(attn_backend="hopper", **kw), params,
+                     device=cuda)
+        tokens = [r.tokens for r in eng.run_offline(prompts, 8)[0]]
+        m = eng.metrics
+        if cfg.enc_dec:
+            first = m.value("engine.prefill_steps") \
+                - m.value("engine.chunked_prefill_steps")
+            assert m.value("engine.chunked_prefill_steps") > 0
+            assert flash_attention.launches - n9 == first * cfg.n_enc_layers
+        else:
+            assert m.value("engine.chunked_prefill_steps") == 0
+            spec = Engine(cfg, ServeConfig(attn_backend="hopper",
+                                           speculate_tokens=4, **kw),
+                          params, device=cuda).run_offline(prompts, 8)[0]
+            assert [r.tokens for r in spec] == tokens
+        scfg = ServeConfig(**kw)
+        fronts = [_synthetic_frontend(cfg, scfg, 0, i)
+                  for i in range(len(prompts))]
+        ref, test = ([replay_logits(cfg, scfg, params, p, t,
+                                    attn_backend=b, frontend=f)
+                      for p, t, f in zip(prompts, tokens, fronts)]
+                     for b in ("reference", "hopper"))
+    rep = dual_gate(ref, test, tokens, tol=0.25)
+    assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}
