@@ -211,7 +211,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    name and power limit, and the launches of K1-K9 over the phase (none
    is expected: the JAX package runs no Pallas kernel there either).
 
-22. the frontend-conditioned families (run last), random weights from
+22. the frontend-conditioned families (run before 23), random weights from
    ``--seed``, hopper backend: (a) at their new shapes, each against its
    plain version, timed beside SDPA with its bound: K1 and K2, bf16 and
    int8, at seamless-m4t's 16 KV heads of 64 with one query head each
@@ -236,6 +236,38 @@ Phases, each printing its own lines; any failed check exits non-zero:
    run, and the device's busy share of a rerun of the bf16 runs traced on
    the device alone (their ~10^5 host ops a rerun take the profiler
    minutes to record).
+
+23. the training forward of the last four families (run last), random
+   weights from ``--seed``: (c) K9 at their training shapes against its
+   plain version (``flash_case``): causal at llava's 56 / 8 heads of 128
+   over S 1088 (576 image + 512 text positions), full at the seamless
+   encoder's 16 / 16 heads of 64 over S 512, causal at its decoder's; (b)
+   one step's loss and gradients from the same parameters and batch:
+   seamless-m4t-large-v2 and llava-next-34b (2 of 60 layers) on hopper
+   against reference, |dloss| within 0.01 and every leaf within 0.1
+   relative L2 (phase 18's bounds; the cross-attention's key bias, whose
+   gradient is zero in exact arithmetic, within 0.01 of the query bias's
+   norm instead), seamless gated at 6 + 6 layers; at its full depth the
+   two bf16 runs are printed, and a witness holds both against the
+   reference in fp32: hopper no further from it than 1.25x the bf16
+   reference, at the median and the worst leaf (the reference with its
+   cores' probabilities kept in fp32, as K9 keeps them, printed beside);
+   mamba2-780m (2 layers) and recurrentgemma-2b (3, one local-attention
+   layer), whose two backends run the same ops, in fp32 on the card
+   against the CPU at B 1, S 128, within 1e-4 and 1e-3;
+   (a) 3 AdamW steps of each family through ``make_train_step(...,
+   attn_backend="hopper")`` on 3 batches of B 2, S 512 text tokens,
+   frames [2, 512, 1024] for seamless and 576 image embeddings for llava,
+   drawn with numpy from ``--seed``: mamba2-780m and seamless-m4t at full
+   depth, recurrentgemma-2b at 8 of 26 layers and llava at 2 of 60 (the
+   depth cuts are for memory: the
+   out-of-place AdamW step holds two optimizer states, ~32 B a
+   parameter), every loss finite, with step time, tokens/s and peak
+   memory, and K9's launches by mode counted around each run: full D 64
+   once an encoder layer a step and causal D 64 once a decoder layer
+   (seamless), causal D 128 once a layer (llava), none for the other
+   two.  The K9-full entry adds the encoder's launches, the K9-D128 entry
+   counts llava's and the K9-G1 entry the seamless decoder's.
 
 In phases 7, 10, 13 and 16 a verify step's rows must equal decode steps
 at ``pos + j`` bit for bit, and in 10, 13 and 16 every speculative stream
@@ -2766,7 +2798,7 @@ def flash_case(torch, timer, gen, label, B, S, H, K, D, causal, dt):
     within one bf16 ulp of the row's max, fp32 within ``K9_FP32_TOL``);
     bit for bit, each request alone against its rows in the batch and,
     causal, rows 0..999 of the inputs cut to S = 1000 against the full
-    call's; timed beside the plain version and
+    call's (S // 2 where S <= 1000); timed beside the plain version and
     ``scaled_dot_product_attention`` on K/V repeated to the query heads
     (the yardstick; the port never calls it), with the function's bound
     and, in bf16, the two-term body's.  Returns the numbers."""
@@ -2795,7 +2827,7 @@ def flash_case(torch, timer, gen, label, B, S, H, K, D, causal, dt):
         q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal))
     prefix = None
     if causal:
-        cut = 1000
+        cut = 1000 if S > 1000 else S // 2
         prefix = torch.equal(flash_attention(
             *(t[:, :cut].contiguous() for t in (q, k, v)),
             causal=True), got[:, :cut])
@@ -2991,10 +3023,15 @@ def record_logits(torch, eng):
     steps so that they keep, for every request, the logits each of its
     tokens was drawn from (copied to the host): {rid: [logits row, ...]}.
     The steps compute what the engine's own do (the model's step, argmax,
-    finite flags)."""
+    finite flags).  The steps reach ``eng`` through a weak proxy: they
+    are stored on it, so a strong reference would make a cycle that keeps
+    the engine's pools on the card after ``del eng`` until the cyclic
+    collector runs."""
+    import weakref
     from repro_torch.models.registry import build_model
     model = build_model(eng.cfg, eng.attn_backend)
     rec = {}
+    eng = weakref.proxy(eng)
 
     def recording(prefill):
         def prefill_rec(params, kv, state, meta, tokens, extras):
@@ -3397,6 +3434,350 @@ def phase_frontend_families(torch, rng, timer, seed):
     torch.cuda.empty_cache()
     rep["seconds"] = time.perf_counter() - t0
     out["llava-next-34b"] = rep
+    out["seconds"] = time.perf_counter() - t_phase
+    return counts, kern, out
+
+
+# phase 23: the training forward of the last four families.  recurrentgemma
+# is cut for memory: the out-of-place AdamW step holds the old and the new
+# optimizer state (fp32 master, mu, nu) beside the fp32 gradients, ~32 B a
+# parameter, 113.6 GB at its full 3.55 B parameters; 8 of 26 layers (2
+# groups of (RG-LRU, RG-LRU, local attention) and the 2 tail layers) hold
+# 2.0 B.  llava-next-34b keeps 2 of 60 layers (2.04 B parameters, 65 GB).
+TF_B, TF_S, TF_STEPS = 2, 512, 3
+TF_LAYERS = {"recurrentgemma-2b": 8, "llava-next-34b": 2}
+TF_CHECK_B, TF_CHECK_S = 1, 128         # (b) cuda vs CPU, fp32
+TF_CHECK_LAYERS = {"mamba2-780m": 2, "recurrentgemma-2b": 3}
+TF_CHECK_LOSS_TOL = 1e-4                # (b) |loss cuda - loss CPU|
+TF_CHECK_GRAD_TOL = 1e-3                # (b) per-leaf rel L2, cuda vs CPU
+TF_ZERO_TOL = 1e-2                      # (b) |grad bk| / |grad bq|, enc-dec
+# (b) seamless's hopper-vs-reference gate runs at 6 + 6 layers: at 24 + 24
+# the two bf16 runs part by a median 0.099, worst 0.114 on an H100 (6 + 6:
+# 0.079 / 0.087; llava's 2 layers: 0.010 / 0.011), and each lies ~0.11
+# from the reference in fp32 (K9 0.112 / 0.124, reference 0.107 / 0.124).
+# So at full depth the witness (``fp32_witness``) holds hopper's distance
+# from fp32 to the bf16 reference's, within a quarter at the median and at
+# the worst leaf (JAX's own bf16 seamless gradients part from its fp32
+# ones ~6x as far as llava's: tests/test_torch_train_families.py)
+TF_REF_LAYERS = 6
+TF_WITNESS_RATIO = 1.25
+
+
+def family_batch(torch, cfg, B, S, seed, device):
+    """A training batch drawn with numpy from ``seed``: tokens [B, S] and
+    the arch's frontend input as JAX ``registry.input_defs`` declares it
+    -- frames [B, S, frontend_dim] (enc-dec) or image embeddings [B,
+    n_image_tokens, frontend_dim] (vlm) -- standard normals rounded to
+    bf16, as the engine's ``_synthetic_frontend`` draws them."""
+    rng = np.random.default_rng([seed, 23])
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                     device=device)}
+    n = S if cfg.enc_dec else cfg.n_image_tokens
+    if n:
+        x = rng.standard_normal((B, n, cfg.frontend_dim), np.float32)
+        key = "frames" if cfg.enc_dec else "image_embeds"
+        out[key] = torch.from_numpy(x).to(device=device,
+                                          dtype=torch.bfloat16)
+    return out
+
+
+def grad_gap(torch, got, want):
+    """(|dloss|, worst per-leaf rel L2, its leaf, median, zero-leaf ratio)
+    of two ``value_and_grad`` results, on ``got``'s device.  The enc-dec
+    cross-attention's key bias has a zero gradient in exact arithmetic (q
+    . bk is the same for every key, and the softmax cancels it): it is
+    left out of the relative errors, and the ratio returned is the larger
+    of its gradient's norm over the query bias's on either side (None
+    without such a leaf)."""
+    from repro_torch.models.params import tree_leaves
+    g, w = dict(tree_leaves(got[2])), dict(tree_leaves(want[2]))
+
+    def norm(t):
+        return t.float().norm().item()
+
+    rel, zero = {}, None
+    for p, a in g.items():
+        b = w[p].to(a.device)
+        if p.endswith("cross_attn/bk"):
+            q = p[:-2] + "bq"
+            zero = max(norm(a) / norm(g[q]), norm(b) / norm(w[q]))
+            continue
+        rel[p] = norm(a.float() - b.float()) / max(norm(b), 1e-30)
+    worst = max(rel, key=rel.get)
+    return (abs(got[0].item() - want[0].item()), rel[worst], worst,
+            float(np.median(list(rel.values()))), zero)
+
+
+def vs_reference(torch, name, cfg, params, batch, gate, witness=False):
+    """Phase 23 (b) for one enc-dec or vlm config: one step's loss and
+    gradients on hopper against reference from the same parameters and
+    batch, printed, and failing the run beyond ``TR_LOSS_TOL`` /
+    ``TR_GRAD_TOL`` (the enc-dec key bias's gradient, zero exactly, within
+    ``TF_ZERO_TOL`` of the query bias's) when ``gate``; ``witness``: then
+    ``fp32_witness`` on the same step.  Returns the numbers."""
+    from repro_torch.core.mapreduce import value_and_grad
+    from repro_torch.models.registry import build_model
+    got, want = (value_and_grad(build_model(cfg, be).loss, params, batch)
+                 for be in ("hopper", "reference"))
+    dloss, worst, leaf, med, zero = grad_gap(torch, got, want)
+    ok = dloss <= TR_LOSS_TOL and worst <= TR_GRAD_TOL \
+        and (zero is None or zero <= TF_ZERO_TOL)
+    print(f"[smoke] train {name}: one step at B={TF_B}, hopper (K9, fp32 p) "
+          f"vs reference (chunked, bf16 p): loss {got[0].item():.6f} vs "
+          f"{want[0].item():.6f}, |dloss| {dloss:.3g} (tol {TR_LOSS_TOL}); "
+          f"gradients rel L2 median {med:.3g}, worst {worst:.3g} at {leaf} "
+          f"(tol {TR_GRAD_TOL})"
+          + ("" if zero is None else
+             f"; cross_attn/bk (zero exactly) {zero:.3g} of bq's norm (tol "
+             f"{TF_ZERO_TOL})")
+          + (f" -> {'OK' if ok else 'FAIL'}" if gate else " (not gated)"),
+          flush=True)
+    if gate and not ok:
+        fail(f"train {name}: hopper and reference gradients part")
+    out = {"dloss": dloss, "grad_rel_l2_worst": worst,
+           "grad_rel_l2_worst_leaf": leaf, "grad_rel_l2_median": med,
+           "zero_leaf_ratio": zero, "gated": gate}
+    if witness:
+        out["witness"] = fp32_witness(torch, name, cfg, params, batch, got,
+                                      want)
+    del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+class Fp32Probs:
+    """The reference backend with the probabilities of its two training
+    cores (the decoder's causal self-attention, the encoder's full one)
+    kept in fp32, as K9 keeps them: q, k and v enter in fp32 (exactly),
+    the output is rounded back to their dtype.  Everything else is the
+    reference's."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def __getattr__(self, attr):
+        return getattr(self.base, attr)
+
+    def train_attend(self, q, k, v, **kw):
+        return self.base.train_attend(q.float(), k.float(), v.float(),
+                                      **kw).to(v.dtype)
+
+    def full_attend(self, q, k, v, **kw):
+        return self.base.full_attend(q.float(), k.float(), v.float(),
+                                     **kw).to(v.dtype)
+
+
+def fp32_witness(torch, name, cfg, params, batch, got, want):
+    """Phase 23 (b)'s witness of where the gap between ``got`` (hopper,
+    bf16) and ``want`` (reference, bf16) comes from, on the same step: (1)
+    the reference with its cores' probabilities in fp32 (``Fp32Probs``)
+    against hopper; (2) the reference in fp32 (the parameters cast to fp32,
+    TF32 off), against which both bf16 runs are held.  Fails the run when
+    hopper's gradients are further from the fp32 ones than
+    ``TF_WITNESS_RATIO`` times the reference's, at the median or the worst
+    leaf, or its loss beyond ``TR_LOSS_TOL``.  Returns the numbers."""
+    from repro_torch.core.mapreduce import value_and_grad
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.registry import build_model
+
+    def gap(a, b):
+        d = grad_gap(torch, a, b)
+        return {"dloss": d[0], "grad_rel_l2_worst": d[1],
+                "grad_rel_l2_worst_leaf": d[2], "grad_rel_l2_median": d[3]}
+    model = build_model(cfg, "reference")
+    model.attn_backend = Fp32Probs(model.attn_backend)
+    probs = value_and_grad(model.loss, params, batch)
+    out = {"hopper_vs_fp32_probs": gap(got, probs)}
+    del probs
+    torch.cuda.empty_cache()
+    p32 = tree_map(lambda t: t.float(), params)
+    fp32 = value_and_grad(build_model(cfg, "reference").loss, p32, batch)
+    del p32
+    out["hopper_vs_fp32"] = gap(got, fp32)
+    out["reference_vs_fp32"] = gap(want, fp32)
+    del fp32
+    torch.cuda.empty_cache()
+    k9, ref = out["hopper_vs_fp32"], out["reference_vs_fp32"]
+    ok = k9["dloss"] <= TR_LOSS_TOL and all(
+        k9[k] <= TF_WITNESS_RATIO * ref[k]
+        for k in ("grad_rel_l2_median", "grad_rel_l2_worst"))
+    for what, d in out.items():
+        print(f"[smoke] train {name}: witness {what.replace('_', ' ')}: "
+              f"|dloss| {d['dloss']:.3g}; gradients rel L2 median "
+              f"{d['grad_rel_l2_median']:.3g}, worst "
+              f"{d['grad_rel_l2_worst']:.3g} at "
+              f"{d['grad_rel_l2_worst_leaf']}", flush=True)
+    print(f"[smoke] train {name}: hopper's gradients from fp32's within "
+          f"{TF_WITNESS_RATIO}x the reference's (median "
+          f"{k9['grad_rel_l2_median']:.3g} vs {ref['grad_rel_l2_median']:.3g}"
+          f", worst {k9['grad_rel_l2_worst']:.3g} vs "
+          f"{ref['grad_rel_l2_worst']:.3g}; |dloss| {k9['dloss']:.3g}, tol "
+          f"{TR_LOSS_TOL}) -> {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"train {name}: hopper's gradients are further from fp32's "
+             f"than {TF_WITNESS_RATIO}x the reference's")
+    out["ok"] = ok
+    return out
+
+
+def phase_train_families(torch, timer, seed):
+    """Phase 23 (see the module docstring): (c) K9 at the training shapes
+    of llava (causal, 56 / 8 heads of 128, S 1088) and of seamless's
+    encoder (full) and decoder (causal), 16 / 16 of 64 at S 512, against
+    its plain version; (b)
+    one step's loss and gradients, seamless and llava on hopper against
+    reference, mamba2 and recurrentgemma in fp32 on the card against the
+    CPU; (a) ``TF_STEPS`` AdamW steps of each family through
+    ``make_train_step(attn_backend="hopper")`` with K9's launches by mode
+    counted around each run.  Returns (launch counts, kernel numbers,
+    report)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.core.mapreduce import value_and_grad
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model, init_params
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import OptConfig, init_opt_state
+    t_phase = time.perf_counter()
+    # the AdamW steps need the card: what the earlier phases still hold,
+    # before and after the cyclic collector (``record_logits`` made cycles
+    # that held phase 22's engines until it ran)
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[smoke] train families: {held / 2**30:.2f} GiB held on the card "
+          f"at the phase's start, {torch.cuda.memory_allocated() / 2**30:.2f}"
+          " after gc.collect()", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(93)
+    lv = get_arch("llava-next-34b")
+    kern = {
+        "K9-D128": flash_case(torch, timer, gen, "llava train causal", TF_B,
+                              TF_S + lv.n_image_tokens, lv.n_heads,
+                              lv.n_kv_heads, lv.head_dim_, True,
+                              torch.bfloat16),
+        "K9-full": flash_case(torch, timer, gen, "seamless encoder train "
+                              "full", TF_B, TF_S, 16, 16, 64, False,
+                              torch.bfloat16),
+        "K9-G1": flash_case(torch, timer, gen, "seamless decoder train "
+                            "causal", TF_B, TF_S, 16, 16, 64, True,
+                            torch.bfloat16)}
+    torch.cuda.empty_cache()
+    out = {"kernel_checks_s": time.perf_counter() - t_phase}
+
+    def arch(name, layers):
+        cfg = get_arch(name)
+        return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+    # (b) mamba2 / recurrentgemma: the same ops on the card and the CPU
+    t0 = time.perf_counter()
+    checks = {}
+    for name, layers in TF_CHECK_LAYERS.items():
+        cfg = arch(name, layers)
+        p = tree_map(lambda t: t.float(), init_params(cfg, seed, "cuda"))
+        pc = tree_map(lambda t: t.cpu(), p)
+        b = family_batch(torch, cfg, TF_CHECK_B, TF_CHECK_S, seed, "cuda")
+        got = value_and_grad(build_model(cfg, "hopper").loss, p, b)
+        want = value_and_grad(build_model(cfg, "reference").loss, pc,
+                              {k: v.cpu() for k, v in b.items()})
+        dloss, worst, leaf, med, _ = grad_gap(torch, got, want)
+        ok = dloss <= TF_CHECK_LOSS_TOL and worst <= TF_CHECK_GRAD_TOL
+        print(f"[smoke] train {name} ({layers} layers, full width, fp32, "
+              f"B={TF_CHECK_B} S={TF_CHECK_S}): one step on the card "
+              f"(hopper) vs the CPU (reference): loss {got[0].item():.6f} vs "
+              f"{want[0].item():.6f}, |dloss| {dloss:.3g} (tol "
+              f"{TF_CHECK_LOSS_TOL}); gradients rel L2 median {med:.3g}, "
+              f"worst {worst:.3g} at {leaf} (tol {TF_CHECK_GRAD_TOL}) -> "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"train {name}: the card's step and the CPU's part")
+        checks[name] = {"layers": layers, "dloss": dloss,
+                        "grad_rel_l2_worst": worst,
+                        "grad_rel_l2_worst_leaf": leaf,
+                        "grad_rel_l2_median": med}
+        del p, pc, got, want
+        torch.cuda.empty_cache()
+    out["cuda_vs_cpu_s"] = time.perf_counter() - t0
+
+    counts = {}
+    ocfg = OptConfig(lr=TR_LR)
+    for name in ("mamba2-780m", "recurrentgemma-2b",
+                 "seamless-m4t-large-v2", "llava-next-34b"):
+        t0 = time.perf_counter()
+        cfg = arch(name, TF_LAYERS.get(name))
+        params = init_params(cfg, seed, "cuda")
+        n_params = sum(x.numel() for _, x in tree_leaves(params))
+        batches = [family_batch(torch, cfg, TF_B, TF_S, seed + i, "cuda")
+                   for i in range(TF_STEPS)]
+        rep = {"layers": cfg.n_dec_layers + cfg.n_enc_layers
+               if cfg.enc_dec else cfg.n_layers, "parameters": n_params}
+        if cfg.enc_dec or cfg.n_image_tokens:
+            # (b) hopper vs reference, one step from these params; seamless
+            # gated at TF_REF_LAYERS + TF_REF_LAYERS and, at full depth,
+            # against fp32 by the witness (see TF_REF_LAYERS)
+            rep["vs_reference"] = vs_reference(
+                torch, name, cfg, params, batches[0], gate=not cfg.enc_dec,
+                witness=cfg.enc_dec)
+            if cfg.enc_dec:
+                small = dataclasses.replace(cfg, n_enc_layers=TF_REF_LAYERS,
+                                            n_dec_layers=TF_REF_LAYERS)
+                rep["vs_reference_gated"] = vs_reference(
+                    torch, f"{name} ({TF_REF_LAYERS} + {TF_REF_LAYERS} "
+                    "layers)", small, init_params(small, seed, "cuda"),
+                    batches[0], gate=True)
+        # (a) AdamW steps through the entry point, K9 counted by mode
+        state = init_opt_state(params, ocfg)
+        step = make_train_step(cfg, ocfg, attn_backend="hopper")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.mode_launches.clear()
+        losses, times = [], []
+        for batch in batches:
+            t1 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(m["loss"].item())           # synchronizes
+            times.append(time.perf_counter() - t1)
+        modes = {f"{c} D{d}": n
+                 for (c, d), n in flash_attention.mode_launches.items()}
+        launches = sum(modes.values())
+        peak = torch.cuda.max_memory_allocated()
+        del params, state, step, batches, batch
+        torch.cuda.empty_cache()
+        want_modes = {}
+        if cfg.enc_dec:
+            want_modes = {"full D64": cfg.n_enc_layers * TF_STEPS,
+                          "causal D64": cfg.n_dec_layers * TF_STEPS}
+        elif cfg.n_image_tokens:
+            want_modes = {f"causal D{cfg.head_dim_}": cfg.n_layers * TF_STEPS}
+        ok = all(math.isfinite(x) for x in losses) and modes == want_modes
+        p50 = sorted(times)[len(times) // 2]
+        ntok = TF_B * (TF_S + cfg.n_image_tokens)
+        print(f"[smoke] train {name} ({rep['layers']} layers, "
+              f"{n_params / 1e9:.3f} B parameters, {CARD}), B={TF_B} "
+              f"S={TF_S}{f' + {cfg.n_image_tokens} image' if cfg.n_image_tokens else ''}"
+              f", AdamW lr {TR_LR}, hopper: losses "
+              f"{[round(x, 4) for x in losses]}; step p50 {p50 * 1e3:.1f} ms "
+              f"(first {times[0] * 1e3:.1f} ms), {ntok / p50:.0f} tokens/s; "
+              f"peak memory {peak / 2**30:.2f} GiB; K9 launches {launches} "
+              f"{modes} (expected {want_modes}) -> "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"train {name}: a loss is not finite, or K9's launches "
+                 "by mode do not match the layers")
+        if cfg.enc_dec:
+            counts["K9-full"] = modes["full D64"]
+            counts["K9-G1"] = modes["causal D64"]
+        elif cfg.n_image_tokens:
+            counts["K9-D128"] = modes["causal D128"]
+        rep.update({"losses": losses, "step_ms_p50": p50 * 1e3,
+                    "step_ms_first": times[0] * 1e3,
+                    "tokens_per_s": ntok / p50,
+                    "peak_memory_gib": peak / 2**30, "k9_launches": modes,
+                    "seconds": time.perf_counter() - t0})
+        if name in checks:
+            rep["cuda_vs_cpu"] = checks[name]
+        out[name] = rep
     out["seconds"] = time.perf_counter() - t_phase
     return counts, kern, out
 
@@ -3810,6 +4191,13 @@ def main() -> None:
     counts.update(ff_counts)
     print(f"[smoke] frontend-families phase took "
           f"{time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
+    t0 = time.perf_counter()
+    tf_counts, tf_kernels, train_families = phase_train_families(
+        torch, timer, args.seed)
+    counts["K9-full"] += tf_counts.pop("K9-full")
+    counts.update(tf_counts)
+    print(f"[smoke] train-families phase took "
+          f"{time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
     for kid, c in counts.items():
         if c <= 0:
             fail(f"{kid} was never launched on its serving path")
@@ -3875,7 +4263,13 @@ def main() -> None:
         entry("K9", "flash_attention", "flash_attention.cu",
               "flash_attention/kernel.py:79", k9),
         entry("K9-full", "flash_attention", "flash_attention.cu",
-              "flash_attention/kernel.py:79", ff_kernels["K9-full"]),
+              "flash_attention/kernel.py:79",
+              {**ff_kernels["K9-full"],
+               "train_shape": tf_kernels["K9-full"]}),
+        entry("K9-D128", "flash_attention", "flash_attention.cu",
+              "flash_attention/kernel.py:79", tf_kernels["K9-D128"]),
+        entry("K9-G1", "flash_attention", "flash_attention.cu",
+              "flash_attention/kernel.py:79", tf_kernels["K9-G1"]),
         *(entry(kid, name, src, at, ff_kernels[kid])
           for kid, name, src, at in (
               ("K1-G1", "paged_decode", "paged_decode.cu",
@@ -3906,7 +4300,8 @@ def main() -> None:
         "ring_length_bit_equal": ring_lengths, "sliding_window": window,
         "command_r": command_r, "deepseek": deepseek, "paper": paper,
         "figures": figures, "train": train, "frontend": frontend,
-        "state_slots": state_slots, "frontend_families": families}),
+        "state_slots": state_slots, "frontend_families": families,
+        "train_families": train_families}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

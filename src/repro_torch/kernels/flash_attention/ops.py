@@ -97,10 +97,15 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "flash_attention")
     flash_attention.launches += 1
+    mode = ("causal" if causal else "full", D)
+    flash_attention.mode_launches[mode] = \
+        flash_attention.mode_launches.get(mode, 0) + 1
     return out
 
 
 flash_attention.launches = 0
+# launches by (causal | full, head dim), counted beside ``launches``
+flash_attention.mode_launches = {}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -1,12 +1,14 @@
 """End-to-end training CLI of the port: the counterpart of
 ``repro.launch.train``.
 
-Trains any ported architecture (reduced or full geometry) on the
+Trains any token-only architecture (reduced or full geometry) on the
 synthetic token stream with either engine, with checkpoint/restart fault
-tolerance.  Runs on ``cuda`` unless given ``--device cpu`` (without a card
-it raises instead of moving to the CPU); ``--attn-backend auto`` is
-``hopper`` on ``cuda``, which runs every full-causal self-attention of the
-forward through kernel K9.
+tolerance; enc-dec and vlm archs, which also take frames or image
+embeddings, raise a ``ValueError`` (their batches go to
+``models.steps.make_train_step`` directly).  Runs on ``cuda`` unless
+given ``--device cpu`` (without a card it raises instead of moving to the
+CPU); ``--attn-backend auto`` is ``hopper`` on ``cuda``, which runs every
+full-causal self-attention of the forward through kernel K9.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --reduced --steps 6 --global-batch 4 --seq-len 32 [--engine mapreduce]
@@ -92,6 +94,14 @@ def main(argv=None):
         over["d_model"] = args.d_model
     over["remat"] = "none"
     cfg = dataclasses.replace(cfg, **over)
+    need = "frames" if cfg.enc_dec else \
+        "image_embeds" if cfg.n_image_tokens else None
+    if need:
+        # as the JAX CLI, this CLI feeds the token stream alone
+        raise ValueError(
+            f"{cfg.name} trains on tokens and {need!r}, which this CLI does "
+            "not feed: call models.steps.make_train_step with a batch of "
+            f"{{'tokens', {need!r}}}")
 
     opt_cfg = OptConfig(name=args.opt, lr=args.lr,
                         schedule="linear_warmup_cosine",

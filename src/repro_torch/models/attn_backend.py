@@ -53,8 +53,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..kernels.flash_attention import (flash_attention,
-                                       flash_attention_train)
+from ..kernels.flash_attention import flash_attention_train
 from ..kernels.paged_attention import (mla_paged_decode,
                                       mla_paged_decode_plain,
                                       mla_paged_verify,
@@ -423,9 +422,12 @@ class HopperBackend(AttentionBackend):
                                      scale=scale, q_block=q_block)
 
     def full_attend(self, q, k, v, *, scale: float, q_block: int = 512):
+        # the differentiable form: the same K9 launch, and a backward for
+        # the encoder's training forward
         _on_card(q)
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=False, scale=scale)
+        return flash_attention_train(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=False,
+                                     scale=scale, q_block=q_block)
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
                       scale: float, window: int = 0, k_scale=None,

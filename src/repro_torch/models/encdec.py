@@ -1,5 +1,6 @@
 """Encoder-decoder transformer (the SeamlessM4T backbone): the port of
-``repro.models.encdec.EncDecLM`` for serving.
+``repro.models.encdec.EncDecLM``, its serving paths and its training
+loss.
 
 The audio frontend is a stub: each request brings precomputed frame
 embeddings at ``frontend_dim`` (``serving.engine._synthetic_frontend``).
@@ -19,8 +20,11 @@ the plain non-causal core on every backend (``Sq != Sk``: the TPU kernel
 takes one sequence length); the one-token cross-attention of a decode step
 is ``_cross_decode``, op for op the JAX package's.
 
-The training forward and ``loss`` (JAX ``encdec.py:92-142``) are ROADMAP
-queue 1 item 14b: ``loss`` raises.  Parameters keep the JAX package's layer-stacked leaves;
+The training forward (``_decoder_hidden``) runs the decoder's causal
+self-attention through the backend's ``train_attend`` (K9 on ``hopper``)
+and the encoder's through ``full_attend`` (K9's full mode, with a
+gradient); ``loss`` is JAX ``encdec.py:92-145``'s chunked CE.  Parameters
+keep the JAX package's layer-stacked leaves;
 the ``jax.lax.scan`` over layers becomes a Python loop over layer views.
 Paged caches and state slots are written in place.
 """
@@ -38,8 +42,9 @@ from .attention import (attn_defs, cache_defs, cross_attention_block,
                         softmax)
 from .attn_backend import get_backend
 from .cache_spec import CacheFamilySpec, CacheSpec
-from .layers import (apply_mlp, apply_norm, apply_rope, embed_defs,
-                     embed_tokens, lm_logits, mlp_defs, norm_defs, rope_freqs)
+from .layers import (apply_mlp, apply_norm, apply_rope, chunked_nll,
+                     embed_defs, embed_tokens, lm_logits, mlp_defs, norm_defs,
+                     rope_freqs)
 from .params import layer, stack_tree
 
 ENC_LEN_DECODE = 4096   # encoder length assumed for standalone decode cells
@@ -100,11 +105,13 @@ class EncDecLM:
     # --------------------------------------------------------------- encoder
 
     def encode(self, params, frames):
-        """frames [B, S, frontend_dim] -> encoder output [B, S, d] (bf16):
+        """frames [B, S, frontend_dim] -> encoder output [B, S, d] in the
+        parameters' dtype (bf16 as in JAX, whose ``encode`` casts to bf16
+        whatever its parameters; fp32 parameters give an fp32 encoder):
         pre-norm bidirectional layers through the backend's ``full_attend``,
         then ``enc_norm``."""
         cfg = self.cfg
-        x = frames.to(torch.bfloat16)
+        x = frames.to(params["enc_norm"]["scale"].dtype)
         freqs = self._freqs(x.device)
         for i in range(cfg.n_enc_layers):
             p = layer(params["enc_blocks"], i)
@@ -116,10 +123,41 @@ class EncDecLM:
             x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
         return apply_norm(cfg, params["enc_norm"], x)
 
+    def _decoder_hidden(self, params, tokens, enc_out):
+        """The decoder's training forward over tokens [B, S] against
+        encoder output enc_out [B, S_enc, d]: causal self-attention through
+        the backend's ``train_attend`` (K9 on ``hopper``), cross-attention
+        on the plain core, the MLP; then ``final_norm``."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens)
+        freqs = self._freqs(x.device)
+        for p in self._dec_layers(params):
+            h = apply_norm(cfg, p["ln1"], x)
+            x = x + full_attention_block(cfg, p["self_attn"], h, freqs,
+                                         q_block=cfg.attn_q_block,
+                                         attend=self.attn_backend.train_attend)
+            x = x + cross_attention_block(cfg, p["cross_attn"],
+                                          apply_norm(cfg, p["ln_x"], x),
+                                          cross_kv(p["cross_attn"], enc_out),
+                                          q_block=cfg.attn_q_block)
+            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        return apply_norm(cfg, params["final_norm"], x)
+
     def loss(self, params, batch, chunk: int = 0):
-        raise NotImplementedError(
-            f"{self.cfg.name}: the enc-dec training forward and loss are not "
-            "ported yet: ROADMAP queue 1 item 14b")
+        """Next-token CE of the decoder over ``batch["tokens"]`` [B, S]
+        conditioned on ``batch["frames"]`` [B, S_enc, frontend_dim]
+        (``layers.chunked_nll``; the final position has no label).
+        Returns (loss, {"nll", "tokens"}), as JAX ``EncDecLM.loss``."""
+        enc_out = self.encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        hidden = self._decoder_hidden(params, tokens, enc_out)
+        B, S = tokens.shape
+        labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1)).long()
+        lmask = (torch.arange(S, device=tokens.device) < S - 1).expand(B, -1)
+        tot, cnt = chunked_nll(self.cfg, params["embed"], hidden, labels,
+                               lmask, chunk)
+        loss = tot / torch.clamp(cnt, min=1.0)
+        return loss, {"nll": loss, "tokens": cnt}
 
     def _logits_at(self, params, x, idx):
         """Final norm, then the logits of row b's position ``idx[b]``."""

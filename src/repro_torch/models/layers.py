@@ -132,3 +132,27 @@ def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
 def lm_logits(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     w = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
     return x @ w
+
+
+def chunked_nll(cfg: ArchConfig, p, hidden: torch.Tensor,
+                labels: torch.Tensor, mask: torch.Tensor, chunk: int = 0):
+    """Summed next-token CE over hidden [B, S, d] in sequence chunks of
+    ``chunk`` (default ``cfg.loss_chunk``) positions, so the [*, V] fp32
+    logits of the whole sequence are never built at once; padded-vocab
+    logits are -1e30 and positions where ``mask`` [B, S] is False add 0.
+    Returns (sum of the nll fp32, count of the masked-in positions fp32)."""
+    S = hidden.shape[1]
+    chunk = min(chunk or cfg.loss_chunk, S)
+    vocab_mask = torch.arange(cfg.vocab_padded,
+                              device=hidden.device) >= cfg.vocab
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        logits = lm_logits(cfg, p, hidden[:, c0:c0 + chunk]).float()
+        logits = logits.masked_fill(vocab_mask, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, c0:c0 + chunk, None])[..., 0]
+        m = mask[:, c0:c0 + chunk]
+        tot = tot + torch.where(m, lse - gold, 0.0).sum()
+        cnt = cnt + m.sum()
+    return tot, cnt

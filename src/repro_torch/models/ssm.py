@@ -105,9 +105,10 @@ def ssd_chunked(xd, dtA, B, C, chunk: int, init_state=None):
     Cc = C.reshape(b, c, Q, n).float()
 
     A_cs = torch.cumsum(dtA, -1)                                   # [b,h,c,q]
-    # within-chunk (diagonal) term: L <- L * (C B^T), then L x
+    # within-chunk (diagonal) term: L <- L * (C B^T), then L x; out of
+    # place, since exp saves its output for the backward
     L = torch.exp(segsum(dtA))                                   # [b,h,c,q,k]
-    L.mul_(torch.einsum("bcqn,bckn->bcqk", Cc, Bc)[:, None])
+    L = L * torch.einsum("bcqn,bckn->bcqk", Cc, Bc)[:, None]
     y = torch.einsum("bhcqk,bckhp->bcqhp", L, xf)
     del L
 
@@ -128,7 +129,7 @@ def ssd_chunked(xd, dtA, B, C, chunk: int, init_state=None):
     prev = torch.stack(prev, 1)                                  # [b,c,h,p,n]
 
     state_decay = torch.exp(A_cs).permute(0, 2, 3, 1)[..., None]  # b,c,q,h,1
-    y += torch.einsum("bcqn,bchpn->bcqhp", Cc, prev) * state_decay
+    y = y + torch.einsum("bcqn,bchpn->bcqhp", Cc, prev) * state_decay
     y = y.to(xd.dtype).reshape(b, c * Q, h, p)
     return y[:, :s], carry
 

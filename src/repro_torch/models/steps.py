@@ -36,10 +36,15 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
                     attn_backend: str = "reference"):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` is {"tokens": [B, S] int} on the model's device,
-    ``metrics`` {"loss", "grad_norm", "lr"} as 0-d tensors.  ``groups`` is
-    the mapreduce engine's process layout (None: local evaluation, as a
-    mesh of one device); ``attn_backend`` a concrete backend name
-    (``hopper`` runs the training attention through K9)."""
+    plus the frontend input of the archs that take one, as JAX
+    ``registry.input_defs`` declares them: "frames" [B, S_enc,
+    frontend_dim] for enc-dec, "image_embeds" [B, n_image_tokens,
+    frontend_dim] for the vlm (every tensor is split on dim 0 into the
+    ``n_micro`` microbatches); ``metrics`` {"loss", "grad_norm", "lr"} as
+    0-d tensors.  ``groups`` is the mapreduce engine's process layout
+    (None: local evaluation, as a mesh of one device); ``attn_backend`` a
+    concrete backend name (``hopper`` runs the training attention through
+    K9)."""
     if engine not in ("pjit", "mapreduce"):
         raise ValueError(f"unknown engine {engine!r} (pjit | mapreduce)")
     model = build_model(cfg, attn_backend)

@@ -10,10 +10,9 @@ dense family behind an image prefix of ``n_image_tokens`` precomputed patch
 embeddings, projected by ``vision_proj`` and placed before the text at
 positions ``[0, n_image_tokens)``).
 
-``loss`` is the LM training objective (next-token CE over the training
-forward ``forward_hidden``) of the dense and MoE families; the state-slot
-families' training forward is ROADMAP queue 1 item 13b, the vlm's (its
-label mask over the image prefix) item 14b.  Parameters keep
+``loss`` is the LM training objective of every family: next-token CE
+over the training forward ``forward_hidden``, the vlm's behind its image
+prefix with JAX's label mask over it.  Parameters keep
 the JAX package's layer-stacked ``[n_layers, ...]`` leaves; the
 ``jax.lax.scan`` over layers becomes a Python loop over layer views of the
 stacked leaves.  The caches stack every layer, dense lead-in layers first,
@@ -34,8 +33,9 @@ from .attention import (attn_defs, cache_defs, decode_attention_block,
                         full_attention_block, paged_cache_defs, qkv)
 from .attn_backend import get_backend
 from .cache_spec import CacheFamilySpec, CacheSpec
-from .layers import (apply_mlp, apply_norm, apply_rope, embed_defs,
-                     embed_tokens, lm_logits, mlp_defs, norm_defs, rope_freqs)
+from .layers import (apply_mlp, apply_norm, apply_rope, chunked_nll,
+                     embed_defs, embed_tokens, lm_logits, mlp_defs, norm_defs,
+                     rope_freqs)
 from .mla import (mla_cache_defs, mla_decode_block, mla_defs, mla_full_block,
                   mla_paged_cache_defs, mla_prefill_cache)
 from .moe import moe_apply, moe_decode_apply, moe_defs
@@ -201,16 +201,15 @@ class DecoderLM:
     def forward_hidden(self, params, x):
         """The training forward.  x: [B, S, d] embedded inputs -> (final-
         normed hidden [B, S, d], the MoE layers' summed load-balance loss,
-        fp32).  Dense GQA layers attend through the backend's
-        ``train_attend`` (K9 on ``hopper``); MLA layers through the chunked
-        core.  The JAX package may recompute activations in the backward
-        (``cfg.remat``); this forward keeps them all, which changes memory,
-        not numbers."""
+        fp32; 0 for the other families, as in JAX).  Dense GQA layers, the
+        vlm's and the hybrid's local attention attend through the backend's
+        ``train_attend`` (K9 on ``hopper`` for full-causal layers; windowed
+        ones take the chunked core); MLA layers through the chunked core;
+        the state-slot families run ``ssm_block`` / ``rglru_block`` from a
+        zero state in ``_rec_layers``' order.  The JAX package may
+        recompute activations in the backward (``cfg.remat``); this forward
+        keeps them all, which changes memory, not numbers."""
         cfg = self.cfg
-        if self.recurrent:
-            raise NotImplementedError(
-                f"{cfg.name}: the training forward of the state-slot "
-                "families is not ported yet: ROADMAP queue 1 item 13b")
         freqs = self._freqs(x.device)
         aux = []
 
@@ -224,13 +223,28 @@ class DecoderLM:
                 return mla_full_block(cfg, pa, h, freqs,
                                       q_block=cfg.attn_q_block)
         else:
+            window = cfg.attn_window if cfg.family == "hybrid" \
+                else cfg.sliding_window
+
             def attend(pa, h):
                 return full_attention_block(
-                    cfg, pa, h, freqs, window=cfg.sliding_window,
+                    cfg, pa, h, freqs, window=window,
                     q_block=cfg.attn_q_block,
                     attend=self.attn_backend.train_attend)
-        for p in self._layers(params):
-            x = self._block(p, x, attend, moe)
+        if self.recurrent:
+            for g, _, p in self._rec_layers(params):
+                if g == "attn_blocks":
+                    x = self._block(p, x, attend, None)
+                    continue
+                h = apply_norm(cfg, p["ln1"], x)
+                if g == "blocks":
+                    x = x + ssm_block(cfg, p["ssm"], h)[0]
+                    continue
+                x = x + rglru_block(cfg, p["rec"], h)[0]
+                x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        else:
+            for p in self._layers(params):
+                x = self._block(p, x, attend, moe)
         total = sum(aux, torch.zeros((), dtype=torch.float32,
                                      device=x.device))
         return apply_norm(cfg, params["final_norm"], x), total
@@ -238,39 +252,27 @@ class DecoderLM:
     # ------------------------------------------------------------------ loss
 
     def loss(self, params, batch, chunk: int = 0):
-        """Next-token CE, computed in sequence chunks of ``chunk`` (default
-        ``cfg.loss_chunk``) positions so the [*, V] fp32 logits of the
-        whole sequence are never built at once; padded-vocab logits are
-        -1e30, the final position has no label.  Returns (loss, {"nll",
-        "aux", "tokens"}); MoE models add ``router_aux_coef * aux /
-        n_layers`` to the loss."""
+        """Next-token CE (``layers.chunked_nll``) over the training forward
+        of ``batch["tokens"]`` [B, T] (a vlm's hidden sequence is its
+        ``batch["image_embeds"]`` prefix, then the text), the final
+        position without a label.  The labels and mask are JAX
+        ``DecoderLM.loss``'s: the next token, aligned to the hidden
+        sequence behind ``n_img`` zero labels, and the text mask rolled
+        left by one, so the last image position (label 0) counts too: a
+        vlm scores B * T positions.  Returns (loss, {"nll", "aux",
+        "tokens"}); MoE models add ``router_aux_coef * aux / n_layers``
+        to the loss."""
         cfg = self.cfg
-        if cfg.n_image_tokens:
-            raise NotImplementedError(
-                f"{cfg.name}: the vlm training loss (its label mask over the "
-                "image prefix) is not ported yet: ROADMAP queue 1 item 14b")
         tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens)
+        x = self._with_image(params, self._embed(params, tokens), batch)
         hidden, aux = self.forward_hidden(params, x)
-        B, S = tokens.shape
-        labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1)).long()
-        lmask = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
-        lmask[:, -1] = False
-        chunk = min(chunk or cfg.loss_chunk, S)
-        vocab_mask = torch.arange(cfg.vocab_padded,
-                                  device=hidden.device) >= cfg.vocab
-        tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        for c0 in range(0, S, chunk):
-            logits = lm_logits(cfg, params["embed"],
-                               hidden[:, c0:c0 + chunk]).float()
-            logits = logits.masked_fill(vocab_mask, -1e30)
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, labels[:, c0:c0 + chunk, None])[..., 0]
-            m = lmask[:, c0:c0 + chunk]
-            nll = torch.where(m, lse - gold, 0.0)
-            tot = tot + nll.sum()
-            cnt = cnt + m.sum()
+        B, T = tokens.shape
+        n_img = cfg.n_image_tokens
+        labels = torch.nn.functional.pad(tokens[:, 1:], (n_img, 1)).long()
+        pos = torch.arange(n_img + T, device=tokens.device)
+        lmask = ((pos >= n_img - 1) & (pos < n_img + T - 1)).expand(B, -1)
+        tot, cnt = chunked_nll(cfg, params["embed"], hidden, labels, lmask,
+                               chunk)
         nll = tot / torch.clamp(cnt, min=1.0)
         loss = nll
         if cfg.is_moe:

@@ -38,14 +38,7 @@ TIE_GAP = 1e-5                 # top-two logit gap below which argmax may flip
 ALPHA_RTOL = 1e-12
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Hundreds of small ops: one torch thread keeps them cheap when the
-    suite runs in several processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 @pytest.fixture(scope="module")

@@ -56,14 +56,7 @@ BUDGETS = [6, 4, 8, 5, 7, 3]
 CHUNK = 16              # 30 and 22 take a continuation chunk
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The reduced model runs thousands of small ops: one torch thread
-    keeps them cheap when the suite runs in several processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,8 @@
 3. Pool conservation after a drain, and the parts of the JAX engine that
    are not ported yet refusing clearly instead of serving something else.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -33,6 +35,9 @@ from repro_torch.serving import (Engine, dual_gate,  # noqa: E402
 TOL = 0.25
 SCFG = dict(page_size=8, max_slots=4, max_len=64, prefix_cache=True,
             prefill_chunk_tokens=16)
+
+
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 @pytest.fixture(scope="module")
@@ -187,14 +192,18 @@ def test_unported_modes_refuse(kw, item):
 
 
 def test_unported_families_refuse():
-    """The vlm and enc-dec families serve since ROADMAP item 14; their
-    training loss (item 14b) is what still refuses."""
-    for name in ("llava-next-34b", "seamless-m4t-large-v2"):
-        cfg = tconfigs.reduced(tconfigs.get_arch(name))
-        eng = Engine(cfg, tconfigs.ServeConfig(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            eng.model.loss(eng.params, {"tokens": torch.ones(
-                (1, 8), dtype=torch.long)})
+    """Every registered family serves and trains; what still refuses is
+    the attention logit softcap (no registered arch sets it; ROADMAP queue
+    2) and the roofline figure, which reads the dry-run sweep (item 17)."""
+    from repro_torch.launch.figures import main as figures_main
+    from repro_torch.models.registry import build_model as t_build
+    cfg = dataclasses.replace(
+        tconfigs.reduced(tconfigs.get_arch("qwen2-0.5b")),
+        attn_logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        t_build(cfg)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        figures_main(["--only", "roofline", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("top,delta,ok", [

@@ -42,14 +42,7 @@ RECON_RTOL = 1e-4
 SIZES = dict(n_train=256, n_test=64, batch=32, epochs=2, seed=0)
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Many small ops: one torch thread keeps them cheap when the suite
-    runs in several processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 def _load(rel: str, name: str):

@@ -39,6 +39,9 @@ from repro_torch.models.attn_backend import get_backend  # noqa: E402
 S, H, D = 200, 6, 64
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 def _inputs(G, seed, B=1):
     rng = np.random.RandomState(seed)
     K = H // G

@@ -45,14 +45,7 @@ K8_TOL = 1e-5                  # chip_smoke.py's bound on the card
 STACK = (784, 1000, 500, 250, 30)
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The model runs thousands of small ops: one torch thread keeps them
-    cheap when the suite runs in several processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 def rna_tf32(a):

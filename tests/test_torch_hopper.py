@@ -1345,3 +1345,94 @@ def test_frontend_family_engines_pass_the_dual_gate(cuda, name, kv_dtype):
                      for b in ("reference", "hopper"))
     rep = dual_gate(ref, test, tokens, tol=0.25)
     assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}
+
+
+def _family_batch(cfg, B, S, device, seed=0):
+    """Tokens [B, S] and the arch's frontend input (frames [B, S, F] or
+    image embeddings [B, n_img, F]), bf16 standard normals."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab, (B, S), device=device,
+                                   generator=g)}
+    n = S if cfg.enc_dec else cfg.n_image_tokens
+    key = "frames" if cfg.enc_dec else "image_embeds"
+    out[key] = torch.randn((B, n, cfg.frontend_dim), device=device,
+                           generator=g).bfloat16()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [
+    ("seamless-m4t-large-v2", "bf16"), ("llava-next-34b", "fp32"),
+    ("llava-next-34b", "bf16")])
+def test_frontend_family_training_step_matches_reference(cuda, name, dtype):
+    """Reduced seamless-m4t (G = 1, heads of 64: K9 full in the encoder,
+    causal in the decoder) and llava (G = 7, heads of 128: K9 causal
+    behind the image prefix) on the hopper backend against the reference
+    backend, one step's loss and gradients: fp32 parameters (K9's FFMA
+    body) within 1e-5 and 1e-4 relative L2 a leaf, as the qwen2 test;
+    bf16 (its ``wgmma`` body, fp32 p where the chunked core rounds p to
+    bf16) within the smoke's 0.01 and 0.1.  seamless runs in bf16 only:
+    its encoder casts the frames to bf16, as JAX's does, so its layers
+    take bf16 parameters.  The cross-attention's key bias, whose gradient
+    is zero in exact arithmetic (q . bk is the same for every key), is
+    held below 1e-2 of the query bias's gradient on both backends.  A
+    ``make_train_step`` step on hopper launches K9 once an attention
+    layer, by mode."""
+    from repro_torch.core.mapreduce import value_and_grad
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg = _frontend_arch(name)
+    params = init_params(cfg, 0, cuda)
+    if dtype == "fp32":
+        params = tree_map(lambda t: t.float(), params)
+    batch = _family_batch(cfg, 2, 100, cuda)
+    (hl, _, hg), (rl, _, rg) = (
+        value_and_grad(build_model(cfg, b).loss, params, batch)
+        for b in ("hopper", "reference"))
+    tol_loss, tol_grad = (1e-5, 1e-4) if dtype == "fp32" else (1e-2, 0.1)
+    assert abs(hl.item() - rl.item()) <= tol_loss
+    hd, rd = dict(tree_leaves(hg)), dict(tree_leaves(rg))
+    for p, a in hd.items():
+        b = rd[p]
+        if p.endswith("cross_attn/bk"):
+            for g in (hd, rd):
+                bq = g[p[:-2] + "bq"].float().norm()
+                assert g[p].float().norm() <= 1e-2 * bq, p
+            continue
+        rel = ((a.float() - b.float()).norm()
+               / b.float().norm().clamp_min(1e-30)).item()
+        assert rel <= tol_grad, (p, rel)
+    ocfg = OptConfig(lr=1e-3)
+    flash_attention.mode_launches.clear()
+    _, _, m = make_train_step(cfg, ocfg, attn_backend="hopper")(
+        params, init_opt_state(params, ocfg), batch)
+    assert np.isfinite(m["loss"].item())
+    want = {("full", 64): cfg.n_enc_layers, ("causal", 64): cfg.n_dec_layers} \
+        if cfg.enc_dec else {("causal", 128): cfg.n_layers}
+    assert flash_attention.mode_launches == want
+
+
+@pytest.mark.cuda
+def test_full_attend_forward_is_bit_equal_with_and_without_grad(cuda):
+    """The hopper backend's ``full_attend`` (the encoder's attend) carries
+    a gradient since the training forward needs one; its forward is the
+    same K9 launch, so serving under ``no_grad`` keeps its bits."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attn_backend import get_backend
+    be = get_backend("hopper")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = (torch.randn((2, 300, 16, 64), generator=gen,
+                           device=cuda).bfloat16() for _ in range(3))
+    with torch.no_grad():
+        served = be.full_attend(q, k, v, scale=0.125)
+    qg = q.clone().requires_grad_(True)
+    trained = be.full_attend(qg, k, v, scale=0.125)
+    assert trained.grad_fn is not None
+    assert torch.equal(served, trained.detach())
+    assert torch.equal(served, flash_attention(q, k, v, causal=False,
+                                               scale=0.125))
+    (g,) = torch.autograd.grad(trained.float().sum(), qg)
+    assert bool(torch.isfinite(g).all())

@@ -30,6 +30,9 @@ from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.ragged_prefill import ops as ragged_ops  # noqa: E402
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 def _bf16(a):
     """(jax bf16 array, torch bf16 tensor) holding identical values."""
     j = jnp.asarray(np.asarray(a, np.float32), jnp.bfloat16)

@@ -52,6 +52,9 @@ from test_torch_engine import seeded_params  # noqa: E402
 from test_torch_kernels import _bf16, _within_one_ulp  # noqa: E402
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = reduced(get_arch("qwen2-0.5b"))

@@ -23,6 +23,9 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 def _pair(a, dtype):
     """The same values in both frameworks: rounded once by jax, carried
     over exactly through fp32."""

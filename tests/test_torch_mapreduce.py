@@ -142,6 +142,9 @@ JAX_WORKER = textwrap.dedent("""
 """)
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 def _result(stdout: str) -> dict:
     line = [ln for ln in stdout.splitlines() if ln.startswith("RESULT")][0]
     return json.loads(line[len("RESULT"):])

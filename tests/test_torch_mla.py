@@ -60,6 +60,9 @@ TOL = 0.25
 ARCH = "deepseek-v2-236b"
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 def _latent_pool(rng, lengths, ps, L, R, width):
     """Shuffled latent pages for requests of ``lengths`` tokens; table
     entries past a request's pages (and idle rows) point at page 0."""
@@ -190,9 +193,17 @@ def _run(tcfg, tparams, prompts, budgets):
     return eng, [r.tokens for r in results], m
 
 
-def test_mla_engine_matches_static(setup):
+@pytest.fixture(scope="module")
+def engine_run(setup):
+    """The port's engine over the module's prompts, run once and shared by
+    the static and the JAX comparisons."""
     _, tcfg, _, tparams, prompts, budgets = setup
-    eng, tokens, m = _run(tcfg, tparams, prompts, budgets)
+    return _run(tcfg, tparams, prompts, budgets)
+
+
+def test_mla_engine_matches_static(setup, engine_run):
+    _, tcfg, _, tparams, prompts, budgets = setup
+    eng, tokens, m = engine_run
     assert eng.spec.kinds[0].kind == "paged_mla" and eng.radix is not None
     assert m["cached_tokens"] > 0 and m["chunked_prefill_steps"] > 0
     with torch.no_grad():
@@ -205,9 +216,9 @@ def test_mla_engine_matches_static(setup):
         tcfg.n_layers * (tcfg.kv_lora_rank + tcfg.rope_head_dim) * 2
 
 
-def test_mla_engine_matches_jax_engine_by_dual_gate(setup):
+def test_mla_engine_matches_jax_engine_by_dual_gate(setup, engine_run):
     jcfg, tcfg, jparams, tparams, prompts, budgets = setup
-    _, tokens, _ = _run(tcfg, tparams, prompts, budgets)
+    _, tokens, _ = engine_run
     jeng = JEngine(jcfg, JServeConfig(**SCFG), jparams)
     jtokens = [r.tokens for r in jeng.run_offline(prompts, budgets)[0]]
     assert [len(t) for t in jtokens] == [len(t) for t in tokens] == budgets

@@ -47,6 +47,9 @@ from test_torch_mla import ARCH, SCFG, TOL, _pools, setup  # noqa: E402,F401
 # ------------------------------------------------------- latent verify core
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 def _verify_case(rng, Q, int8, ps=8, H=4, L=32, R=16, width=5):
     """B = 4 rows: an idle row (position 0, null table, one live query) and
     three at random positions whose Q-token window fits the table span, with

@@ -59,14 +59,7 @@ MASK = -1e30
 L, NOPE, R, VD, PS, H = 512, 128, 64, 128, 16, 2
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The model runs thousands of small ops: one torch thread keeps them
-    cheap when the suite runs in several processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 def stage_a_model(ckv_pages, wkv_b, tables, start, T, ckv_scale=None):

@@ -38,6 +38,9 @@ from repro_torch.serving import dual_gate, replay_logits  # noqa: E402
 TOL = 0.25
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 @pytest.fixture(scope="module", params=["qwen2-0.5b", "minitron-4b"])
 def models(request):
     """qwen2 (gated SiLU MLP, QKV bias, RMSNorm, tied embeddings) and

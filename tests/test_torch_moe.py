@@ -50,6 +50,9 @@ ATOL = 1e-5
 TOL = 0.25
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 def _cfgs(arch, **kw):
     """The JAX and the port's reduced config of ``arch``, with ``kw``."""
     return (dataclasses.replace(reduced(get_arch(arch)), **kw),

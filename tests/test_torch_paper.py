@@ -41,6 +41,9 @@ from repro_torch.models.params import tree_map  # noqa: E402
 PARAM_TOL, LOSS_TOL, N_STEPS = 2e-5, 1e-5, 5
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 @pytest.fixture(scope="module")
 def pretrained():
     """A JAX-pretrained (784, 64, 16) stack on 256 digits, and the data."""

@@ -40,14 +40,7 @@ SLOTS = 64                 # key slots a tile (csrc kSlots)
 MASK = -1e30
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The model runs thousands of small ops: one torch thread keeps them
-    cheap when the suite runs in several processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 def _quad_sum(e):

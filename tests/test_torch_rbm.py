@@ -42,6 +42,9 @@ F32_TOL, BF16_TOL = 1e-5, 2e-2
 GEMM_SHAPES = [(100, 784, 1000), (37, 200, 61), (1, 30, 10), (130, 250, 30)]
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 def _operands(M, K, N, transposed, seed):
     rng = np.random.RandomState(seed)
     x = rng.rand(M, K).astype(np.float32)

@@ -59,14 +59,7 @@ REL = 1e-5
 ARCHS = ["mamba2-780m", "recurrentgemma-2b"]
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The reduced model runs thousands of small ops: one torch thread
-    keeps them cheap when the suite runs in several processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -47,14 +47,7 @@ from test_torch_engine import seeded_params  # noqa: E402
 WAIT_S = 10.0
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The reduced model runs thousands of small ops: one torch thread
-    keeps them cheap when the suite runs in several processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 @pytest.fixture(scope="module")

@@ -55,6 +55,9 @@ from test_torch_kernels import (_bf16, _pool_and_tables,  # noqa: E402
 TOL = 0.25
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = reduced(get_arch("qwen2-0.5b"))

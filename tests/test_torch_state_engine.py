@@ -51,14 +51,7 @@ LENS = (5, 40, 7, 2, 35)
 BUDGETS = (12, 10, 8, 6, 9)
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The reduced model runs thousands of small ops: one torch thread
-    keeps them cheap when the suite runs in several processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -67,6 +67,9 @@ from repro_torch.runtime import (LoopConfig, TrainLoop,  # noqa: E402
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 def seeded_params(jcfg, seed):
     """The JAX model's parameter tree drawn with numpy from ``seed`` by the
     rules of ``repro.models.params`` (``init_params`` itself folds in

@@ -34,8 +34,9 @@ from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving import (Engine, PagedKVPool,  # noqa: E402
                                  dual_gate, generate_static, replay_logits)
 from repro_torch.serving.engine import _synthetic_frontend  # noqa: E402
+from _torch_common import one_thread  # noqa: E402
 from test_torch_encdec import (BUDGETS, SCFG, _within_ulps,  # noqa: E402
-                               family_setup, jax_static_logits, one_thread,
+                               family_setup, jax_static_logits,
                                shared_frontend)
 
 TOL = 0.25

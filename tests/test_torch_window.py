@@ -52,6 +52,9 @@ from repro_torch.models.cache_spec import window_pages  # noqa: E402
 from test_torch_kernels import _bf16, _within_one_ulp  # noqa: E402
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 def _ring_pool(rng, B, n_ring, ps, K, D):
     """Random bf16 pages and B disjoint rings of ``n_ring`` shuffled pages
     (page 0, the null page, in no ring)."""

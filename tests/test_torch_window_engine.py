@@ -55,6 +55,9 @@ SCFG = dict(page_size=8, max_slots=3, max_len=96, prefix_cache=True,
             prefill_chunk_tokens=16)
 
 
+from _torch_common import one_thread  # noqa: E402, F401
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def arch(request):
     jcfg = reduced(get_arch(request.param))

@@ -58,14 +58,7 @@ MASK = -1e30
 NO_KEY = -2 ** 31          # a zero-filled slot's position (csrc kNoKey)
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The model runs thousands of small ops: one torch thread keeps them
-    cheap when the suite runs in several processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_common import one_thread  # noqa: E402, F401
 
 
 def k4_model(q, k_new, v_new, k_pages, v_pages, tables, start, n_live, *,
