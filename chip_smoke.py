@@ -51,9 +51,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    K/V laid out in a 257-page and in a 258-page ring at positions past the
    wrap, bit for bit (the ring kernels sum in the order of absolute
    positions, so the ring's length changes nothing);
-10. the sliding-window path: full-width starcoder2-7b, its depth cut to 8
-   of 32 layers (16 before phase 22 added ~130 s: the whole smoke must
-   stay within the call's limit on a slow host; random weights from
+10. the sliding-window path: full-width starcoder2-7b, its depth cut to 2
+   of 32 layers (the whole smoke, phase 24 included, must stay within
+   the call's limit on a slow host; random weights from
    ``--seed``) on the hopper backend, 4 requests of
    1024, 3072, 4608 and 6144 prompt tokens, 256-token chunks, 32 new
    tokens, prefix cache requested (and refused: a page ring is not
@@ -73,12 +73,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
    positive phase in bf16, and Fig. 8's CD job ([2048, 784] x [784, 512]
    and [2048, 512] x W.T, fp32), each with a second call equal bit for
    bit and rows computed alone equal to theirs in the batch;
-12. full-width minitron-4b, its depth cut to 8 of 32 layers (to keep the
-   smoke under the call's limit on a slow host, where phases 21 and 22
-   add up to ~400 s), served as phase 6 serves qwen2-0.5b (K2 at D=128 for
+12. full-width minitron-4b, its depth cut to 2 of 32 layers (to keep the
+   smoke under the call's limit on a slow host, where phases 21, 22 and
+   24 add up to ~400 s), served as phase 6 serves qwen2-0.5b (K2 at D=128 for
    every prefill chunk, a profiled rerun with K2's share of the device
    time), bf16 and int8, each held to the dual gate;
-13. command-r-plus-104b at full width, its depth cut to 4 of 64 layers
+13. command-r-plus-104b at full width, its depth cut to 2 of 64 layers
    (full depth is ~210 GB): phase 10's four runs, the speculative ones
    through K3's 60-row ring mode; gate 1 of its dual gates holds each
    token's logits within 2 bf16 ulps of that row's largest |logit| (its
@@ -109,10 +109,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    device time a call of each of their CUDA kernels (split and merge) and
    the bound of the products they issue (PV's doubled);
 16. the MLA + MoE path: deepseek-v2-236b at full width, its depth cut to
-   4 of 60 layers (layer 0 dense, 3 MoE; 26.6 GB of bf16 weights, where
-   full depth is ~470 GB), served as phase 6 serves qwen2-0.5b (K6 and
-   its stage A for every prefill chunk, K5 for every decode step,
-   counted), with the
+   2 of 60 layers (layer 0 dense, 1 MoE; full depth is ~470 GB of bf16
+   weights; 2 rather than 4 for the smoke's time), served as phase 6
+   serves qwen2-0.5b (K6 and its stage A for every prefill chunk, K5 for
+   every decode step, counted), with the
    device's busy share from a profiled rerun, then on the reference
    backend, and held to the reference replay by the dual gate; then K = 4
    speculation with n-gram and oracle drafts (K7 four times a verify step,
@@ -190,8 +190,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    reference replay by the dual gate.  K1's and K2's launches over the
    phase must be positive.
 
-21. the state-slot families (no kernel on their path): full-width,
-   full-depth mamba2-780m (48 SSD layers, d 1536) on phase 6's 8
+21. the state-slot families (no kernel on their path): full-width
+   mamba2-780m cut to 12 of its 48 SSD layers (d 1536; the smoke's time)
+   on phase 6's 8
    requests (the prefix cache refused with a warning) and
    recurrentgemma-2b (8 x (RG-LRU, RG-LRU, local attention) + 2 RG-LRU
    layers, d 2560) on 4 prompts of 1500, 2040, 2100 and 3000 tokens
@@ -218,16 +219,17 @@ Phases, each printing its own lines; any failed check exits non-zero:
    (G = 1; K2's chunk split at token 96, not a multiple of 64, bit for
    bit), K1, K2 and K3 at llava's 8 KV x 7 query heads of 128, and K9 in
    its full mode at the encoder's shape (B 2, S 4096, 16 / 16 heads of
-   64); (b) full-width, full-depth seamless-m4t-large-v2 (24 encoder + 24
-   decoder layers) on 8 requests of 32..512 decoder prompt tokens, each
-   conditioned on 4096 frames (``enc_len``), 128-token chunks, 32 new
-   tokens, bf16 then int8 pages: K1 a decode step a layer, K2 a prefill
-   step a layer, K9 an encoder layer a first-chunk prefill (continuation
-   chunks run no encoder), 402,653,184 B of cross K/V a slot, and the
+   64); (b) full-width seamless-m4t-large-v2 cut to 6 of its 24 encoder
+   and 6 of its 24 decoder layers (the smoke's time) on 8 requests of
+   32..512 decoder prompt tokens, each conditioned on 4096 frames
+   (``enc_len``), 128-token chunks, 32 new tokens, bf16 then int8 pages:
+   K1 a decode step a layer, K2 a prefill step a layer, K9 an encoder
+   layer a first-chunk prefill (continuation chunks run no encoder),
+   16,777,216 B of cross K/V a slot a decoder layer, and the
    engine's logits (recorded in the run, one device-to-host copy a step)
    held to single-request reference replays of its pool dtype by the dual
    gate;
-   (c) full-width llava-next-34b cut to 16 of 60 layers on 4 requests of
+   (c) full-width llava-next-34b cut to 8 of 60 layers on 4 requests of
    576 image + 64..512 text tokens (prefix cache asked for and refused,
    a 256-token chunk budget that never chunks), 32 new tokens: bf16, gated
    the same way, then speculation at K = 4 with n-gram and with oracle
@@ -268,6 +270,36 @@ Phases, each printing its own lines; any failed check exits non-zero:
    (seamless), causal D 128 once a layer (llava), none for the other
    two.  The K9-full entry adds the encoder's launches, the K9-D128 entry
    counts llava's and the K9-G1 entry the seamless decoder's.
+24. the attention logit softcap (run last; every scaled score becomes c *
+   tanh(s / c) before the mask): (a) K1, K1-int8, K1-ring(-int8), K2,
+   K2-int8, K2-D128, K3, K3-ring(-int8), K4 and K4-int8 in their softcap
+   mode at c = 50 (Gemma 2's, arXiv:2408.00118) against their plain
+   versions, with the shapes and checks of phases 2-9, beside the same
+   calls at c = 0, and in a saturating case (queries x 64: the largest
+   visible |s| at least 3c); their ``library_ms`` is one compiled
+   ``flex_attention`` call with a tanh ``score_mod`` and the same mask,
+   held to the capped attend in fp32 (SDPA has no softcap; its uncapped
+   time is kept as ``sdpa_uncapped_ms``); (b) full-width, full-depth
+   qwen2-0.5b capped, wq drawn at the gain that gives pre-cap scores of
+   std ``CAP_SCORE_SD`` (random weights give 0.008 at full depth, where
+   no cap acts): a witness serves 4 of phase 6's prompts uncapped and
+   replays their tokens capped at 50, 30, 20, 10, 5 in turn, taking the
+   first cap that moves a logit by more than 4 x the gate's 0.25; at that
+   cap ``phase_serve`` (K1, K2), ``phase_speculate`` (K3) and
+   ``phase_int8_serve`` without speculation on those prompts; (e) its
+   training: one step's loss and gradients on hopper against reference,
+   3 AdamW steps at B 2, S 512, K9 launched no time (the capped layers
+   take the chunked core, as JAX trains them); (c) minitron-4b cut to 2
+   layers through ``phase_serve`` (K2 at head dim 128); (d)
+   starcoder2-7b as phase 10 through ``phase_window_serve`` at the cap
+   (K4, K1 and K3 in ring mode); (f) c = 50 at pre-cap std
+   ``CAP_GAP_SD``, where it moves the logits (``cap_gap``): qwen2-0.5b
+   served at c = 0 and at 50; along each run's tokens every K1/K2 call
+   of a hopper replay held to its plain version on the model's own
+   inputs, the dual gate against the reference replay printed (peaked
+   attention at full depth spreads bf16 runs beyond it, capped or not),
+   and hopper's distance from a replay with fp32 parameters held within
+   ``CAP_GAP_RATIO`` x the bf16 reference's.
 
 In phases 7, 10, 13 and 16 a verify step's rows must equal decode steps
 at ``pos + j`` bit for bit, and in 10, 13 and 16 every speculative stream
@@ -324,15 +356,18 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense, NVIDIA data sheet
 L2_FLUSH_BYTES = 64 << 20      # > the H100's 50 MB L2
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 without tensor cores
+CAP_OPS = 3                    # the softcap's fp32 ops a score: /, tanh, *
 TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 LOGIT_TOL = 0.25               # dual-gate bound on max |dlogit|
 LOGIT_ROW_ULPS = 2.0           # command-r's bound, in bf16 ulps of the row
 K8_TOL = 1e-5                  # K8 vs plain in fp32 (another sum order)
 CLASSIFIER_LR = 1.0            # examples/quickstart.py's fine-tuning rate
 ULP_FLOOR = 2.0 ** -14         # least kernel-vs-plain bound (ulp at ~0.01)
+FLEX_ROW_ULPS = 4.0            # flex_attention's yardstick vs fp32, row ulps
 
-MINITRON_LAYERS = 8            # of 32: phase 12's depth cut
-STARCODER_LAYERS = 8           # of 32: phase 10's depth cut
+MINITRON_LAYERS = 2            # of 32: phase 12's depth cut
+STARCODER_LAYERS = 2           # of 32: phase 10's depth cut
+CR_LAYERS = 2                  # of 64: phase 13's depth cut
 
 # the main path's workload: 8 requests of 128..1024 prompt tokens sharing a
 # 64-token prefix, 16-token pages, 256-token prefill chunks, 32 new tokens
@@ -379,9 +414,14 @@ class Timer:
         return times[len(times) // 2]
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, capped_scores: int = 0):
+    """(least ms, what bounds it) of ``nbytes`` moved and ``flops`` on the
+    bf16 tensor cores; ``capped_scores``: the logit softcap's fp32 work
+    beside them, a division, a tanh and a product (``CAP_OPS``) a score,
+    over the fp32 rate of the units outside the tensor cores."""
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = max(flops / BF16_FLOPS_PER_S,
+                capped_scores * CAP_OPS / FP32_FLOPS_PER_S) * 1e3
     return (max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations")
 
 
@@ -404,18 +444,26 @@ def paged_pool(torch, rng, lengths, K, D, ps, width):
     return k, v, tables.cuda()
 
 
-def check_kernel(torch, name, got, want):
-    """Hold ``got`` to ``want`` element by element: |got - want| within one
-    bf16 ulp (8 significant bits) of the largest |want| in the element's
-    row (the last axis), never below ``ULP_FLOOR``.  Returns (max
-    |got - want|, worst ratio of error to bound)."""
+def ulp_ratio(torch, got, want):
+    """|got - want| element by element over one bf16 ulp (8 significant
+    bits) of the largest |want| in the element's row (the last axis),
+    never below ``ULP_FLOOR``.  Returns (max |got - want|, the worst
+    ratio, its flat index, the rows' largest |want| broadcast)."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     row = w.abs().amax(-1, keepdim=True).clamp_min(1e-30)
     tol = torch.exp2(torch.floor(torch.log2(row)) - 7).clamp_min(ULP_FLOOR)
     r = diff / tol
     at = int(r.argmax().item())
-    ratio, err = r.flatten()[at].item(), diff.max().item()
+    return diff.max().item(), r.flatten()[at].item(), at, row
+
+
+def check_kernel(torch, name, got, want):
+    """Hold ``got`` to ``want`` element by element: |got - want| within one
+    bf16 ulp of the largest |want| in the element's row (``ulp_ratio``).
+    Returns (max |got - want|, worst ratio of error to bound)."""
+    g, w = got.float(), want.float()
+    err, ratio, at, row = ulp_ratio(torch, g, w)
     ok = bool(torch.isfinite(g).all().item()) and ratio <= 1.0
     print(f"[smoke] {name}: max|kernel - plain| = {err:.6g}, worst "
           f"|kernel - plain| / (one bf16 ulp of the row's max |plain|, "
@@ -445,6 +493,95 @@ def rows_alone(torch, name, got, call):
     if not equal:
         fail(f"{name}: a row's result depends on the rest of its batch")
     return equal
+
+
+def capped_exact(torch, q4, kg, vg, mask, scale, G, softcap):
+    """The capped attend in fp32 on the gathered K/V, q4 [B, H, Sq, D]
+    against kg, vg [B, S, K, D] repeated to the query heads, keys that
+    ``mask`` hides dropped.  Returns (the largest |scaled score| of a
+    visible key before the cap, the output [B, H, Sq, D] fp32)."""
+    kh, vh = (t.float().transpose(1, 2).repeat_interleave(G, 1)
+              for t in (kg, vg))
+    s = torch.einsum("bhqd,bhsd->bhqs", q4.float(), kh) * scale
+    top = s.abs().masked_fill(~mask, 0.0).amax().item()
+    s = (softcap * torch.tanh(s / softcap)).masked_fill(~mask, -math.inf)
+    return top, torch.einsum("bhqs,bhsd->bhqd", s.softmax(-1), vh)
+
+
+_FLEX = {}                     # the compiled flex_attention, made once
+
+
+def flex_ms(torch, timer, q4, kg, vg, mask, scale, softcap):
+    """Time one compiled ``flex_attention`` call on the gathered K/V that
+    computes the capped attend: a ``score_mod`` of c * tanh(s / c) on the
+    scaled scores, a block mask made from ``mask`` (one for every head),
+    each K/V head shared by H / K query heads (``enable_gqa``).  The
+    first call compiles (one compile a shape) and is not timed.  Returns
+    (ms, compile seconds, the output [B, H, Sq, D])."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    if not _FLEX:
+        dyn = torch._dynamo.config
+        for key in ("recompile_limit", "cache_size_limit"):
+            if hasattr(dyn, key):
+                setattr(dyn, key, max(getattr(dyn, key), 64))
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    flex = _FLEX["fn"]
+    B, H, Sq, _ = q4.shape
+    kh, vh = (t.transpose(1, 2).contiguous() for t in (kg, vg))
+    seen = mask[:, 0].expand(B, Sq, kh.shape[2]).contiguous()
+
+    def cap(s, b, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    def visible(b, h, qi, ki):
+        return seen[b, qi, ki]
+    block = create_block_mask(visible, B, None, Sq, kh.shape[2],
+                              device="cuda")
+    q = q4.contiguous()
+
+    def call():
+        return flex(q, kh, vh, score_mod=cap, block_mask=block, scale=scale,
+                    enable_gqa=True)
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    return timer(call), compile_s, out
+
+
+def yardstick(torch, timer, q4, kg, vg, mask, scale, G, softcap=0.0):
+    """A paged attend's library numbers: ``library_ms``, one SDPA call on
+    the gathered K/V.  SDPA has no softcap: for a capped call
+    ``library_ms`` is one compiled ``flex_attention`` call (``flex_ms``),
+    held to the capped attend in fp32 (``capped_exact``) within
+    ``FLEX_ROW_ULPS`` row ulps, SDPA's uncapped time kept as
+    ``sdpa_uncapped_ms`` for context, and ``max_abs_score`` the largest
+    |scaled score| of a visible key before the cap."""
+    ms = sdpa_ms(torch, timer, q4, kg, vg, mask, scale, G)
+    if not softcap:
+        return {"library_ms": ms}
+    lib_ms, compile_s, out = flex_ms(torch, timer, q4, kg, vg, mask, scale,
+                                     softcap)
+    top, want = capped_exact(torch, q4, kg, vg, mask, scale, G, softcap)
+    _, ratio, _, _ = ulp_ratio(torch, out, want)
+    if not ratio <= FLEX_ROW_ULPS:
+        fail(f"flex_attention with the softcap is {ratio:.3g} row ulps "
+             f"from the capped attend: it computes another function")
+    return {"library_ms": lib_ms, "library": "flex_attention",
+            "library_row_ulps": ratio, "library_compile_s": compile_s,
+            "sdpa_uncapped_ms": ms, "max_abs_score": top}
+
+
+def lib_text(lib):
+    """The library part of a phase's timing line."""
+    if "sdpa_uncapped_ms" not in lib:
+        return f"sdpa {lib['library_ms']:.4f} ms"
+    return (f"flex_attention (tanh score_mod) {lib['library_ms']:.4f} ms "
+            f"({lib['library_row_ulps']:.3g} row ulps from fp32, compiled "
+            f"in {lib['library_compile_s']:.1f} s), sdpa (uncapped) "
+            f"{lib['sdpa_uncapped_ms']:.4f} ms, max |s| "
+            f"{lib['max_abs_score']:.1f}")
 
 
 def sdpa_ms(torch, timer, q4, kg, vg, mask, scale, G):
@@ -494,6 +631,12 @@ def quantized(torch, k, v):
     return k8, v8, ks, vs
 
 
+def cap_name(label: str, int8: bool, softcap: float) -> str:
+    """A kernel mode's name: ``label``, then ``-int8`` and ``-softcap``
+    for those modes."""
+    return label + ("-int8" if int8 else "") + ("-softcap" if softcap else "")
+
+
 def kv_bytes(tokens: int, K: int, D: int, int8: bool) -> int:
     """Bytes of K and V that ``tokens`` token slots hold: bf16 values, or
     int8 values plus one bf16 scale per token and head."""
@@ -501,24 +644,29 @@ def kv_bytes(tokens: int, K: int, D: int, int8: bool) -> int:
 
 
 def phase_decode(torch, rng, timer, int8=False, K=2, G=7, D=64,
-                 label="K1"):
+                 label="K1", softcap=0.0, q_gain=1.0):
     """K1 against its plain version at full-width decode shapes: qwen2's 2
     KV x 7 query heads of 64 by default, seamless-m4t's 16 x 1 of 64 or
     llava's 8 x 7 of 128 in phase 22; ``int8``: its int8 mode, on the pool
-    quantized by ``quantize_int8``."""
+    quantized by ``quantize_int8``; ``softcap``: its logit-softcap mode
+    (phase 24), the queries times ``q_gain`` (a power of 2: exact in
+    bf16)."""
     from repro_torch.kernels.paged_attention import (paged_decode,
                                                      paged_decode_plain)
     from repro_torch.models.attention import gather_kv
     B, ps, width = 8, 16, 128
-    H, name = K * G, label + ("-int8" if int8 else "")
+    H, name = K * G, cap_name(label, int8, softcap)
     pos = [2047, 1500, 1023, 1024, 15, 0, 777, 1900]   # page edges, 0, last
     k, v, tables = paged_pool(torch, rng, [p + 1 for p in pos], K, D, ps,
                               width)
     kw = dict(scale=1.0 / math.sqrt(D))
+    if softcap:
+        kw["softcap"] = softcap
     if int8:
         k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
     gen = torch.Generator(device="cuda").manual_seed(5 if int8 else 2)
-    q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16() \
+        * q_gain
     pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
     got = paged_decode(q, k, v, tables, pos_t, **kw)
     want = paged_decode_plain(q, k, v, tables, pos_t, **kw)
@@ -534,40 +682,44 @@ def phase_decode(torch, rng, timer, int8=False, K=2, G=7, D=64,
     kg, vg = gather_kv(k, v, tables, kw.get("k_scale"), kw.get("v_scale"))
     mask = (torch.arange(width * ps, device="cuda")[None, :]
             <= pos_t[:, None])[:, None, None, :]
-    library_ms = sdpa_ms(torch, timer, q[:, :, None, :], kg.bfloat16(),
-                         vg.bfloat16(), mask, kw["scale"], G)
+    lib = yardstick(torch, timer, q[:, :, None, :], kg.bfloat16(),
+                    vg.bfloat16(), mask, kw["scale"], G, softcap)
     live = sum(p + 1 for p in pos)
     nbytes = kv_bytes(live, K, D, int8) + 2 * q.numel() * 2 \
         + tables.numel() * 4 + B * 4
-    bms, by = bound(nbytes, live * H * D * 4)
+    bms, by = bound(nbytes, live * H * D * 4,
+                    live * H if softcap else 0)
     print(f"[smoke] {name} paged_decode: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
+          f"{plain_ms:.4f} ms, {lib_text(lib)}, bound {bms:.4f} ms "
           f"({by}: {nbytes / 1e6:.2f} MB of pages, q, out, tables)",
           flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "row_alone_bit_equal": alone}
+            **lib, "row_alone_bit_equal": alone}
 
 
 def phase_prefill(torch, rng, timer, int8=False, K=2, G=7, D=64,
-                  label="K2"):
+                  label="K2", softcap=0.0, q_gain=1.0):
     """K2 against its plain version at full-width chunk shapes: qwen2's 2
     KV x 7 query heads of 64 by default, minitron-4b's 8 x 3 of 128 with
     ``K=8, G=3, D=128``; ``int8``: its int8 mode, on the pool quantized by
-    ``quantize_int8``."""
+    ``quantize_int8``; ``softcap`` and ``q_gain`` as ``phase_decode``."""
     from repro_torch.kernels.ragged_prefill import (ragged_prefill,
                                                     ragged_prefill_plain)
     from repro_torch.models.attention import gather_kv
     B, ps, T, width = 8, 16, 256, 128
-    H, name = K * G, label + ("-int8" if int8 else "")
+    H, name = K * G, cap_name(label, int8, softcap)
     kw = dict(scale=1.0 / math.sqrt(D))
+    if softcap:
+        kw["softcap"] = softcap
     starts = [256 * i for i in range(B)]
     k, v, tables = paged_pool(torch, rng, [s + T for s in starts], K, D, ps,
                               width)
     if int8:
         k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
     gen = torch.Generator(device="cuda").manual_seed(6 if int8 else 3)
-    q = torch.randn((B, T, H, D), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda").bfloat16() \
+        * q_gain
     st = torch.tensor(starts, dtype=torch.int32, device="cuda")
     got = ragged_prefill(q, k, v, tables, st, **kw)
     want = ragged_prefill_plain(q, k, v, tables, st, **kw)
@@ -594,20 +746,20 @@ def phase_prefill(torch, rng, timer, int8=False, K=2, G=7, D=64,
     qpos = st[:, None] + torch.arange(T, device="cuda")[None, :]
     mask = (torch.arange(width * ps, device="cuda")[None, None, :]
             <= qpos[:, :, None])[:, None]
-    library_ms = sdpa_ms(torch, timer, q.transpose(1, 2), kg.bfloat16(),
-                         vg.bfloat16(), mask, kw["scale"], G)
+    lib = yardstick(torch, timer, q.transpose(1, 2), kg.bfloat16(),
+                    vg.bfloat16(), mask, kw["scale"], G, softcap)
     keys = sum(s + T for s in starts)
     pairs = sum(T * s + T * (T + 1) // 2 for s in starts)   # causal (q, k)
     nbytes = kv_bytes(keys, K, D, int8) + 2 * q.numel() * 2 \
         + tables.numel() * 4 + B * 4
-    bms, by = bound(nbytes, pairs * H * D * 4)
+    bms, by = bound(nbytes, pairs * H * D * 4, pairs * H if softcap else 0)
     print(f"[smoke] {name} ragged_prefill: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
+          f"{plain_ms:.4f} ms, {lib_text(lib)}, bound {bms:.4f} ms "
           f"({by}: {pairs * H * D * 4 / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB)", flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "chunk_split_bit_equal": split_equal}
+            **lib, "chunk_split_bit_equal": split_equal}
 
 
 def verify_inputs(torch, rng, K=2, G=7, D=64):
@@ -642,19 +794,20 @@ def verify_mask(torch, pos, n_q, Q, S):
 
 
 def phase_verify(torch, rng, timer, int8=False, K=2, G=7, D=64,
-                 label="K3"):
+                 label="K3", softcap=0.0, q_gain=1.0):
     """K3 against its plain version at full-width verify shapes
     (``verify_inputs``), and with one live query per row against K1 bit for
-    bit."""
+    bit; ``softcap`` and ``q_gain`` as ``phase_decode``."""
     from repro_torch.kernels.paged_attention import (paged_decode,
                                                      paged_verify,
                                                      paged_verify_plain)
     from repro_torch.models.attention import gather_kv
     q, k, v, tables, pos, n_q, G = verify_inputs(torch, rng, K, G, D)
+    q = q * q_gain
     B, Q, H, D = q.shape
     K, scale = H // G, 1.0 / math.sqrt(D)
-    name = label + ("-int8" if int8 else "")
-    kw = {}
+    name = cap_name(label, int8, softcap)
+    kw = {"softcap": softcap} if softcap else {}
     if int8:
         k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
     got = paged_verify(q, k, v, tables, pos, n_q, scale=scale, **kw)
@@ -684,21 +837,22 @@ def phase_verify(torch, rng, timer, int8=False, K=2, G=7, D=64,
                                                 scale=scale, **kw))
     kg, vg = gather_kv(k, v, tables, kw.get("k_scale"), kw.get("v_scale"))
     mask = verify_mask(torch, pos, n_q, Q, kg.shape[1])
-    library_ms = sdpa_ms(torch, timer, q.transpose(1, 2), kg.bfloat16(),
-                         vg.bfloat16(), mask.expand(B, H, Q, -1), scale, G)
+    lib = yardstick(torch, timer, q.transpose(1, 2), kg.bfloat16(),
+                    vg.bfloat16(), mask.expand(B, H, Q, -1), scale, G,
+                    softcap)
     live = [(int(p), int(n)) for p, n in zip(pos.tolist(), n_q.tolist())]
     keys = sum(p + n for p, n in live)
     pairs = sum(p + j + 1 for p, n in live for j in range(n))
     nbytes = kv_bytes(keys, K, D, int8) + 2 * q.numel() * 2 \
         + tables.numel() * 4 + 2 * B * 4
-    bms, by = bound(nbytes, pairs * H * D * 4)
+    bms, by = bound(nbytes, pairs * H * D * 4, pairs * H if softcap else 0)
     print(f"[smoke] {name} paged_verify: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
+          f"{plain_ms:.4f} ms, {lib_text(lib)}, bound {bms:.4f} ms "
           f"({by}: {nbytes / 1e6:.2f} MB of live pages, q, out, tables)",
           flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "n_q1_bit_equal_k1": bit_equal,
+            **lib, "n_q1_bit_equal_k1": bit_equal,
             "row_alone_bit_equal": alone}
 
 
@@ -725,29 +879,33 @@ SC_CHUNKS = ((0, 256), (3840, 256), (4352, 256), (5888, 200))
 
 
 def phase_windowed_prefill(torch, rng, timer, int8=False, chunks=SC_CHUNKS,
-                           label="K4"):
+                           label="K4", softcap=0.0, q_gain=1.0):
     """K4 against its plain version at full-width starcoder2-7b chunk
     shapes: by default B=4 chunks of 256 at starts 0, 3840, 4352 and 5888
     (the last one with 200 live tokens) over 257-page pre-write rings: one
     chunk starts on an empty ring, two read a wrapped ring, and those two
     cross the window; ``chunks``: other (start, live tokens) pairs, one a
-    request; ``int8``: int8 ring pages, the fresh K/V bf16.  Padding rows
-    must be exact zeros, and each request alone must give its rows in the
-    batch bit for bit."""
+    request; ``int8``: int8 ring pages, the fresh K/V bf16; ``softcap``
+    and ``q_gain`` as ``phase_decode``.  Padding rows must be exact zeros,
+    and each request alone must give its rows in the batch bit for
+    bit."""
     from repro_torch.kernels.ragged_prefill import (windowed_prefill,
                                                     windowed_prefill_plain)
     from repro_torch.models.attention import gather_kv, ring_chunk_mask
     from repro_torch.models.cache_spec import window_pages
     B, K, G, D, ps, T, window = len(chunks), SC_K, SC_G, SC_D, PAGE, 256, \
         SC_WINDOW
-    H, name = K * G, label + ("-int8" if int8 else "")
+    H, name = K * G, cap_name(label, int8, softcap)
     n_ring = window_pages(window, ps)
     k, v, tables = ring_pool(torch, rng, B, n_ring, K, D, ps)
     kw = dict(scale=1.0 / math.sqrt(D), window=window)
+    if softcap:
+        kw["softcap"] = softcap
     if int8:
         k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
     gen = torch.Generator(device="cuda").manual_seed(9 if int8 else 8)
-    q = torch.randn((B, T, H, D), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda").bfloat16() \
+        * q_gain
     kn = torch.randn((B, T, K, D), generator=gen, device="cuda").bfloat16()
     vn = torch.randn((B, T, K, D), generator=gen, device="cuda").bfloat16()
     st = torch.tensor([c[0] for c in chunks], dtype=torch.int32,
@@ -772,21 +930,21 @@ def phase_windowed_prefill(torch, rng, timer, int8=False, chunks=SC_CHUNKS,
     kr, vr = gather_kv(k, v, tables, kw.get("k_scale"), kw.get("v_scale"))
     kc = torch.cat([kr.bfloat16(), kn], 1)
     vc = torch.cat([vr.bfloat16(), vn], 1)
-    library_ms = sdpa_ms(torch, timer, q.transpose(1, 2), kc, vc,
-                         seen[:, None], kw["scale"], G)
+    lib = yardstick(torch, timer, q.transpose(1, 2), kc, vc, seen[:, None],
+                    kw["scale"], G, softcap)
     pairs = int((seen & live[:, :, None]).sum().item())     # (row, key)
     used = int(seen.any(1).sum().item())        # key slots some row sees
     nbytes = kv_bytes(used, K, D, int8) \
         + 2 * (q.numel() + kn.numel() + vn.numel()) * 2 \
         + tables.numel() * 4 + 2 * B * 4
-    bms, by = bound(nbytes, pairs * H * D * 4)
+    bms, by = bound(nbytes, pairs * H * D * 4, pairs * H if softcap else 0)
     print(f"[smoke] {name} windowed_prefill: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms "
+          f"{plain_ms:.4f} ms, {lib_text(lib)}, bound {bms:.4f} ms "
           f"({by}: {pairs * H * D * 4 / 1e9:.2f} GFLOP over {pairs} "
           f"(query, key) pairs, {nbytes / 1e6:.2f} MB)", flush=True)
     return {"max_abs_err": err, "err_over_ulp": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "row_alone_bit_equal": alone}
+            **lib, "row_alone_bit_equal": alone}
 
 
 # starcoder2-7b's ring cases: K1 at B=4 over 257-page rings at positions 15
@@ -804,12 +962,12 @@ CR_RING_CASES = (("K3-ring", 4, 1, [6000, 15, 4120, 5000], [5, 1, 3, 5]),)
 
 
 def phase_ring(torch, rng, timer, int8=False, K=SC_K, G=SC_G,
-               cases=SC_RING_CASES, label=""):
+               cases=SC_RING_CASES, label="", softcap=0.0, q_gain=1.0):
     """K1 and K3 in ring mode against their plain versions at full-width
     shapes (starcoder2-7b's by default; ``cases`` as ``SC_RING_CASES``),
     and K3 with one live query per row against K1 on the same ring bit
     for bit.  Returns {kernel id: numbers}; ``label`` is added to the
-    printed names."""
+    printed names; ``softcap`` and ``q_gain`` as ``phase_decode``."""
     from repro_torch.kernels.paged_attention import (paged_decode,
                                                      paged_decode_plain,
                                                      paged_verify,
@@ -818,7 +976,7 @@ def phase_ring(torch, rng, timer, int8=False, K=SC_K, G=SC_G,
                                               verify_valid_mask)
     from repro_torch.models.cache_spec import window_pages
     D, ps, window = SC_D, PAGE, SC_WINDOW
-    H, sfx = K * G, "-int8" if int8 else ""
+    H, sfx = K * G, cap_name("", int8, softcap)
     scale = 1.0 / math.sqrt(D)
     out = {}
     for kid, B, slack, pos, live_q in cases:
@@ -827,6 +985,8 @@ def phase_ring(torch, rng, timer, int8=False, K=SC_K, G=SC_G,
         n = n_ring * ps
         k, v, tables = ring_pool(torch, rng, B, n_ring, K, D, ps)
         kw = dict(scale=scale, window=window)
+        if softcap:
+            kw["softcap"] = softcap
         if int8:
             k, v, kw["k_scale"], kw["v_scale"] = quantized(torch, k, v)
         gen = torch.Generator(device="cuda").manual_seed(11 + B + int8)
@@ -835,7 +995,7 @@ def phase_ring(torch, rng, timer, int8=False, K=SC_K, G=SC_G,
                            kw.get("v_scale"))
         if kid == "K1-ring":
             q = torch.randn((B, H, D), generator=gen,
-                            device="cuda").bfloat16()
+                            device="cuda").bfloat16() * q_gain
             args = (q, k, v, tables, pos_t)
             fn, plain = paged_decode, paged_decode_plain
             seen = decode_valid_mask(pos_t, n, window=window)[:, None]
@@ -846,7 +1006,7 @@ def phase_ring(torch, rng, timer, int8=False, K=SC_K, G=SC_G,
         else:
             Q = 5
             q = torch.randn((B, Q, H, D), generator=gen,
-                            device="cuda").bfloat16()
+                            device="cuda").bfloat16() * q_gain
             n_q = torch.tensor(live_q, dtype=torch.int32, device="cuda")
             args = (q, k, v, tables, pos_t, n_q)
             fn, plain = paged_verify, paged_verify_plain
@@ -880,17 +1040,18 @@ def phase_ring(torch, rng, timer, int8=False, K=SC_K, G=SC_G,
                 fail(f"{name} at n_q = 1 differs from K1-ring{label}{sfx}")
         ms = timer(lambda: fn(*args, **kw))
         plain_ms = timer(lambda: plain(*args, **kw))
-        library_ms = sdpa_ms(torch, timer, q4, kg.bfloat16(), vg.bfloat16(),
-                             mask, scale, G)
+        lib = yardstick(torch, timer, q4, kg.bfloat16(), vg.bfloat16(),
+                        mask, scale, G, softcap)
         nbytes = kv_bytes(used, K, D, int8) + 2 * q.numel() * 2 \
             + tables.numel() * 4 + 2 * B * 4
-        bms, by = bound(nbytes, pairs * H * D * 4)
+        bms, by = bound(nbytes, pairs * H * D * 4,
+                        pairs * H if softcap else 0)
         print(f"[smoke] {name} {fn.__name__}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+              f"{plain_ms:.4f} ms, {lib_text(lib)}, bound "
               f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB of ring K/V seen, "
               f"q, out, tables)", flush=True)
         res.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   library_ms=library_ms)
+                   **lib)
         out[kid] = res
     return out
 
@@ -1391,10 +1552,11 @@ def serve_kwargs():
                 prefix_cache=True, prefill_chunk_tokens=CHUNK)
 
 
-def phase_serve(torch, cfg, seed, profile=True):
+def phase_serve(torch, cfg, seed, profile=True, params=None, prompts=None):
     """Serve ``cfg`` on the hopper backend, then on the reference backend,
     and hold them to each other (``profile``: with a profiled rerun of the
-    hopper requests between).  Returns (launch counts of the hopper run,
+    hopper requests between); ``params`` and ``prompts`` are drawn from
+    ``seed`` unless given.  Returns (launch counts of the hopper run,
     dual-gate report, params, prompts, hopper tokens, replay cache)."""
     from repro_torch.configs import ServeConfig
     from repro_torch.kernels.paged_attention import paged_decode
@@ -1402,19 +1564,21 @@ def phase_serve(torch, cfg, seed, profile=True):
     from repro_torch.models.params import tree_leaves
     from repro_torch.models.registry import init_params
     from repro_torch.serving import Engine, dual_gate, replay_logits
-    rng = np.random.RandomState(seed)
-    prompts = serving_workload(rng, cfg.vocab)
+    if prompts is None:
+        prompts = serving_workload(np.random.RandomState(seed), cfg.vocab)
     kw = serve_kwargs()
     scfg = ServeConfig(attn_backend="hopper", **kw)
     ref_scfg = ServeConfig(attn_backend="reference", **kw)
     device = "cuda"
     with torch.no_grad():
         t0 = time.perf_counter()
-        params = init_params(cfg, seed, device)
+        if params is None:
+            params = init_params(cfg, seed, device)
         torch.cuda.synchronize()
         n_params = sum(leaf.numel() for _, leaf in tree_leaves(params))
-        print(f"[smoke] {cfg.name}: {n_params / 1e6:.1f} M parameters drawn "
-              f"on {device} in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"[smoke] {cfg.name}: {n_params / 1e6:.1f} M parameters, "
+              f"{cfg.n_layers} layers, softcap {cfg.attn_logit_softcap}, on "
+              f"{device} in {time.perf_counter() - t0:.1f} s", flush=True)
         eng = Engine(cfg, scfg, params, seed=seed, device=device)
         paged_decode.launches = 0
         ragged_prefill.launches = 0
@@ -1972,10 +2136,13 @@ def window_serve_kwargs():
 
 
 def phase_window_serve(torch, seed, arch="starcoder2-7b", n_layers=None,
-                       why="", profile=True, tol_row_ulps=None):
-    """A sliding-window path at full width (random weights from ``seed``):
-    ``arch`` at full depth, or cut to ``n_layers`` layers for the reason
-    ``why``; served on the hopper backend, bf16 (K4 for every prefill
+                       why="", profile=True, tol_row_ulps=None, softcap=0.0,
+                       score_sd=None):
+    """A sliding-window path at full width (random weights from ``seed``;
+    with ``score_sd``, wq at the gain that gives that pre-cap score std,
+    ``capped_params``): ``arch`` at full depth, or cut to ``n_layers``
+    layers for the reason ``why``, its scores capped at ``softcap``;
+    served on the hopper backend, bf16 (K4 for every prefill
     chunk, K1 in ring mode for every decode step), then with K = 4 n-gram
     speculation (K3 in ring mode), then int8 pages without and with
     speculation.  Every run is held to the reference replay along its own
@@ -1992,8 +2159,8 @@ def phase_window_serve(torch, seed, arch="starcoder2-7b", n_layers=None,
     from repro_torch.serving import dual_gate
     cfg = get_arch(arch)
     depth = cfg.n_layers
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or depth,
+                              attn_logit_softcap=softcap)
     L = cfg.n_layers
     rng = np.random.RandomState(seed + 1)
     prompts = [rng.randint(1, cfg.vocab, size=n).tolist() for n in SC_PROMPTS]
@@ -2001,7 +2168,8 @@ def phase_window_serve(torch, seed, arch="starcoder2-7b", n_layers=None,
     counts, out = {}, {}
     with torch.no_grad():
         t0 = time.perf_counter()
-        params = init_params(cfg, seed, "cuda")
+        params = init_params(cfg, seed, "cuda") if score_sd is None \
+            else capped_params(torch, cfg, seed, score_sd)[0]
         torch.cuda.synchronize()
         n_params = sum(leaf.numel() for _, leaf in tree_leaves(params))
         cut = f" (depth cut from {depth}: {why})" if L != depth else ""
@@ -2009,7 +2177,9 @@ def phase_window_serve(torch, seed, arch="starcoder2-7b", n_layers=None,
               f"{L} layers{cut}, d_model {cfg.d_model}, {cfg.n_heads} query "
               f"/ {cfg.n_kv_heads} KV heads of {cfg.head_dim_}, d_ff "
               f"{cfg.d_ff}, vocab {cfg.vocab}, window {cfg.sliding_window}, "
-              f"drawn on cuda in {time.perf_counter() - t0:.1f} s", flush=True)
+              f"softcap {softcap}, pre-cap score std "
+              f"{score_sd or 'as drawn'}, drawn on cuda in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         replay = Replays(cfg, params, prompts, {}, base=base)
         base_tokens, plain_tokens = None, {}
         for label, kv, k in (("bf16", "bf16", 0),
@@ -2099,9 +2269,9 @@ def phase_window_serve(torch, seed, arch="starcoder2-7b", n_layers=None,
     return counts, out
 
 
-# deepseek-v2-236b's depth cut: layer 0 dense and 3 MoE layers of 60 at
-# full width, 26.6 GB of bf16 weights (60 layers would be ~470 GB)
-DS_LAYERS = 4
+# deepseek-v2-236b's depth cut: layer 0 dense and 1 MoE layer of 60 at
+# full width (60 layers would be ~470 GB of bf16 weights)
+DS_LAYERS = 2
 
 
 def phase_mla_serve(torch, seed):
@@ -3004,6 +3174,7 @@ def train_run(torch, seed):
 # local-attention window, so that its ring wraps inside a prefill and
 # during decode
 RG_PROMPTS = (1500, 2040, 2100, 3000)
+SS_LAYERS = {"mamba2-780m": 12}   # of 48: phase 21's depth cut
 STATE_FAULT = "nan_logits:rid=1,at=4"
 
 
@@ -3094,6 +3265,8 @@ def phase_state_slots(torch, seed):
     for arch in ("mamba2-780m", "recurrentgemma-2b"):
         t_arch = time.perf_counter()
         cfg = get_arch(arch)
+        if arch in SS_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=SS_LAYERS[arch])
         prompts, kw = state_workload(cfg, seed)
         scfg = ServeConfig(attn_backend="hopper", **kw)
         rep = {"layers": cfg.n_layers,
@@ -3232,13 +3405,15 @@ def phase_state_slots(torch, seed):
     return out
 
 
-# phase 22: seamless-m4t-large-v2 at full width and depth, 8 requests of
+# phase 22: seamless-m4t-large-v2 at full width, SM_LAYERS + SM_LAYERS of
+# its 24 + 24 layers, 8 requests of
 # 32..512 decoder prompt tokens, each conditioned on 4096 frames (the JAX
 # package's ENC_LEN_DECODE), 128-token chunks; llava-next-34b at full width
-# cut to 16 of 60 layers, 4 requests of 576 image + 64..512 text tokens
+# cut to 8 of 60 layers, 4 requests of 576 image + 64..512 text tokens
 SM_ENC_LEN, SM_CHUNK = 4096, 128
+SM_LAYERS = 6                  # encoder and decoder layers, of 24 + 24
 SM_PROMPTS = [int(x) for x in np.linspace(32, 512, 8)]
-LV_LAYERS = 16
+LV_LAYERS = 8
 LV_PROMPTS = [int(x) for x in np.linspace(64, 512, 4)]
 
 
@@ -3308,9 +3483,11 @@ def phase_frontend_families(torch, rng, timer, seed):
     out = {"kernel_checks_s": time.perf_counter() - t_phase}
     counts = {}
 
-    # (b) seamless-m4t-large-v2: 24 + 24 layers, bf16 then int8 pages
+    # (b) seamless-m4t-large-v2: SM_LAYERS + SM_LAYERS layers, bf16 then
+    # int8 pages
     t0 = time.perf_counter()
-    cfg = get_arch("seamless-m4t-large-v2")
+    cfg = dataclasses.replace(get_arch("seamless-m4t-large-v2"),
+                              n_enc_layers=SM_LAYERS, n_dec_layers=SM_LAYERS)
     L = cfg.n_dec_layers
     prompts = [rng.randint(1, cfg.vocab, size=n).tolist() for n in SM_PROMPTS]
     base = dict(page_size=PAGE, max_slots=len(prompts),
@@ -3329,7 +3506,8 @@ def phase_frontend_families(torch, rng, timer, seed):
             first = m["prefill_steps"] - m["chunked_prefill_steps"]
             r = {**frontend_metrics(m), "slot_bytes": slot,
                  "launches": {k: c[k] for k in ("K1", "K2", "K9")}}
-            print(f"[smoke] {label} (24 + 24 layers, "
+            print(f"[smoke] {label} ({SM_LAYERS} + {SM_LAYERS} of 24 + 24 "
+                  "layers, "
                   f"{rep['parameters'] / 1e9:.3f} B parameters, hopper, "
                   f"{CARD}): {m['n_requests']} requests, {m['new_tokens']} "
                   f"tokens in {m['wall_s']:.3f} s = {m['tokens_per_s']:.1f} "
@@ -3368,7 +3546,7 @@ def phase_frontend_families(torch, rng, timer, seed):
     rep["seconds"] = time.perf_counter() - t0
     out["seamless-m4t-large-v2"] = rep
 
-    # (c) llava-next-34b at full width, 16 of 60 layers: bf16, then n-gram
+    # (c) llava-next-34b at full width, 8 of 60 layers: bf16, then n-gram
     # speculation at K = 4, whose stream must equal the plain one
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_arch("llava-next-34b"), n_layers=LV_LAYERS)
@@ -3782,6 +3960,440 @@ def phase_train_families(torch, timer, seed):
     return counts, kern, out
 
 
+# phase 24: the attention logit softcap (``cfg.attn_logit_softcap``: every
+# scaled score becomes c * tanh(s / c) before the mask) through K1-K4.  No
+# registered arch sets a cap; Gemma 2 caps its attention logits at 50
+# (arXiv:2408.00118).  Capped configs are registered ones with the cap set
+# (``dataclasses.replace``), as the JAX tests build them.
+CAP = 50.0                     # Gemma 2's attention logit softcap
+CAP_WITNESS = (50.0, 30.0, 20.0, 10.0, 5.0)   # the witness's caps, in order
+CAP_WITNESS_MIN = 4 * LOGIT_TOL    # the least max |dlogit| the cap must make
+CAP_SAT_GAIN = 64              # saturating case: q x 64 (exact in bf16)
+# Random weights give pre-cap scores of std d_model * std(wq) * std(wk)
+# (unit-RMS inputs; 0.008 at full-depth qwen2-0.5b, whose stacked init
+# counts the layer axis in the fan-in), where no cap of 5 or more acts.
+# Phase 24's models draw wq at the gain that gives them std CAP_SCORE_SD,
+# as a trained model's attention logits spread: the largest of a few
+# thousand keys then reach about 3.5 x that.
+CAP_SCORE_SD = 3.0
+# At std 4, c = 50 moves full-depth qwen2's logits by more than
+# CAP_WITNESS_MIN; phase 24 (f) runs it there, beside the uncapped model.
+CAP_GAP_SD = 4.0
+CAP_GAP_RATIO = 1.25           # hopper's distance from fp32 / reference's
+CAP_PROMPTS = (1, 3, 5, 7)     # qwen2: 4 of the main path's 8 prompts
+CAP_MT_LAYERS = 2              # minitron-4b, of 32: K2 at head dim 128
+
+
+def capped_params(torch, cfg, seed, sd=CAP_SCORE_SD):
+    """``init_params(cfg, seed)`` on the card with every layer's wq times
+    the gain that gives pre-cap scores of std ``sd``: a score is the
+    scaled dot of q and k over the head dim, each a d_model-long sum of
+    unit-RMS inputs times weights, so its std is d_model * std(wq) *
+    std(wk).  Returns (params, gain)."""
+    from repro_torch.models.registry import init_params
+    params = init_params(cfg, seed, "cuda")
+    attn = params["blocks"]["attn"]
+    gain = sd / (cfg.d_model * attn["wq"].float().std().item()
+                 * attn["wk"].float().std().item())
+    attn["wq"].mul_(gain)
+    return params, gain
+
+
+def shadow_backend(torch):
+    """The ``shadow`` attention backend, registered on first use: hopper's
+    K1-K4, each call also run through its plain version on the same
+    inputs and on those inputs in fp32 (exact p, fp32 out).  ``.worst``
+    keeps by kernel mode the worst ``ulp_ratio`` over the live rows of
+    kernel vs plain, kernel vs fp32 and plain vs fp32.  Its outputs are
+    hopper's."""
+    from repro_torch.models import attn_backend as ab
+    if "shadow" in ab.available_backends():
+        return ab.get_backend("shadow")
+    ref = ab.get_backend("reference")
+
+    def mode(kid, kw):
+        ring = "-ring" if kw.get("window") and kid != "K4" else ""
+        return kid + ring + ("-int8" if kw.get("k_scale") is not None
+                             else "")
+
+    def f32(t):
+        return t.float() if torch.is_tensor(t) and t.is_floating_point() \
+            else t
+
+    @ab.register_backend
+    class Shadow(ab.HopperBackend):
+        name = "shadow"
+        worst = {}
+
+        def hold(self, kid, got, plain, q, args, kw, live=None):
+            exact = plain(f32(q), *map(f32, args),
+                          **{k: f32(v) for k, v in kw.items()})
+            want = plain(q, *args, **kw)
+            if live is not None:        # rows past a request's live ones
+                got, want, exact = (t * live[:, :, None, None]
+                                    for t in (got, want, exact))
+            w = self.worst.setdefault(kid, dict.fromkeys(
+                ("kernel_vs_plain", "kernel_vs_fp32", "plain_vs_fp32"), 0.0))
+            for key, a, b in (("kernel_vs_plain", got, want),
+                              ("kernel_vs_fp32", got, exact),
+                              ("plain_vs_fp32", want, exact)):
+                w[key] = max(w[key], ulp_ratio(torch, a, b)[1])
+
+        def decode_attend(self, q, *args, **kw):
+            got = super().decode_attend(q, *args, **kw)
+            self.hold(mode("K1", kw), got, ref.decode_attend, q, args, kw)
+            return got
+
+        def prefill_attend(self, q, *args, **kw):
+            got = super().prefill_attend(q, *args, **kw)
+            live = torch.arange(q.shape[1], device=q.device)[None, :] \
+                < args[6][:, None]                          # n_live
+            self.hold(mode("K4" if kw.get("window") else "K2", kw), got,
+                      ref.prefill_attend, q, args, kw, live)
+            return got
+
+        def verify_attend(self, q, *args, **kw):
+            got = super().verify_attend(q, *args, **kw)
+            live = torch.arange(q.shape[1], device=q.device)[None, :] \
+                < args[4][:, None]                          # n_q
+            self.hold(mode("K3", kw), got, ref.verify_attend, q, args, kw,
+                      live)
+            return got
+    return ab.get_backend("shadow")
+
+
+def cap_gap(torch, seed, sd=CAP_GAP_SD, cap=CAP):
+    """Phase 24 (f): qwen2-0.5b at full width and depth, wq at the gain
+    that gives pre-cap scores of std ``sd``, served on hopper at softcap
+    ``cap``.  Along the run's tokens, at softcap ``cap`` and at 0, replays
+    on the ``shadow`` backend (hopper, every K1/K2 call also held to its
+    plain version and to its fp32 attend on the model's own inputs), on
+    the reference backend, and on the reference with the parameters in
+    fp32 (pages bf16).  Prints hopper's distance from the reference (the
+    capped run's dual gate, not gated: peaked attention at this depth
+    spreads bf16 runs apart, capped or not), each bf16 replay's distance
+    from the fp32 one, and the witness (hopper capped vs uncapped).
+    Fails when a kernel mode's calls lie further from their fp32 attend
+    than its plain version's do plus one row ulp, when hopper lies
+    further from fp32 than ``CAP_GAP_RATIO`` x the reference does, or
+    when the cap moves no logit by more than ``CAP_WITNESS_MIN``.
+    Returns the report."""
+    from repro_torch.configs import ServeConfig, get_arch
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import dual_gate, replay_logits
+    t0 = time.perf_counter()
+    cfg0 = get_arch("qwen2-0.5b")
+    params, gain = capped_params(torch, cfg0, seed, sd)
+    p32 = tree_map(lambda t: t.float(), params)
+    prompts = [serving_workload(np.random.RandomState(seed), cfg0.vocab)[i]
+               for i in CAP_PROMPTS]
+    base = {**serve_kwargs(), "max_slots": len(prompts)}
+    scfg = ServeConfig(**base)
+    shadow = shadow_backend(torch)
+    tokens, m, counts, eng = serve_run(
+        torch, dataclasses.replace(cfg0, attn_logit_softcap=cap), params,
+        prompts, f"{cfg0.name} std {sd} softcap {cap}", base=base)
+    del eng
+
+    def replays(cfg, backend, prm):
+        return [replay_logits(cfg, scfg, prm, p, t, attn_backend=backend)
+                for p, t in zip(prompts, tokens)]
+
+    def dist(a, b):
+        per = np.concatenate([np.abs(x - y).max(-1) for x, y in zip(a, b)])
+        return float(per.max()), float(np.median(per))
+    out = {"score_sd": sd, "wq_gain": gain, "cap": cap,
+           "launches": {k: n for k, n in counts.items() if n}}
+    hops = {}
+    for c in (cap, 0.0):
+        cfg = dataclasses.replace(cfg0, attn_logit_softcap=c)
+        shadow.worst.clear()
+        hops[c] = hop = replays(cfg, "shadow", params)
+        ref = replays(cfg, "reference", params)
+        f32 = replays(cfg, "reference", p32)
+        (d_max, d_med), (h_max, h_med), (r_max, r_med) = (
+            dist(hop, ref), dist(hop, f32), dist(ref, f32))
+        worst = {k: dict(w) for k, w in shadow.worst.items()}
+        rep = dual_gate(ref, hop, tokens, tol=LOGIT_TOL) if c else None
+        print(f"[smoke] {cfg.name} at pre-cap score std {sd}, softcap {c}, "
+              f"along the softcap-{cap} run's tokens: hopper vs reference "
+              f"replay max |dlogit| {d_max:.5f} (the gate's {LOGIT_TOL}: "
+              f"{'within' if d_max <= LOGIT_TOL else 'beyond'}; not gated)"
+              f", median {d_med:.5f}"
+              + (f", {rep['greedy_equal_tokens']}/{rep['n_tokens']} tokens "
+                 f"equal the reference's greedy token, "
+                 f"{rep['high_margin_mismatches']} high-margin mismatches"
+                 if rep else "")
+              + f"; from the fp32 replay: hopper max {h_max:.5f} median "
+              f"{h_med:.5f}, reference max {r_max:.5f} median {r_med:.5f}; "
+              f"every kernel call on the model's inputs, worst row ulps "
+              f"(kernel vs plain, kernel vs fp32, plain vs fp32): "
+              + ", ".join(f"{k} {w['kernel_vs_plain']:.3g} / "
+                          f"{w['kernel_vs_fp32']:.3g} / "
+                          f"{w['plain_vs_fp32']:.3g}"
+                          for k, w in worst.items()), flush=True)
+        if any(w["kernel_vs_fp32"] > w["plain_vs_fp32"] + 1.0
+               for w in worst.values()):
+            fail(f"{cfg.name} at softcap {c}: a kernel lies further from the "
+                 "fp32 attend than its plain version plus one row ulp")
+        if h_max > CAP_GAP_RATIO * r_max:
+            fail(f"{cfg.name} at softcap {c}: hopper lies further from fp32 "
+                 f"than {CAP_GAP_RATIO} x the reference does")
+        out[f"softcap_{c:g}"] = {
+            "hopper_vs_reference": [d_max, d_med],
+            "hopper_vs_fp32": [h_max, h_med],
+            "reference_vs_fp32": [r_max, r_med], "kernel_row_ulps": worst,
+            **({k: rep[k] for k in ("greedy_equal_tokens", "n_tokens",
+                                    "high_margin_mismatches")}
+               if rep else {})}
+    out["witness_max_logit_delta"] = dist(hops[cap], hops[0.0])[0]
+    print(f"[smoke] softcap witness at pre-cap score std {sd}: "
+          f"{cfg0.name} along the same tokens, hopper at softcap {cap} vs "
+          f"none: max |dlogit| {out['witness_max_logit_delta']:.4f} (needs "
+          f"> {CAP_WITNESS_MIN})", flush=True)
+    if out["witness_max_logit_delta"] <= CAP_WITNESS_MIN:
+        fail(f"softcap witness at std {sd}: softcap {cap} moves no logit by "
+             f"more than {CAP_WITNESS_MIN}")
+    del params, p32
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def cap_witness(torch, cfg0, params, prompts, base):
+    """Serve ``prompts`` on hopper without a cap, then replay the run's
+    tokens on hopper without a cap and at each cap of ``CAP_WITNESS`` in
+    turn; the first cap whose replay parts from the uncapped one by more
+    than ``CAP_WITNESS_MIN`` in some logit is the phase's.  Returns (cap,
+    {cap: max |dlogit|})."""
+    import dataclasses
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serving import replay_logits
+    tokens, m, c, eng = serve_run(torch, cfg0, params, prompts,
+                                  f"{cfg0.name} uncapped", base=base)
+    del eng
+    scfg = ServeConfig(**base)
+
+    def replays(cfg):
+        return [replay_logits(cfg, scfg, params, p, t, attn_backend="hopper")
+                for p, t in zip(prompts, tokens)]
+    ref = replays(cfg0)
+    deltas = {}
+    for cap in CAP_WITNESS:
+        got = replays(dataclasses.replace(cfg0, attn_logit_softcap=cap))
+        deltas[cap] = max(float(np.abs(a - b).max())
+                          for a, b in zip(got, ref))
+        print(f"[smoke] softcap witness: {cfg0.name} along the uncapped "
+              f"hopper run's {m['new_tokens']} tokens, softcap {cap} vs "
+              f"none: max |dlogit| {deltas[cap]:.4f} (needs > "
+              f"{CAP_WITNESS_MIN})", flush=True)
+        if deltas[cap] > CAP_WITNESS_MIN:
+            return cap, deltas
+    fail(f"softcap witness: no cap of {CAP_WITNESS} moves a logit by more "
+         f"than {CAP_WITNESS_MIN}")
+
+
+def cap_train(torch, cfg, params, seed):
+    """Capped training: one step's loss and gradients on hopper against
+    reference (phase 18's bounds), then ``TF_STEPS`` AdamW steps through
+    ``make_train_step(attn_backend="hopper")``, every loss finite.  K9 has
+    no softcap (nor has the TPU kernel), so a capped layer takes the
+    chunked core: K9 must launch no time.  Returns the report."""
+    from repro_torch.core.mapreduce import value_and_grad
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import OptConfig, init_opt_state
+    batches = [family_batch(torch, cfg, TF_B, TF_S, seed + i, "cuda")
+               for i in range(TF_STEPS)]
+    flash_attention.launches = 0
+    got, want = (value_and_grad(build_model(cfg, be).loss, params,
+                                batches[0])
+                 for be in ("hopper", "reference"))
+    dloss, worst, leaf, med, _ = grad_gap(torch, got, want)
+    ok = dloss <= TR_LOSS_TOL and worst <= TR_GRAD_TOL
+    print(f"[smoke] train {cfg.name} at softcap {cfg.attn_logit_softcap}: "
+          f"one step at B={TF_B} S={TF_S}, hopper vs reference: loss "
+          f"{got[0].item():.6f} vs {want[0].item():.6f}, |dloss| "
+          f"{dloss:.3g} (tol {TR_LOSS_TOL}); gradients rel L2 median "
+          f"{med:.3g}, worst {worst:.3g} at {leaf} (tol {TR_GRAD_TOL}) -> "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("capped training: hopper and reference gradients part")
+    del got, want
+    ocfg = OptConfig(lr=TR_LR)
+    state = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg, attn_backend="hopper")
+    losses, times = [], []
+    for batch in batches:
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t1)
+    k9 = flash_attention.launches
+    ok = all(math.isfinite(x) for x in losses) and k9 == 0
+    p50 = sorted(times)[len(times) // 2]
+    print(f"[smoke] train {cfg.name} at softcap {cfg.attn_logit_softcap} "
+          f"({cfg.n_layers} layers), B={TF_B} S={TF_S}, AdamW lr {TR_LR}, "
+          f"hopper: losses {[round(x, 4) for x in losses]}; step p50 "
+          f"{p50 * 1e3:.1f} ms; K9 launches {k9} (0 expected: the capped "
+          f"layers take the chunked core) -> {'OK' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("capped training: a loss is not finite, or K9 launched")
+    del params, state, step
+    torch.cuda.empty_cache()
+    return {"dloss": dloss, "grad_rel_l2_worst": worst,
+            "grad_rel_l2_worst_leaf": leaf, "grad_rel_l2_median": med,
+            "losses": losses, "step_ms_p50": p50 * 1e3, "k9_launches": k9}
+
+
+def phase_softcap(torch, timer, seed, base):
+    """Phase 24 (see the module docstring): (a) ``softcap_kernels``, then
+    the capped models, ``softcap_models``.  Returns (launch counts by
+    kernel id, kernel numbers, report)."""
+    import gc
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kern = softcap_kernels(torch, timer, seed, base)
+    t0 = time.perf_counter()
+    counts, out = softcap_models(torch, seed)
+    out.update(kernel_checks_s=t0 - t_phase,
+               seconds=time.perf_counter() - t_phase)
+    return counts, kern, out
+
+
+def softcap_kernels(torch, timer, seed, base):
+    """Phase 24 (a): every capped kernel mode against its plain version
+    at ``CAP`` and in a saturating case, beside the uncapped call's time
+    (``base``: {kernel id: the c = 0 numbers}).  Returns {kernel id:
+    numbers}."""
+    rng = np.random.RandomState(seed + 24)
+    quick = Timer(torch, iters=1)
+    runs = (("K1", phase_decode, {}),
+            ("K1-int8", phase_decode, {"int8": True}),
+            ("K2", phase_prefill, {}),
+            ("K2-int8", phase_prefill, {"int8": True}),
+            ("K2-D128", phase_prefill,
+             {"K": 8, "G": 3, "D": 128, "label": "K2-D128"}),
+            ("K3", phase_verify, {}), ("K4", phase_windowed_prefill, {}),
+            ("K4-int8", phase_windowed_prefill, {"int8": True}),
+            ("", phase_ring, {}), ("-int8", phase_ring, {"int8": True}))
+    kern = {}
+    for kid, fn, kw in runs:
+        res = fn(torch, rng, timer, softcap=CAP, **kw)
+        sat = fn(torch, rng, quick, softcap=CAP, q_gain=CAP_SAT_GAIN, **kw)
+        if fn is phase_ring:           # {K1-ring, K3-ring}, int8 or not
+            res, sat = ({k + kid: v for k, v in r.items()}
+                        for r in (res, sat))
+        else:
+            res, sat = {kid: res}, {kid: sat}
+        for k, r in res.items():
+            s = sat[k]
+            if s["max_abs_score"] < 3 * CAP:
+                fail(f"{k}-softcap saturating case: max |s| "
+                     f"{s['max_abs_score']:.1f} < 3 x {CAP}")
+            r["saturating"] = {"q_gain": CAP_SAT_GAIN,
+                               "max_abs_score": s["max_abs_score"],
+                               "max_abs_err": s["max_abs_err"],
+                               "err_over_ulp": s["err_over_ulp"]}
+            r["uncapped_ms"] = base[k]["ms"]
+            print(f"[smoke] {k}-softcap: kernel {r['ms']:.4f} ms at softcap "
+                  f"{CAP} (max |s| {r['max_abs_score']:.1f}) vs "
+                  f"{base[k]['ms']:.4f} ms uncapped (phases 2-9); "
+                  f"saturating (q x {CAP_SAT_GAIN}, max |s| "
+                  f"{s['max_abs_score']:.1f}): worst {s['err_over_ulp']:.3g}"
+                  f" row ulps", flush=True)
+            kern[k + "-softcap"] = r
+    torch.cuda.empty_cache()
+    return kern
+
+
+def softcap_models(torch, seed):
+    """Phase 24 (b)-(f): full-width, full-depth qwen2-0.5b capped (the
+    witness picks the cap, then ``phase_serve``, ``phase_speculate`` and
+    ``phase_int8_serve`` on the gained weights, then its training);
+    minitron-4b at ``CAP_MT_LAYERS`` layers through ``phase_serve`` (K2 at
+    head dim 128); starcoder2-7b through ``phase_window_serve`` (K4, K1
+    and K3 in ring mode); then ``cap_gap`` at c = 50.  Returns (launch
+    counts by kernel id, report)."""
+    from repro_torch.configs import get_arch
+    out = {}
+
+    # (b) qwen2-0.5b: the witness, then bf16, n-gram and int8 serving
+    t0 = time.perf_counter()
+    cfg0 = get_arch("qwen2-0.5b")
+    params, gain = capped_params(torch, cfg0, seed)
+    prompts = [serving_workload(np.random.RandomState(seed), cfg0.vocab)[i]
+               for i in CAP_PROMPTS]
+    base_kw = {**serve_kwargs(), "max_slots": len(prompts)}
+    cap, deltas = cap_witness(torch, cfg0, params, prompts, base_kw)
+    cfg = dataclasses.replace(cfg0, attn_logit_softcap=cap)
+    print(f"[smoke] softcap phase: cap {cap} (the largest of {CAP_WITNESS} "
+          f"whose logits part from the uncapped model's by more than "
+          f"{CAP_WITNESS_MIN}); wq drawn at gain {gain:.2f} (pre-cap score "
+          f"std {CAP_SCORE_SD})", flush=True)
+    c, rep, _, _, tokens, cache = phase_serve(
+        torch, cfg, seed, profile=False, params=params, prompts=prompts)
+    replay = Replays(cfg, params, prompts, cache)
+    k3, spec = phase_speculate(
+        torch, cfg, params, prompts, tokens,
+        {"tokens_per_s": rep["tokens_per_s"],
+         "decode_step_ms_p50": rep["decode_step_ms_p50"]}, replay)
+    c8, int8 = phase_int8_serve(torch, cfg, params, prompts, replay,
+                                spec=(0,))
+    del replay, cache
+    counts = {"K1-softcap": c["K1"], "K2-softcap": c["K2"],
+              "K3-softcap": k3, "K1-int8-softcap": c8["K1-int8"],
+              "K2-int8-softcap": c8["K2-int8"]}
+    out.update(cap=cap, wq_gain=gain, score_sd=CAP_SCORE_SD,
+               witness_max_logit_delta=deltas,
+               qwen2={"bf16": {k: v for k, v in rep.items()
+                               if k != "per_request"},
+                      "speculative": spec, "int8": int8},
+               qwen2_s=time.perf_counter() - t0)
+
+    # (e) capped training on the same weights
+    t0 = time.perf_counter()
+    out["train"] = cap_train(torch, cfg, params, seed)
+    out["train"]["seconds"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) minitron-4b: K2 at head dim 128
+    t0 = time.perf_counter()
+    mcfg = dataclasses.replace(get_arch("minitron-4b"),
+                               n_layers=CAP_MT_LAYERS,
+                               attn_logit_softcap=cap)
+    params, _ = capped_params(torch, mcfg, seed)
+    mc, mrep, *_ = phase_serve(torch, mcfg, seed, profile=False,
+                               params=params, prompts=prompts[1::2])
+    counts["K2-D128-softcap"] = mc["K2"]
+    out["minitron"] = {**{k: v for k, v in mrep.items()
+                          if k != "per_request"},
+                       "layers": CAP_MT_LAYERS,
+                       "seconds": time.perf_counter() - t0}
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) starcoder2-7b: the ring kernels
+    t0 = time.perf_counter()
+    sc, sr = phase_window_serve(
+        torch, seed, n_layers=STARCODER_LAYERS, why="as phase 10",
+        profile=False, softcap=cap, score_sd=CAP_SCORE_SD)
+    counts.update({f"{k}-softcap": n for k, n in sc.items()})
+    out["starcoder2"] = {**sr, "layers": STARCODER_LAYERS,
+                         "seconds": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+
+    # (f) c = 50 where random weights reach it, beside the uncapped model
+    out["gap"] = cap_gap(torch, seed)
+    print(f"[smoke] launches over phase 24 (softcap {cap}): "
+          f"{', '.join(f'{k} {n}' for k, n in counts.items())}", flush=True)
+    return counts, out
+
+
 def phase_train(torch, seed):
     """The LM training path: full-width, full-depth qwen2-0.5b with random
     weights from ``seed``.  (a) ``train_run``: ``TR_STEPS`` AdamW steps on
@@ -4144,10 +4756,10 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    # command-r-plus-104b: K3 above 48 rows (G = 12), depth cut to 4 layers
+    # command-r-plus-104b: K3 above 48 rows (G = 12), depth cut to 2 layers
     t0 = time.perf_counter()
     cr_counts, command_r = phase_window_serve(
-        torch, args.seed, arch="command-r-plus-104b", n_layers=4,
+        torch, args.seed, arch="command-r-plus-104b", n_layers=CR_LAYERS,
         why="full depth does not fit one card", profile=False,
         tol_row_ulps=LOGIT_ROW_ULPS)
     counts.update({"K3-ring-60": cr_counts.pop("K3-ring"),
@@ -4198,6 +4810,16 @@ def main() -> None:
     counts.update(tf_counts)
     print(f"[smoke] train-families phase took "
           f"{time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
+    t0 = time.perf_counter()
+    sc_counts, sc_kernels, softcap = phase_softcap(
+        torch, timer, args.seed,
+        {"K1": k1, "K1-int8": k1q, "K2": k2, "K2-int8": k2q, "K2-D128": k2w,
+         "K3": k3, "K4": k4, "K4-int8": k4q, "K1-ring": ring["K1-ring"],
+         "K3-ring": ring["K3-ring"], "K1-ring-int8": ringq["K1-ring"],
+         "K3-ring-int8": ringq["K3-ring"]})
+    counts.update(sc_counts)
+    print(f"[smoke] softcap phase took {time.perf_counter() - t0:.1f} s "
+          f"({CARD})", flush=True)
     for kid, c in counts.items():
         if c <= 0:
             fail(f"{kid} was never launched on its serving path")
@@ -4286,6 +4908,33 @@ def main() -> None:
                "ragged_prefill/kernel.py:141"),
               ("K3-G7-D128", "paged_verify", "paged_verify.cu",
                "paged_attention/kernel.py:241"))),
+        *(entry(kid, name, src, at, sc_kernels[kid])
+          for kid, name, src, at in (
+              ("K1-softcap", "paged_decode", "paged_decode.cu",
+               "paged_attention/kernel.py:139"),
+              ("K1-int8-softcap", "paged_decode", "paged_decode.cu",
+               "paged_attention/kernel.py:139"),
+              ("K1-ring-softcap", "paged_decode", "paged_decode.cu",
+               "paged_attention/kernel.py:139"),
+              ("K1-ring-int8-softcap", "paged_decode", "paged_decode.cu",
+               "paged_attention/kernel.py:139"),
+              ("K2-softcap", "ragged_prefill", "ragged_prefill.cu",
+               "ragged_prefill/kernel.py:141"),
+              ("K2-int8-softcap", "ragged_prefill", "ragged_prefill.cu",
+               "ragged_prefill/kernel.py:141"),
+              ("K2-D128-softcap", "ragged_prefill", "ragged_prefill.cu",
+               "ragged_prefill/kernel.py:141"),
+              ("K3-softcap", "paged_verify", "paged_verify.cu",
+               "paged_attention/kernel.py:241"),
+              ("K3-ring-softcap", "paged_verify", "paged_verify.cu",
+               "paged_attention/kernel.py:241"),
+              ("K3-ring-int8-softcap", "paged_verify", "paged_verify.cu",
+               "paged_attention/kernel.py:241"),
+              ("K4-softcap", "windowed_prefill", "windowed_ragged_prefill.cu",
+               "ragged_prefill/kernel.py:289"),
+              ("K4-int8-softcap", "windowed_prefill",
+               "windowed_ragged_prefill.cu",
+               "ragged_prefill/kernel.py:289"))),
     ]
     print(json.dumps({"kernels": kernels, "serve": {
         k: report[k] for k in ("max_logit_err", "n_tokens",
@@ -4301,7 +4950,7 @@ def main() -> None:
         "command_r": command_r, "deepseek": deepseek, "paper": paper,
         "figures": figures, "train": train, "frontend": frontend,
         "state_slots": state_slots, "frontend_families": families,
-        "train_families": train_families}),
+        "train_families": train_families, "softcap": softcap}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,8 @@
 //
 // Replaces the Pallas TPU kernels repro/kernels/paged_attention/kernel.py::
 // paged_decode_fwd (_paged_decode_kernel) and paged_verify_fwd
-// (_paged_verify_kernel), window = 0 or > 0 and no softcap, bf16 or int8
-// pages.  Contract: repro/kernels/README.md "Inputs (decode cores)",
+// (_paged_verify_kernel), window = 0 or > 0, softcap = 0 or > 0, bf16 or
+// int8 pages.  Contract: repro/kernels/README.md "Inputs (decode cores)",
 // "Page-table layout" and "Scale-operand layout" -- page 0 is the null
 // page, which may be read but is masked like any slot; query j of row b
 // sits at absolute position qp = pos[b] + j and, with window = 0, sees slot
@@ -52,8 +52,16 @@
 //     |k8| <= 127 fits bf16's 8 significant bits); their scales as fp32;
 //   * QK^T on the tensor cores: mma.sync.m16n8k16 bf16 -> fp32 over D / 16
 //     k-steps, the K scale (int8) and then the scale applied to the fp32
-//     dot (kernel.py:123-126), then the mask: S [rows, 256] fp32 in shared
-//     memory.  A block is eight warps, two an SM sub-partition, so one
+//     dot (kernel.py:123-126), then, with softcap > 0, the logit cap s =
+//     softcap * tanhf(s / softcap) (kernel.py:127-128; IEEE tanhf, not
+//     tanh.approx.f32, whose ~2^-11 relative error near |s| = softcap
+//     would move p by more than a row ulp), then the mask, which replaces
+//     the capped score (capping a masked -inf would give -softcap, a live
+//     key): S [rows, 256] fp32 in shared memory.  The cap is a template
+//     flag (kCap), so the uncapped instantiations keep their code,
+//     registers, bits and times (a runtime branch on softcap in one body
+//     takes K3's registers from 62 to 75, spills at D = 128 and costs it
+//     4-7 %);  A block is eight warps, two an SM sub-partition, so one
 //     hides the other's latency; warp w scores pages 2 w and 2 w + 1;
 //   * the split's softmax at once, per row: m = max over the 256 slots; p
 //     = exp(s - m) with the guards of _online_softmax_update (kernel.py:
@@ -247,7 +255,7 @@ __device__ __forceinline__ void issue_kv(uint32_t dst, const void* pages,
   }
 }
 
-template <int D, int kMaxRows, bool kInt8>
+template <int D, int kMaxRows, bool kInt8, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Q, H, D]
                    const void* __restrict__ k_pages,           // [P, ps, K, D]
@@ -260,7 +268,7 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Q, H, D]
                    float2* __restrict__ ws_ml,     // [B K, n_splits, Q G]
                    float* __restrict__ ws_acc,     // [B K, n_splits, Q G, D]
                    int Q, int K, int G, int ps, int n_pages, int window,
-                   int qpb, int n_splits, float scale) {
+                   int qpb, int n_splits, float scale, float softcap) {
   using L = Layout<D, kMaxRows, kInt8>;
   constexpr int kMT = L::kMT;
   constexpr int kPvWarps = D / 8 < kWarps ? D / 8 : kWarps;   // PV's warps
@@ -404,6 +412,7 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Q, H, D]
         float s = acc[mt][nt][2 * e + h];
         if constexpr (kInt8) s = s * ks[po * kMaxPs + t];
         s = s * scale;
+        if constexpr (kCap) s = softcap * tanhf(s / softcap);
         const int qp = row_qp[r];
         const bool ok = qp >= 0 && t < ps &&
                         visible(i * ps + t, qp, row_qmod[r], window, ring);
@@ -563,26 +572,28 @@ __global__ void paged_merge_kernel(const float2* __restrict__ ws_ml,
 
 // Launch one instantiation with its dynamic shared memory (the opt-in above
 // 48 KB is set once per instantiation and library).
-template <int D, int kMaxRows, bool kInt8>
+template <int D, int kMaxRows, bool kInt8, bool kCap>
 int launch_one(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
                const void* k_pages, const void* v_pages,
                const __nv_bfloat16* k_scale, const __nv_bfloat16* v_scale,
                const int32_t* tables, const int32_t* pos, const int32_t* n_q,
                float2* ws_ml, float* ws_acc, int Q, int K, int G, int ps,
-               int n_pages, int window, int qpb, int n_splits, float scale) {
+               int n_pages, int window, int qpb, int n_splits, float scale,
+               float softcap) {
   constexpr int kSmem = Layout<D, kMaxRows, kInt8>::kBytes;
   static_assert(kSmem <= 232448, "shared memory above the H100's 227 KB");
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_split_kernel<D, kMaxRows, kInt8>,
+        paged_split_kernel<D, kMaxRows, kInt8, kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
-  paged_split_kernel<D, kMaxRows, kInt8><<<grid, kThreads, kSmem, st>>>(
+  paged_split_kernel<D, kMaxRows, kInt8, kCap>
+      <<<grid, kThreads, kSmem, st>>>(
       q, k_pages, v_pages, k_scale, v_scale, tables, pos, n_q, ws_ml, ws_acc,
-      Q, K, G, ps, n_pages, window, qpb, n_splits, scale);
+      Q, K, G, ps, n_pages, window, qpb, n_splits, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -603,9 +614,10 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scale, const void* v_scale, const void* tables,
            const void* pos, const void* n_q, void* out, void* workspace,
            long long workspace_bytes, int B, int Q, int K, int G, int D,
-           int ps, int n_pages, int window, float scale, void* stream) {
+           int ps, int n_pages, int window, float scale, float softcap,
+           void* stream) {
   if (B < 1 || Q < 1 || K < 1 || G < 1 || G > kMaxRows || ps < 1 ||
-      ps > kMaxPs || n_pages < 1 || window < 0 ||
+      ps > kMaxPs || n_pages < 1 || window < 0 || !(softcap >= 0.f) ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int qpb = kMaxRows / G;                  // query tokens a row block
@@ -626,11 +638,11 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   const auto* pp = static_cast<const int32_t*>(pos);
   const auto* np = static_cast<const int32_t*>(n_q);
   int rc = (int)cudaErrorInvalidValue;
-#define PAGED_LAUNCH(DIM, INT8)                                               \
-  rc = launch_one<DIM, kMaxRows, INT8>(grid, st, qp, k_pages, v_pages, ksp,  \
-                                       vsp, tp, pp, np, ws_ml, ws_acc, Q, K,  \
-                                       G, ps, n_pages, window, qpb, n_splits, \
-                                       scale)
+#define PAGED_LAUNCH(DIM, INT8)                                              \
+  rc = (softcap > 0.f ? launch_one<DIM, kMaxRows, INT8, true>               \
+                      : launch_one<DIM, kMaxRows, INT8, false>)(            \
+      grid, st, qp, k_pages, v_pages, ksp, vsp, tp, pp, np, ws_ml, ws_acc,   \
+      Q, K, G, ps, n_pages, window, qpb, n_splits, scale, softcap)
   const bool int8 = k_scale != nullptr;
   if (D == 32 && !int8) PAGED_LAUNCH(32, false);
   else if (D == 32) PAGED_LAUNCH(32, true);

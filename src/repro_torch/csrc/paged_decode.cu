@@ -7,7 +7,7 @@
 // m16 tile a block, and gives it its C entry point.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention/kernel.py::
-// paged_decode_fwd.
+// paged_decode_fwd, with its logit-softcap mode.
 
 #include "paged_attention.cuh"
 
@@ -17,7 +17,7 @@ constexpr int kDecodeRows = 16;
 // q/out [B, H, D] bf16; k_pages/v_pages [P, ps, K, D] bf16, or int8 with
 // k_scale/v_scale [P, ps, K] bf16 (both null for bf16 pages); tables
 // [B, n_pages] and pos [B] int32; window 0 (causal) or the sliding window
-// of the ring; workspace: the split partials, at least workspace_bytes =
+// of the ring; softcap 0 (none) or the logit cap c > 0; workspace: the split partials, at least workspace_bytes =
 // B * K * n_splits * G * (D + 2) * 4 (paged_attention.cuh, launch).
 // Returns 0 on success, else the cudaError_t of the refused or failed
 // launch.
@@ -27,9 +27,10 @@ extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* pos, void* out, void* workspace,
                             long long workspace_bytes, int B, int K, int G,
                             int D, int ps, int n_pages, int window,
-                            float scale, void* stream) {
+                            float scale, float softcap, void* stream) {
   return paged::launch<kDecodeRows>(q, k_pages, v_pages, k_scale, v_scale,
                                     tables, pos, nullptr, out, workspace,
                                     workspace_bytes, B, 1, K, G, D, ps,
-                                    n_pages, window, scale, stream);
+                                    n_pages, window, scale, softcap,
+                                    stream);
 }

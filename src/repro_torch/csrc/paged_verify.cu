@@ -7,7 +7,7 @@
 // query head) rows per block and gives it its C entry point.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention/kernel.py::
-// paged_verify_fwd (_paged_verify_kernel).
+// paged_verify_fwd (_paged_verify_kernel), with its logit-softcap mode.
 
 #include "paged_attention.cuh"
 
@@ -21,7 +21,8 @@
 constexpr int kVerifyRows = 48;
 
 // q/out [B, Q, H, D] bf16; pools and tables as paged_decode; pos and n_q
-// [B] int32 (base positions, live query counts); window as paged_decode;
+// [B] int32 (base positions, live query counts); window and softcap as
+// paged_decode;
 // workspace at least B * K * n_splits * Q * G * (D + 2) * 4 bytes.
 // Returns 0 on success, else the cudaError_t of the refused or failed
 // launch.
@@ -32,9 +33,10 @@ extern "C" int paged_verify(const void* q, const void* k_pages,
                             void* workspace, long long workspace_bytes,
                             int B, int Q, int K, int G, int D, int ps,
                             int n_pages, int window, float scale,
-                            void* stream) {
+                            float softcap, void* stream) {
   return paged::launch<kVerifyRows>(q, k_pages, v_pages, k_scale, v_scale,
                                     tables, pos, n_q, out, workspace,
                                     workspace_bytes, B, Q, K, G, D, ps,
-                                    n_pages, window, scale, stream);
+                                    n_pages, window, scale, softcap,
+                                    stream);
 }

@@ -5,7 +5,8 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/ragged_prefill/kernel.py::
 // ragged_prefill_fwd (_ragged_prefill_kernel), bf16 pages or int8 pages with
-// bf16 per-token-per-head scales.  Contract: repro/kernels/README.md "The
+// bf16 per-token-per-head scales, with or without its logit softcap.
+// Contract: repro/kernels/README.md "The
 // ragged-prefill contract" and "Scale-operand layout".
 //
 // What bounds it: operations.  The work is 4 * pairs * H * D flops for the
@@ -39,7 +40,14 @@
 // MN-major B from shared memory, into fp32 accumulators.
 //
 // The contract (kernel.py:30-36 and :66-72): fp32 scores with the scale
-// applied after the dot; one softmax at each row's *true* max, never an
+// applied after the dot; with softcap > 0 the logit cap s = softcap *
+// tanhf(s / softcap) (kernel.py:112-113; IEEE tanhf, not tanh.approx.f32,
+// whose ~2^-11 relative error near |s| = softcap would move p by more than
+// a row ulp) before the mask, which replaces the capped score (capping a
+// masked score would make its key live at -softcap), in the one score loop
+// both sweeps run, so sweep 2's p is taken at the max sweep 1 saw (a
+// template flag, so the uncapped instantiations keep their code and
+// registers); one softmax at each row's *true* max, never an
 // online softmax of the output; masked keys at -1e30; p = exp(s - m) / l,
 // rounded to bf16 for bf16 pages, fp32 for int8 pages (kernel.py:156-161);
 // PV accumulated in fp32; one bf16 cast at the output.  Two sweeps:
@@ -179,7 +187,7 @@ __device__ __forceinline__ void widen(uint8_t* tile, const int8_t* raw,
   }
 }
 
-template <int D, bool kInt8>
+template <int D, bool kInt8, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D]
                       const void* __restrict__ k_pages,           // [P, ps, K, D]
@@ -190,7 +198,7 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
                       const int32_t* __restrict__ start,          // [B]
                       __nv_bfloat16* __restrict__ out,            // [B, T, H, D]
                       int T, int H, int K, int ps, int n_pages,
-                      float scale) {
+                      float scale, float softcap) {
   using L = Layout<D, kInt8>;
   constexpr int kH = L::kHalves;
   extern __shared__ uint8_t smem_raw[];
@@ -302,7 +310,8 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
 
     qk<D>(s, base + L::kQ, k_tile);
     // fp32 scores: the scale after the dot (int8: the key's scale first),
-    // then the mask where the tile reaches past the first query
+    // the cap (kCap), then the mask where the tile reaches past the first
+    // query
     const bool masked = kt < kSlots || (i + 1) * kt - 1 > q_first
                         || (i + 1) * ppt > n_pages;
 #pragma unroll
@@ -311,6 +320,7 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
       float x = s[j];
       if constexpr (kInt8) x = x * ks[col];
       x = x * scale;
+      if constexpr (kCap) x = softcap * tanhf(x / softcap);
       if (masked) {
         const int key = i * kt + col;
         if (col >= kt || key > q_abs[(j >> 1) & 1] || key >= n_keys)
@@ -353,31 +363,34 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,        // [B, T, H, D
   }
 }
 
-template <int D, bool kInt8>
+template <int D, bool kInt8, bool kCap>
 int launch(const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
            const void* k_pages, const void* v_pages,
            const __nv_bfloat16* k_scale, const __nv_bfloat16* v_scale,
            const int32_t* tables, const int32_t* start, __nv_bfloat16* out,
-           int T, int H, int K, int ps, int n_pages, float scale) {
-  return launch_kernel<ragged_prefill_kernel<D, kInt8>>(
+           int T, int H, int K, int ps, int n_pages, float scale,
+           float softcap) {
+  return launch_kernel<ragged_prefill_kernel<D, kInt8, kCap>>(
       grid, Layout<D, kInt8>::kBytes + 1024, st, q, k_pages, v_pages,
-      k_scale, v_scale, tables, start, out, T, H, K, ps, n_pages, scale);
+      k_scale, v_scale, tables, start, out, T, H, K, ps, n_pages, scale,
+      softcap);
 }
 
 }  // namespace
 
 // q/out [B, T, H, D] bf16; k_pages/v_pages [P, ps, K, D] bf16, or int8
 // with k_scale/v_scale [P, ps, K] bf16 (both null for bf16 pages); tables
-// [B, n_pages] and start [B] int32.  Returns 0 on success, else the
-// cudaError_t of the refused or failed launch.
+// [B, n_pages] and start [B] int32; softcap 0 (none) or the logit cap c >
+// 0.  Returns 0 on success, else the cudaError_t of the refused or failed
+// launch.
 extern "C" int ragged_prefill(const void* q, const void* k_pages,
                               const void* v_pages, const void* k_scale,
                               const void* v_scale, const void* tables,
                               const void* start, void* out, int B, int T,
                               int H, int K, int D, int ps, int n_pages,
-                              float scale, void* stream) {
+                              float scale, float softcap, void* stream) {
   if (B < 1 || T < 1 || K < 1 || H % K != 0 || H / K > kMaxG || ps < 1 ||
-      ps > kMaxPs || n_pages < 1 ||
+      ps > kMaxPs || n_pages < 1 || !(softcap >= 0.f) ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int G = H / K;
@@ -390,8 +403,10 @@ extern "C" int ragged_prefill(const void* q, const void* k_pages,
   const auto* sp = static_cast<const int32_t*>(start);
   auto* op = static_cast<__nv_bfloat16*>(out);
 #define PREFILL_LAUNCH(DIM, INT8)                                          \
-  return launch<DIM, INT8>(grid, st, qp, k_pages, v_pages, ksp, vsp, tp,  \
-                           sp, op, T, H, K, ps, n_pages, scale)
+  return (softcap > 0.f ? launch<DIM, INT8, true>                         \
+                        : launch<DIM, INT8, false>)(                      \
+      grid, st, qp, k_pages, v_pages, ksp, vsp, tp, sp, op, T, H, K, ps,  \
+      n_pages, scale, softcap)
   const bool int8 = k_scale != nullptr;
   if (D == 32 && !int8) PREFILL_LAUNCH(32, false);
   if (D == 32) PREFILL_LAUNCH(32, true);

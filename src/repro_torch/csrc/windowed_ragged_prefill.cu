@@ -7,7 +7,8 @@
 // Replaces the Pallas TPU kernel repro/kernels/ragged_prefill/kernel.py::
 // windowed_ragged_prefill_fwd (_windowed_ragged_prefill_kernel), bf16 ring
 // pages or int8 ring pages with bf16 per-token-per-head scales; the fresh
-// K/V are bf16 in both modes (never quantized).  Contract:
+// K/V are bf16 in both modes (never quantized); with or without its logit
+// softcap.  Contract:
 // repro/kernels/README.md "The ragged-prefill contract" (pre-write pool,
 // window > 0) and "Scale-operand layout".  Masks (kernel.py:236-262):
 //   ring slot idx (ring = n_ring * ps slots) holds k_abs = last - ((last %
@@ -81,6 +82,15 @@
 // p = exp(s - m) / l at the true m and final l, and does PV into fp32.
 //   bf16 ring: scores (q . k) * scale, the scale after the dot; p rounded to
 //     bf16 (the value dtype, kernel.py:313).
+//   softcap > 0: every score, ring or fresh, is capped s = softcap *
+//     tanhf(s / softcap) after the scale (kernel.py:250-251 and :263-264)
+//     and before the mask, which replaces it (capping a masked score would
+//     make its key live at -softcap); one site in the score loop both
+//     sweeps run, so sweep 2's p is taken at the max sweep 1 saw; a
+//     template flag, so the uncapped instantiations keep their code and
+//     registers.  IEEE
+//     tanhf, not tanh.approx.f32 (~2^-11 relative error near |s| =
+//     softcap, more than a row ulp of p).
 //   int8 ring: the ring score is (q . k8) * ks * scale, where the reference
 //     takes q . (f32(k8) * f32(ks)) * scale (f32(k8) * f32(ks) is exact, so
 //     the two differ only in fp32 rounding); p stays fp32 and goes to the
@@ -264,7 +274,7 @@ __device__ __forceinline__ void widen_in_place(uint8_t* k, uint8_t* v) {
   }
 }
 
-template <int D, bool kInt8>
+template <int D, bool kInt8, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D]
                         const __nv_bfloat16* __restrict__ k_new,  // [B, T, K, D]
@@ -278,7 +288,7 @@ windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D
                         const int32_t* __restrict__ n_live,       // [B]
                         __nv_bfloat16* __restrict__ out,          // [B, T, H, D]
                         int T, int H, int K, int ps, int n_ring, int window,
-                        float scale) {
+                        float scale, float softcap) {
   using L = WLayout<D, kInt8>;
   constexpr int kH = L::kHalves;
   // a request's later query tiles are the longer ones: start them first
@@ -419,7 +429,8 @@ windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D
 
     qk<D>(s, base + L::kQ, k_tile);
     // fp32 scores: the scale after the dot (int8: the key's scale first),
-    // then the mask where the tile crosses an edge for some live row
+    // the cap (kCap), then the mask where the tile crosses an edge for
+    // some live row
     bool masked;
     if (ring) {
       const int a0 = (r0 + i) * ppt;        // the tile's first page
@@ -437,6 +448,7 @@ windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D
       float x = s[j];
       if constexpr (kInt8) x = x * ks[col];
       x = x * scale;
+      if constexpr (kCap) x = softcap * tanhf(x / softcap);
       if (masked) {
         const int e = (j >> 1) & 1, pos = kp[col];
         if (!(pos <= q_abs[e] && pos > q_lo[e])) x = kMaskValue;
@@ -480,18 +492,18 @@ windowed_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, H, D
   }
 }
 
-template <int D, bool kInt8>
+template <int D, bool kInt8, bool kCap>
 int launch(const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
            const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
            const void* k_pages, const void* v_pages,
            const __nv_bfloat16* k_scale, const __nv_bfloat16* v_scale,
            const int32_t* tables, const int32_t* start,
            const int32_t* n_live, __nv_bfloat16* out, int T, int H, int K,
-           int ps, int n_ring, int window, float scale) {
-  return launch_kernel<windowed_prefill_kernel<D, kInt8>>(
+           int ps, int n_ring, int window, float scale, float softcap) {
+  return launch_kernel<windowed_prefill_kernel<D, kInt8, kCap>>(
       grid, WLayout<D, kInt8>::kBytes + 1024, st, q, k_new, v_new, k_pages,
       v_pages, k_scale, v_scale, tables, start, n_live, out, T, H, K, ps,
-      n_ring, window, scale);
+      n_ring, window, scale, softcap);
 }
 
 }  // namespace
@@ -500,16 +512,16 @@ int launch(const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
 // fresh roped K/V); k_pages/v_pages [P, ps, K, D] bf16, or int8 with
 // k_scale/v_scale [P, ps, K] bf16 (both null for bf16 pages), the
 // pre-write pool; tables [B, n_ring], start [B] and n_live [B] int32;
-// window > 0.  Returns 0 on success, else the cudaError_t of the refused
+// window > 0; softcap 0 (none) or the logit cap c > 0.  Returns 0 on success, else the cudaError_t of the refused
 // or failed launch.
 extern "C" int windowed_ragged_prefill(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
     const void* v_pages, const void* k_scale, const void* v_scale,
     const void* tables, const void* start, const void* n_live, void* out,
     int B, int T, int H, int K, int D, int ps, int n_ring, int window,
-    float scale, void* stream) {
+    float scale, float softcap, void* stream) {
   if (B < 1 || T < 1 || K < 1 || H % K != 0 || H / K > kMaxG || ps < 1 ||
-      ps > kMaxPs || n_ring < 1 || window < 1 ||
+      ps > kMaxPs || n_ring < 1 || window < 1 || !(softcap >= 0.f) ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int G = H / K;
@@ -525,9 +537,10 @@ extern "C" int windowed_ragged_prefill(
   const auto* np = static_cast<const int32_t*>(n_live);
   auto* op = static_cast<__nv_bfloat16*>(out);
 #define WINDOWED_LAUNCH(DIM, INT8)                                          \
-  return launch<DIM, INT8>(grid, st, qp, knp, vnp, k_pages, v_pages, ksp,   \
-                           vsp, tp, sp, np, op, T, H, K, ps, n_ring, window, \
-                           scale)
+  return (softcap > 0.f ? launch<DIM, INT8, true>                           \
+                        : launch<DIM, INT8, false>)(                        \
+      grid, st, qp, knp, vnp, k_pages, v_pages, ksp, vsp, tp, sp, np, op, T, \
+      H, K, ps, n_ring, window, scale, softcap)
   const bool int8 = k_scale != nullptr;
   if (D == 32 && !int8) WINDOWED_LAUNCH(32, false);
   if (D == 32) WINDOWED_LAUNCH(32, true);

@@ -106,14 +106,6 @@ def check_launch(rc: int, name: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
-def refuse_softcap(name: str, softcap: float) -> None:
-    """The TPU kernels' logit-softcap mode is not ported: it raises."""
-    if softcap:
-        raise NotImplementedError(
-            f"{name}: the logit-softcap mode is not ported (no registered "
-            "arch sets attn_logit_softcap)")
-
-
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
                  ndim: int, device: torch.device) -> None:
     if t.dtype != dtype or t.dim() != ndim or t.device != device \

@@ -8,7 +8,9 @@ straight from the paged KV pool.
 bf16 scale pages (``k_scale``/``v_scale``), and each with the TPU kernels'
 sliding-window ring mode (``window > 0``: the table is a ring of ``n_pages
 * ps`` token slots and each slot's absolute position is recovered from the
-ring layout); no softcap.  Both kernels are instances of one CUDA body
+ring layout), and each with the TPU kernels' logit softcap (``softcap >
+0``: every scaled score becomes ``softcap * tanh(s / softcap)`` before the
+mask).  Both kernels are instances of one CUDA body
 (``csrc/paged_attention.cuh``, design and bound in its note): a row's keys
 split over blocks at 16 absolute pages, each split's partial written to a
 workspace the wrapper allocates (``split_workspace``) and merged in split
@@ -40,49 +42,54 @@ import ctypes
 import torch
 
 from .. import (check_latent_pool, check_launch, check_pool, check_tensor,
-                entry, ptr, refuse_softcap)
+                entry, ptr)
 from ...models import attention, mla
 
 
 def paged_decode_plain(q, k_pages, v_pages, tables, pos, *, scale: float,
-                       window: int = 0, k_scale=None, v_scale=None):
+                       window: int = 0, softcap: float = 0.0, k_scale=None,
+                       v_scale=None):
     """q: [B, H, D]; k_pages/v_pages: [P, ps, K, D] (bf16, or int8 with
     ``k_scale``/``v_scale`` [P, ps, K] bf16); tables: [B, n_pages] physical
     page ids; pos: [B] absolute positions (the new token is already
     written).  Gathers the logical view (int8 dequantized to fp32 as
     ``f32(q) * f32(s)``) and attends with ``idx <= pos`` (``window > 0``:
     the ring rule of ``attention.decode_valid_mask`` over ``n_pages * ps``
-    slots): fp32 scores and softmax, fp32 probability-weighted sum, one
-    cast at the output.  Returns [B, H, D] in ``q``'s dtype."""
+    slots): fp32 scores, capped at ``softcap`` (``attention.logit_cap``)
+    before the mask, fp32 softmax and probability-weighted sum, one cast at
+    the output.  Returns [B, H, D] in ``q``'s dtype."""
     kg, vg = attention.gather_kv(k_pages, v_pages, tables, k_scale, v_scale)
     valid = attention.decode_valid_mask(pos, kg.shape[1], window=window)
-    o = attention.masked_token_attend(q, kg, vg, valid, scale=scale)
+    o = attention.masked_token_attend(q, kg, vg, valid, scale=scale,
+                                      softcap=softcap)
     return o.to(q.dtype)
 
 
 def paged_verify_plain(q, k_pages, v_pages, tables, pos, n_q, *,
-                       scale: float, window: int = 0, k_scale=None,
-                       v_scale=None):
+                       scale: float, window: int = 0, softcap: float = 0.0,
+                       k_scale=None, v_scale=None):
     """q: [B, Q, H, D], query j of row b at absolute position
     ``pos[b] + j`` (all Q queries' K/V already written); n_q: [B] live
-    query counts.  Pools, tables and ``window`` as ``paged_decode_plain``.
+    query counts.  Pools, tables, ``window`` and ``softcap`` as
+    ``paged_decode_plain``.
     Each live query attends ``idx <= pos + j`` (or the ring rule at ``pos
     + j``); dead rows (``j >= n_q``) are exact zeros.  Returns [B, Q, H, D]
     in ``q``'s dtype."""
     kg, vg = attention.gather_kv(k_pages, v_pages, tables, k_scale, v_scale)
     valid = attention.verify_valid_mask(pos, n_q, q.shape[1], kg.shape[1],
                                         window=window)
-    o = attention.masked_multi_token_attend(q, kg, vg, valid, scale=scale)
+    o = attention.masked_multi_token_attend(q, kg, vg, valid, scale=scale,
+                                            softcap=softcap)
     return o.to(q.dtype)
 
 
 # decode: q, k, v, k_scale, v_scale, tables, pos, out, workspace, its
-# bytes, then B, K, G, D, ps, n_pages, window, scale, stream; verify adds
-# n_q after pos and Q after B
+# bytes, then B, K, G, D, ps, n_pages, window, scale, softcap, stream;
+# verify adds n_q after pos and Q after B
 _DECODE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] \
-    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _VERIFY_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] \
-    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 MAX_ROWS = {"paged_decode": 16, "paged_verify": 48}   # csrc kMaxRows
 HEAD_DIMS = (32, 64, 128)                              # csrc launch()
 SPLIT_PAGES = 16                                       # csrc kSplitPages
@@ -124,13 +131,13 @@ def paged_decode(q, k_pages, v_pages, tables, pos, *, scale: float,
     device ``q`` and the pools are contiguous bf16 (int8 payload plus
     contiguous bf16 scale pages when scales are given), ``tables`` and
     ``pos`` contiguous int32, ``H % K == 0`` with ``G = H // K <= 16``,
-    page size <= 16 and head dim 32, 64 or 128; anything else raises.  The
-    TPU kernel's ``softcap`` mode raises ``NotImplementedError``."""
-    refuse_softcap("paged_decode", softcap)
+    page size <= 16 and head dim 32, 64 or 128; anything else raises
+    (a negative ``softcap`` too, from the kernel's entry point)."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, tables, pos,
                                   scale=scale, window=window,
-                                  k_scale=k_scale, v_scale=v_scale)
+                                  softcap=softcap, k_scale=k_scale,
+                                  v_scale=v_scale)
     dev = q.device
     check_tensor(q, "q", torch.bfloat16, 3, dev)
     B, H, D = q.shape
@@ -150,7 +157,8 @@ def paged_decode(q, k_pages, v_pages, tables, pos, *, scale: float,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale),
         ptr(v_scale), tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
         ws.data_ptr(), ws.numel(), B, K, H // K, D, ps, tables.shape[1],
-        int(window), float(scale), torch.cuda.current_stream(dev).cuda_stream)
+        int(window), float(scale), float(softcap),
+        torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "paged_decode")
     paged_decode.launches += 1
     return out
@@ -169,13 +177,12 @@ def paged_verify(q, k_pages, v_pages, tables, pos, n_q, *, scale: float,
     <= 16 and head dim 32, 64 or 128 (``check_verify_shapes``); anything
     else raises.  A (request, KV head)'s ``Q * G`` rows go to blocks of at
     most 48 rows, split by query token (60 rows at Q = 5, G = 12,
-    command-r-plus-104b, are two blocks).  ``softcap`` raises
-    ``NotImplementedError``."""
-    refuse_softcap("paged_verify", softcap)
+    command-r-plus-104b, are two blocks)."""
     if q.device.type == "cpu":
         return paged_verify_plain(q, k_pages, v_pages, tables, pos, n_q,
                                   scale=scale, window=window,
-                                  k_scale=k_scale, v_scale=v_scale)
+                                  softcap=softcap, k_scale=k_scale,
+                                  v_scale=v_scale)
     dev = q.device
     check_tensor(q, "q", torch.bfloat16, 4, dev)
     B, Q, H, D = q.shape
@@ -191,7 +198,7 @@ def paged_verify(q, k_pages, v_pages, tables, pos, n_q, *, scale: float,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale),
         ptr(v_scale), tables.data_ptr(), pos.data_ptr(), n_q.data_ptr(),
         out.data_ptr(), ws.data_ptr(), ws.numel(), B, Q, K, H // K, D, ps,
-        tables.shape[1], int(window), float(scale),
+        tables.shape[1], int(window), float(scale), float(softcap),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "paged_verify")
     paged_verify.launches += 1

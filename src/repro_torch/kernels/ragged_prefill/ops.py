@@ -6,7 +6,9 @@ the chunk's fresh K/V).
 .ragged_prefill_attend`` with ``window == 0`` (Pallas
 ``kernel.py::ragged_prefill_fwd``) and ``windowed_prefill`` replaces it
 with ``window > 0`` (Pallas ``kernel.py::windowed_ragged_prefill_fwd``),
-each with bf16 pages or int8 pages plus bf16 scale pages.  For CUDA
+each with bf16 pages or int8 pages plus bf16 scale pages, and each with
+the TPU kernels' logit softcap (``softcap > 0``: every scaled score
+becomes ``softcap * tanh(s / softcap)`` before the mask).  For CUDA
 tensors they launch the hand-written kernels in ``csrc/ragged_prefill.cu``
 and ``csrc/windowed_ragged_prefill.cu`` (design and bound in each file's
 note); for CPU tensors they run ``ragged_prefill_plain`` and
@@ -31,31 +33,33 @@ import math
 import torch
 
 from .. import (check_latent_pool, check_launch, check_pool, check_tensor,
-                entry, ptr, refuse_softcap)
+                entry, ptr)
 from ...models import attention, mla
 
 
 def ragged_prefill_plain(q, k_pages, v_pages, tables, start, *,
-                         scale: float, q_block: int = 512, k_scale=None,
-                         v_scale=None):
+                         scale: float, q_block: int = 512,
+                         softcap: float = 0.0, k_scale=None, v_scale=None):
     """q: [B, T, H, D] roped chunk queries, row b's first at absolute
     position ``start[b]``; k_pages/v_pages: [P, ps, K, D] *post-write* pool
     (bf16, or int8 with ``k_scale``/``v_scale`` [P, ps, K] bf16); tables:
     [B, n_pages].  Gathers each row's logical view (int8 dequantized to
     fp32) and runs the chunked causal attend (``k_abs <= start + t``): fp32
-    scores times ``scale``, one softmax at the row's true max,
+    scores times ``scale``, capped at ``softcap`` (``attention.logit_cap``)
+    before the mask, one softmax at the row's true max,
     probabilities cast to the value dtype (bf16 pages) or kept fp32 (int8
     pages, whose dequantized values are fp32), fp32 PV sum, one cast at
     the output.  Returns [B, T, H, D] in ``q``'s dtype."""
     kg, vg = attention.gather_kv(k_pages, v_pages, tables, k_scale, v_scale)
     o = attention.chunked_attention(q, kg, vg, scale=scale, q_block=q_block,
-                                    q_offset=start)
+                                    q_offset=start, softcap=softcap)
     return o.to(q.dtype)
 
 
 def windowed_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables, start,
                            n_live, *, window: int, scale: float,
-                           q_block: int = 512, k_scale=None, v_scale=None):
+                           q_block: int = 512, softcap: float = 0.0,
+                           k_scale=None, v_scale=None):
     """q: [B, T, H, D] roped chunk queries at per-row offsets ``start``;
     k_new/v_new: [B, T, K, D] the chunk's fresh roped K/V at model
     precision; k_pages/v_pages: [P, ps, K, D] the *pre-write* pool (bf16,
@@ -65,7 +69,8 @@ def windowed_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables, start,
     to fp32 too, so probabilities stay fp32 end to end) and runs
     ``attention.ring_chunk_attention``: ring slots masked by the position
     recovered relative to ``start - 1`` and by the window, fresh keys by
-    the causal + window rule and ``t < n_live``, one softmax over both.
+    the causal + window rule and ``t < n_live``, scores capped at
+    ``softcap`` before the masks, one softmax over both.
     Rows ``t >= n_live`` (chunk padding, which the caller discards) are
     zeros.  Returns [B, T, H, D] in ``q``'s dtype."""
     kr, vr = attention.gather_kv(k_pages, v_pages, tables, k_scale, v_scale)
@@ -73,7 +78,8 @@ def windowed_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables, start,
         k_new, v_new = k_new.float(), v_new.float()
     o = attention.ring_chunk_attention(q, k_new, v_new, kr, vr, start,
                                        n_live, window=window, scale=scale,
-                                       q_block=q_block).to(q.dtype)
+                                       q_block=q_block,
+                                       softcap=softcap).to(q.dtype)
     live = torch.arange(q.shape[1], device=q.device)[None, :] \
         < n_live.reshape(-1, 1)
     return torch.where(live[:, :, None, None], o, torch.zeros_like(o))
@@ -96,9 +102,10 @@ def check_prefill_shapes(q_shape, page_shape, tables_shape, start_shape):
             f"{tuple(start_shape)}")
 
 
-# q, k, v, k_scale, v_scale, tables, start, out
+# q, k, v, k_scale, v_scale, tables, start, out, then B, T, H, K, D, ps,
+# n_pages, scale, softcap, stream
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-    + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
 def ragged_prefill(q, k_pages, v_pages, tables, start, *, scale: float,
@@ -108,14 +115,13 @@ def ragged_prefill(q, k_pages, v_pages, tables, start, *, scale: float,
     device ``q`` and the pools are contiguous bf16 (int8 payload plus
     contiguous bf16 scale pages when scales are given), ``tables`` and
     ``start`` contiguous int32, ``H % K == 0``, page size <= 32 and head
-    dim 32, 64 or 128 (``check_prefill_shapes``); anything else raises.
-    The sliding-window mode is K4 (``windowed_prefill``); ``softcap``
-    raises ``NotImplementedError``."""
-    refuse_softcap("ragged_prefill", softcap)
+    dim 32, 64 or 128 (``check_prefill_shapes``); anything else raises (a
+    negative ``softcap`` too, from the kernel's entry point).  The
+    sliding-window mode is K4 (``windowed_prefill``)."""
     if q.device.type == "cpu":
         return ragged_prefill_plain(q, k_pages, v_pages, tables, start,
-                                    scale=scale, k_scale=k_scale,
-                                    v_scale=v_scale)
+                                    scale=scale, softcap=softcap,
+                                    k_scale=k_scale, v_scale=v_scale)
     dev = q.device
     check_tensor(q, "q", torch.bfloat16, 4, dev)
     B, T, H, D = q.shape
@@ -127,7 +133,7 @@ def ragged_prefill(q, k_pages, v_pages, tables, start, *, scale: float,
     rc = entry("ragged_prefill", _ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale),
         ptr(v_scale), tables.data_ptr(), start.data_ptr(), out.data_ptr(),
-        B, T, H, K, D, ps, tables.shape[1], float(scale),
+        B, T, H, K, D, ps, tables.shape[1], float(scale), float(softcap),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "ragged_prefill")
     ragged_prefill.launches += 1
@@ -138,9 +144,9 @@ ragged_prefill.launches = 0
 
 
 # q, k_new, v_new, k, v, k_scale, v_scale, tables, start, n_live, out, then
-# B, T, H, K, D, ps, n_ring, window, scale, stream
+# B, T, H, K, D, ps, n_ring, window, scale, softcap, stream
 _WINDOWED_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 \
-    + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
 def windowed_prefill(q, k_new, v_new, k_pages, v_pages, tables, start,
@@ -153,13 +159,13 @@ def windowed_prefill(q, k_new, v_new, k_pages, v_pages, tables, start,
     scale pages when scales are given; the fresh K/V stay bf16),
     ``tables``, ``start`` and ``n_live`` contiguous int32, ``H % K == 0``,
     page size <= 32, head dim 32, 64 or 128 and ``window > 0``; anything
-    else raises.  ``softcap`` raises ``NotImplementedError``."""
-    refuse_softcap("windowed_prefill", softcap)
+    else raises (a negative ``softcap`` too, from the kernel's entry
+    point)."""
     if q.device.type == "cpu":
         return windowed_prefill_plain(q, k_new, v_new, k_pages, v_pages,
                                       tables, start, n_live, window=window,
-                                      scale=scale, k_scale=k_scale,
-                                      v_scale=v_scale)
+                                      scale=scale, softcap=softcap,
+                                      k_scale=k_scale, v_scale=v_scale)
     dev = q.device
     check_tensor(q, "q", torch.bfloat16, 4, dev)
     B, T, H, D = q.shape
@@ -183,7 +189,7 @@ def windowed_prefill(q, k_new, v_new, k_pages, v_pages, tables, start,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), ptr(k_scale), ptr(v_scale), tables.data_ptr(),
         start.data_ptr(), n_live.data_ptr(), out.data_ptr(), B, T, H, K, D,
-        ps, tables.shape[1], int(window), float(scale),
+        ps, tables.shape[1], int(window), float(scale), float(softcap),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "windowed_prefill")
     windowed_prefill.launches += 1

@@ -6,13 +6,15 @@ The port's counterpart of ``repro.models.attention``, dense subset, with
 the int8 paged pool, the small-q speculative verify block and the
 sliding-window family (page rings for the paged blocks, a ring buffer of
 ``min(window, max_len)`` entries for the static cache, and for the hybrid
-family's local attention, whose window the callers pass explicitly); the
-logit softcap (no registered arch sets it) is not ported.  Every softmax
-is spelled out as ``exp(s - max) / sum`` — what ``jax.nn.softmax``
-computes — and every
-score and probability-weighted sum is taken in fp32 from the bf16 operands,
-with one cast back at the block output: the rounding points the JAX
-reference and the Hopper kernels share (``repro.kernels.README``).
+family's local attention, whose window the callers pass explicitly), and
+the attention logit softcap (``cfg.attn_logit_softcap``: every score
+becomes ``c * tanh(s / c)`` after the scale and before the mask, in the
+self-attention blocks where the JAX package applies it; the
+cross-attention and MLA take none, as in JAX).  Every softmax is spelled
+out as ``exp(s - max) / sum`` — what ``jax.nn.softmax`` computes — and
+every score and probability-weighted sum is taken in fp32 from the bf16
+operands, with one cast back at the block output: the rounding points the
+JAX reference and the Hopper kernels share (``repro.kernels.README``).
 
 Paged blocks write the pool *in place* (``index_put_``), where the JAX
 package returned updated buffers from a donating jit.
@@ -69,11 +71,20 @@ def softmax(s: torch.Tensor) -> torch.Tensor:
     return e / e.sum(-1, keepdim=True)
 
 
+def logit_cap(s: torch.Tensor, softcap: float) -> torch.Tensor:
+    """The logit softcap of the JAX attention and its TPU kernels, op for
+    op: ``softcap * tanh(s / softcap)`` on the scaled fp32 scores, taken
+    before the mask; ``s`` itself when ``softcap`` is 0."""
+    return softcap * torch.tanh(s / softcap) if softcap else s
+
+
 # --------------------------------------------------------- chunked core attention
 
 def chunked_attention(q, k, v, *, scale: float, q_block: int = 512,
-                      q_offset=0, window: int = 0, causal: bool = True):
-    """Causal attention, scores times ``scale``; ``window > 0`` also masks
+                      q_offset=0, window: int = 0, causal: bool = True,
+                      softcap: float = 0.0):
+    """Causal attention, scores times ``scale`` (then ``logit_cap`` at
+    ``softcap``, before the mask); ``window > 0`` also masks
     keys at or before ``q_pos - window`` (sliding window); ``causal=False``
     without a window masks nothing (the encoder's self-attention and
     cross-attention, where ``Sk`` need not equal ``Sq``).  q: [B, Sq, H,
@@ -94,7 +105,8 @@ def chunked_attention(q, k, v, *, scale: float, q_block: int = 512,
         n = qi.shape[1]
         qi = qi.reshape(B, n, K, G, D).float()
         qpos = qoff + i0 + torch.arange(n, device=q.device)[None, :]
-        s = torch.einsum("bqkgd,bskd->bkgqs", qi, kf) * scale
+        s = logit_cap(torch.einsum("bqkgd,bskd->bkgqs", qi, kf) * scale,
+                      softcap)
         mask = kpos[None, None, :] <= qpos[:, :, None] if causal \
             else None                                    # [B|1, n, Sk]
         if window:
@@ -132,14 +144,16 @@ def ring_chunk_mask(start, n_live, n: int, T: int,
 
 
 def ring_chunk_attention(q, k, v, k_ring, v_ring, start, n_live, *,
-                         window: int, scale: float, q_block: int = 512):
+                         window: int, scale: float, q_block: int = 512,
+                         softcap: float = 0.0):
     """Sliding-window attend for a *chunk* of prefill at offset ``start``.
 
     q: [B, T, H, D] roped chunk queries; k, v: [B, T, K, D] the chunk's
     fresh roped K/V; k_ring, v_ring: [B, n, K, D] the gathered page ring as
     it was *before* the chunk's writes (positions < start); start, n_live:
     [B].  Keys are masked by ``ring_chunk_mask``.  One softmax over ring
-    and fresh keys together (fp32 scores, masked entries ``NEG_INF``),
+    and fresh keys together (fp32 scores, capped at ``softcap`` before the
+    mask, masked entries ``NEG_INF``),
     probabilities cast to the value dtype, fp32 PV sum, one cast to the
     value dtype: ``repro.models.attention.ring_chunk_attention`` op for op.
     Returns [B, T, H, D]."""
@@ -156,7 +170,8 @@ def ring_chunk_attention(q, k, v, k_ring, v_ring, start, n_live, *,
         qi = q[:, i0:i0 + q_block]
         nb = qi.shape[1]
         qi = qi.reshape(B, nb, K, G, D).float()
-        s = torch.einsum("bqkgd,bskd->bkgqs", qi, kf) * scale
+        s = logit_cap(torch.einsum("bqkgd,bskd->bkgqs", qi, kf) * scale,
+                      softcap)
         s = torch.where(mask[:, None, None, i0:i0 + nb], s, NEG_INF)
         a = softmax(s).to(vc.dtype)
         o = torch.einsum("bkgqs,bskd->bqkgd", a.float(), vf).to(vc.dtype)
@@ -170,22 +185,24 @@ def full_attention_block(cfg: ArchConfig, p, x, freqs, *, window: int = 0,
     prefill), causal unless ``causal=False`` (the enc-dec encoder, which
     still ropes q and k), masked to the last ``window`` keys when ``window
     > 0`` (``cfg.sliding_window`` for windowed families, ``cfg.attn_window``
-    for the hybrid's local attention).  ``attend`` is the attend core:
+    for the hybrid's local attention), scores capped at
+    ``cfg.attn_logit_softcap``.  ``attend`` is the attend core:
     ``chunked_attention`` by default; the backend's ``train_attend(q, k, v,
-    *, scale, q_block, window)`` in the training forward, or its
-    ``full_attend(q, k, v, *, scale, q_block)`` for the encoder."""
+    *, scale, q_block, window, softcap)`` in the training forward, or its
+    ``full_attend(q, k, v, *, scale, q_block, softcap)`` for the
+    encoder."""
     q, k, v = qkv(cfg, p, x)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q = apply_rope(q, positions, freqs)
     k = apply_rope(k, positions, freqs)
-    scale = 1.0 / math.sqrt(cfg.head_dim_)
+    kw = dict(scale=1.0 / math.sqrt(cfg.head_dim_), q_block=q_block,
+              softcap=cfg.attn_logit_softcap)
     if attend is None:
-        o = chunked_attention(q, k, v, scale=scale, q_block=q_block,
-                              window=window, causal=causal)
+        o = chunked_attention(q, k, v, window=window, causal=causal, **kw)
     elif causal:
-        o = attend(q, k, v, scale=scale, q_block=q_block, window=window)
+        o = attend(q, k, v, window=window, **kw)
     else:
-        o = attend(q, k, v, scale=scale, q_block=q_block)
+        o = attend(q, k, v, **kw)
     return out_proj(o, p["wo"])
 
 
@@ -362,25 +379,29 @@ def decode_qkv(cfg: ArchConfig, p, x, pos, freqs):
     return q[:, 0], k[:, 0], v[:, 0]
 
 
-def masked_token_attend(q, kg, vg, valid, *, scale: float):
+def masked_token_attend(q, kg, vg, valid, *, scale: float,
+                        softcap: float = 0.0):
     """The one-token GQA attend every plain decode path shares.
 
     q: [B, H, D]; kg, vg: [B, S, K, D] (contiguous logical view); valid:
-    [B, S] bool.  fp32 scores, masked softmax and an fp32
+    [B, S] bool.  fp32 scores (capped at ``softcap`` before the mask),
+    masked softmax and an fp32
     probability-weighted sum; the one rounding point is the cast back to
     the cache dtype at the output — where the paged-decode kernel rounds
     its fp32 accumulator.  Returns [B, H, D]."""
     B, H, D = q.shape
     K = kg.shape[2]
     qg = q.reshape(B, K, H // K, D).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qg, kg.float()) * scale
+    s = logit_cap(torch.einsum("bkgd,bskd->bkgs", qg, kg.float()) * scale,
+                  softcap)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     a = softmax(s)
     o = torch.einsum("bkgs,bskd->bkgd", a, vg.float())
     return o.to(vg.dtype).reshape(B, H, D)
 
 
-def masked_multi_token_attend(q, kg, vg, valid, *, scale: float):
+def masked_multi_token_attend(q, kg, vg, valid, *, scale: float,
+                              softcap: float = 0.0):
     """``masked_token_attend`` with a small query axis (speculative verify).
 
     q: [B, Q, H, D]; kg, vg: [B, S, K, D]; valid: [B, Q, S] per-query
@@ -392,7 +413,8 @@ def masked_multi_token_attend(q, kg, vg, valid, *, scale: float):
     B, Q, H, D = q.shape
     K = kg.shape[2]
     qg = q.reshape(B, Q, K, H // K, D).float()
-    s = torch.einsum("bqkgd,bskd->bqkgs", qg, kg.float()) * scale
+    s = logit_cap(torch.einsum("bqkgd,bskd->bqkgs", qg, kg.float())
+                  * scale, softcap)
     s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
     a = softmax(s)
     any_valid = valid.any(-1)                                     # [B, Q]
@@ -459,7 +481,9 @@ def paged_prefill_attention_block(cfg: ArchConfig, p, x, cache, meta, freqs,
     o = backend.prefill_attend(q, k, v, cache["k"], cache["v"], tables,
                                start, meta["n_live"],
                                scale=1.0 / math.sqrt(cfg.head_dim_),
-                               window=window, q_block=q_block, **scales)
+                               window=window,
+                               softcap=cfg.attn_logit_softcap,
+                               q_block=q_block, **scales)
     if window:
         write_pages(cache, meta["write_page"], meta["write_off"], k, v)
     return out_proj(o, p["wo"]), cache
@@ -482,7 +506,8 @@ def paged_decode_attention_block(cfg: ArchConfig, p, x, cache, meta, freqs,
     scales = write_pages(cache, meta["write_page"], meta["write_off"], k, v)
     o = backend.decode_attend(q, cache["k"], cache["v"], meta["tables"], pos,
                               scale=1.0 / math.sqrt(cfg.head_dim_),
-                              window=cfg.sliding_window, **scales)
+                              window=cfg.sliding_window,
+                              softcap=cfg.attn_logit_softcap, **scales)
     return out_proj(o, p["wo"]), cache
 
 
@@ -512,7 +537,8 @@ def paged_verify_attention_block(cfg: ArchConfig, p, xs, cache, meta, freqs,
     o = backend.verify_attend(q, cache["k"], cache["v"], meta["tables"], pos,
                               meta["n_q"],
                               scale=1.0 / math.sqrt(cfg.head_dim_),
-                              window=cfg.sliding_window, **scales)
+                              window=cfg.sliding_window,
+                              softcap=cfg.attn_logit_softcap, **scales)
     return [out_proj(o[:, j].contiguous(), p["wo"])
             for j in range(len(xs))], cache
 
@@ -535,5 +561,6 @@ def decode_attention_block(cfg: ArchConfig, p, x, cache, pos, freqs, *,
     cache["v"][b, slot] = v.to(cache["v"].dtype)
     valid = decode_valid_mask(pos, L, window=ring)
     o = masked_token_attend(q, cache["k"], cache["v"], valid,
-                            scale=1.0 / math.sqrt(cfg.head_dim_))
+                            scale=1.0 / math.sqrt(cfg.head_dim_),
+                            softcap=cfg.attn_logit_softcap)
     return out_proj(o, p["wo"]), cache

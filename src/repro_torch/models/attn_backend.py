@@ -28,15 +28,22 @@ each taking optional ``ckv_scale``/``krope_scale`` [P, ps] bf16 for int8
 latent pages) behind the framing of ``models.mla``.  Model code routes through ``backend.paged_prefill`` /
 ``paged_decode`` / ``paged_verify``.
 
+Every dense core also takes ``softcap`` (``cfg.attn_logit_softcap``, the
+TPU kernels' logit softcap: ``c * tanh(s / c)`` after the scale, before
+the mask), which K1–K4 apply in their kernels.
+
 The training forward has one more core, ``train_attend``: full-causal
 self-attention over a whole sequence, differentiable.  ``reference`` runs
 ``models.attention.chunked_attention`` (the port of the JAX training
 attention); ``hopper`` runs kernel K9 (``kernels.flash_attention``, the TPU
-target of that attention) wherever the layer is full-causal GQA, and the
-chunked core for sliding-window layers, where the TPU has no kernel either.
-The enc-dec encoder's bidirectional self-attention has its own core,
-``full_attend`` (``Sq == Sk``, no mask): the chunked core with
-``causal=False`` on ``reference``, K9 in full mode on ``hopper``.  The
+target of that attention) wherever the layer is full-causal GQA without a
+softcap, and the chunked core for sliding-window layers and for capped
+ones, where the TPU has no kernel either (JAX's ``flash_attention_fwd``
+has no softcap, so the JAX package trains a capped model through its XLA
+chunked attention).  The enc-dec encoder's bidirectional self-attention
+has its own core, ``full_attend`` (``Sq == Sk``, no mask): the chunked
+core with ``causal=False`` on ``reference``, K9 in full mode on
+``hopper`` (the chunked core there too when capped).  The
 decoder's cross-attention (``Sq != Sk``) stays the plain non-causal core
 on both: the TPU kernel takes one sequence length for queries and keys.
 The static ``prefill`` keeps the chunked core on every backend.
@@ -253,19 +260,21 @@ class AttentionBackend:
     # -------- attend cores (override to fuse)
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
-                      scale: float, window: int = 0, k_scale=None,
-                      v_scale=None):
+                      scale: float, window: int = 0, softcap: float = 0.0,
+                      k_scale=None, v_scale=None):
         """q: [B, H, D]; pools [P, ps, K, D]; tables [B, n]; pos [B].
         ``window > 0``: ``tables`` is a page ring of ``n * ps`` slots and
-        keys are masked by the ring rule.  Returns [B, H, D]."""
+        keys are masked by the ring rule; ``softcap > 0``: scores capped
+        before the mask.  Returns [B, H, D]."""
         raise NotImplementedError
 
     def prefill_attend(self, q, k, v, k_pages, v_pages, tables, start,
                        n_live, *, scale: float, window: int = 0,
-                       q_block: int = 512, k_scale=None, v_scale=None):
+                       softcap: float = 0.0, q_block: int = 512,
+                       k_scale=None, v_scale=None):
         """Ragged multi-token prefill attend: q [B, T, H, D] roped chunk
         queries at per-row offsets ``start``, ``n_live`` [B] real chunk
-        tokens, scores times ``scale``.  ``window == 0``: the chunk's K/V
+        tokens, scores times ``scale`` (capped at ``softcap``).  ``window == 0``: the chunk's K/V
         are already resident — the pools are the *post-write* pool and
         ``k``/``v`` are unused.  ``window > 0``: the pools are the
         *pre-write* page ring (``tables`` [B, n_ring]) and ``k``/``v`` [B,
@@ -276,31 +285,34 @@ class AttentionBackend:
         raise NotImplementedError
 
     def verify_attend(self, q, k_pages, v_pages, tables, pos, n_q, *,
-                      scale: float, window: int = 0, k_scale=None,
-                      v_scale=None):
+                      scale: float, window: int = 0, softcap: float = 0.0,
+                      k_scale=None, v_scale=None):
         """Small-q verify attend: q [B, Q, H, D] (query j of row b at
         absolute position ``pos[b] + j``) against the *post-write* pool,
         masked ``token_pos <= pos + j`` (the ring rule for ``window > 0``)
-        and ``j < n_q[b]``; dead query rows return exact zeros on every
-        backend.  Returns [B, Q, H, D]."""
+        and ``j < n_q[b]``, scores capped at ``softcap`` before the mask;
+        dead query rows return exact zeros on every backend.  Returns [B,
+        Q, H, D]."""
         raise NotImplementedError
 
     def train_attend(self, q, k, v, *, scale: float, window: int = 0,
-                     q_block: int = 512):
+                     softcap: float = 0.0, q_block: int = 512):
         """Differentiable causal self-attention of the training forward:
         q [B, S, H, D], k, v [B, S, K, D] at positions 0..S-1, scores times
-        ``scale``; ``window > 0`` also masks keys at or before ``q_pos -
-        window``.  ``q_block`` bounds the score memory of the chunked core
-        and of K9's backward.  Returns [B, S, H, D]."""
+        ``scale`` and capped at ``softcap``; ``window > 0`` also masks keys
+        at or before ``q_pos - window``.  ``q_block`` bounds the score
+        memory of the chunked core and of K9's backward.  Returns [B, S, H,
+        D]."""
         return chunked_attention(q, k, v, scale=scale, q_block=q_block,
-                                 window=window)
+                                 window=window, softcap=softcap)
 
-    def full_attend(self, q, k, v, *, scale: float, q_block: int = 512):
+    def full_attend(self, q, k, v, *, scale: float, softcap: float = 0.0,
+                    q_block: int = 512):
         """Bidirectional self-attention of the enc-dec encoder: q [B, S, H,
-        D], k, v [B, S, K, D], no mask, scores times ``scale``.  Returns
-        [B, S, H, D]."""
+        D], k, v [B, S, K, D], no mask, scores times ``scale`` and capped
+        at ``softcap``.  Returns [B, S, H, D]."""
         return chunked_attention(q, k, v, scale=scale, q_block=q_block,
-                                 causal=False)
+                                 causal=False, softcap=softcap)
 
     def mla_decode_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
                           tables, pos, *, scale: float, ckv_scale=None,
@@ -340,30 +352,34 @@ class ReferenceBackend(AttentionBackend):
     name = "reference"
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
-                      scale: float, window: int = 0, k_scale=None,
-                      v_scale=None):
+                      scale: float, window: int = 0, softcap: float = 0.0,
+                      k_scale=None, v_scale=None):
         return paged_decode_plain(q, k_pages, v_pages, tables, pos,
                                   scale=scale, window=window,
-                                  k_scale=k_scale, v_scale=v_scale)
+                                  softcap=softcap, k_scale=k_scale,
+                                  v_scale=v_scale)
 
     def prefill_attend(self, q, k, v, k_pages, v_pages, tables, start,
                        n_live, *, scale: float, window: int = 0,
-                       q_block: int = 512, k_scale=None, v_scale=None):
+                       softcap: float = 0.0, q_block: int = 512,
+                       k_scale=None, v_scale=None):
         if window:
             return windowed_prefill_plain(
                 q, k, v, k_pages, v_pages, tables, start, n_live,
                 window=window, scale=scale, q_block=q_block,
-                k_scale=k_scale, v_scale=v_scale)
+                softcap=softcap, k_scale=k_scale, v_scale=v_scale)
         return ragged_prefill_plain(q, k_pages, v_pages, tables, start,
                                     scale=scale, q_block=q_block,
-                                    k_scale=k_scale, v_scale=v_scale)
+                                    softcap=softcap, k_scale=k_scale,
+                                    v_scale=v_scale)
 
     def verify_attend(self, q, k_pages, v_pages, tables, pos, n_q, *,
-                      scale: float, window: int = 0, k_scale=None,
-                      v_scale=None):
+                      scale: float, window: int = 0, softcap: float = 0.0,
+                      k_scale=None, v_scale=None):
         return paged_verify_plain(q, k_pages, v_pages, tables, pos, n_q,
                                   scale=scale, window=window,
-                                  k_scale=k_scale, v_scale=v_scale)
+                                  softcap=softcap, k_scale=k_scale,
+                                  v_scale=v_scale)
 
     def mla_decode_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
                           tables, pos, *, scale: float, ckv_scale=None,
@@ -400,62 +416,71 @@ def _on_card(q: torch.Tensor) -> None:
 class HopperBackend(AttentionBackend):
     """The hand-written Hopper kernels: K9 (``flash_attention``) for the
     full-causal self-attention of the training forward and, in its full
-    mode, for the enc-dec encoder's self-attention; K1
+    mode, for the enc-dec encoder's self-attention, both without a softcap
+    (the TPU kernel has none: a capped layer takes the chunked core, as
+    JAX trains it); K1
     (``paged_decode``) for decode, K2 (``ragged_prefill``) for chunk
     prefill, K3 (``paged_verify``) for speculative verify and K4
     (``windowed_prefill``) for sliding-window chunk prefill, each in its
     bf16 or int8 mode, K1 and K3 also in their ring mode; for MLA latent
     pages K5 (``mla_paged_decode``) for decode, K7 (``mla_paged_verify``)
     for speculative verify and K6 (``mla_ragged_prefill``) for chunk
-    prefill, bf16 or int8."""
+    prefill, bf16 or int8.  K1–K4 take the softcap in their kernels."""
 
     name = "hopper"
 
     def train_attend(self, q, k, v, *, scale: float, window: int = 0,
-                     q_block: int = 512):
+                     softcap: float = 0.0, q_block: int = 512):
         _on_card(q)
-        if window or v.shape[-1] != q.shape[-1]:
+        # K9, like the TPU kernel it replaces, has no window and no softcap
+        if window or softcap or v.shape[-1] != q.shape[-1]:
             return chunked_attention(q, k, v, scale=scale, q_block=q_block,
-                                     window=window)
+                                     window=window, softcap=softcap)
         return flash_attention_train(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=True,
                                      scale=scale, q_block=q_block)
 
-    def full_attend(self, q, k, v, *, scale: float, q_block: int = 512):
+    def full_attend(self, q, k, v, *, scale: float, softcap: float = 0.0,
+                    q_block: int = 512):
+        _on_card(q)
+        if softcap:                      # K9 has no softcap (see above)
+            return chunked_attention(q, k, v, scale=scale, q_block=q_block,
+                                     causal=False, softcap=softcap)
         # the differentiable form: the same K9 launch, and a backward for
         # the encoder's training forward
-        _on_card(q)
         return flash_attention_train(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=False,
                                      scale=scale, q_block=q_block)
 
     def decode_attend(self, q, k_pages, v_pages, tables, pos, *,
-                      scale: float, window: int = 0, k_scale=None,
-                      v_scale=None):
+                      scale: float, window: int = 0, softcap: float = 0.0,
+                      k_scale=None, v_scale=None):
         _on_card(q)
         return paged_decode(q.contiguous(), k_pages, v_pages, tables, pos,
-                            scale=scale, window=window, k_scale=k_scale,
-                            v_scale=v_scale)
+                            scale=scale, window=window, softcap=softcap,
+                            k_scale=k_scale, v_scale=v_scale)
 
     def prefill_attend(self, q, k, v, k_pages, v_pages, tables, start,
                        n_live, *, scale: float, window: int = 0,
-                       q_block: int = 512, k_scale=None, v_scale=None):
+                       softcap: float = 0.0, q_block: int = 512,
+                       k_scale=None, v_scale=None):
         _on_card(q)
         if window:
             return windowed_prefill(
                 q.contiguous(), k.contiguous(), v.contiguous(), k_pages,
                 v_pages, tables, start, n_live, window=window, scale=scale,
-                k_scale=k_scale, v_scale=v_scale)
+                softcap=softcap, k_scale=k_scale, v_scale=v_scale)
         return ragged_prefill(q.contiguous(), k_pages, v_pages, tables, start,
-                              scale=scale, k_scale=k_scale, v_scale=v_scale)
+                              scale=scale, softcap=softcap, k_scale=k_scale,
+                              v_scale=v_scale)
 
     def verify_attend(self, q, k_pages, v_pages, tables, pos, n_q, *,
-                      scale: float, window: int = 0, k_scale=None,
-                      v_scale=None):
+                      scale: float, window: int = 0, softcap: float = 0.0,
+                      k_scale=None, v_scale=None):
         _on_card(q)
         return paged_verify(q.contiguous(), k_pages, v_pages, tables, pos,
-                            n_q, scale=scale, window=window, k_scale=k_scale,
-                            v_scale=v_scale)
+                            n_q, scale=scale, window=window, softcap=softcap,
+                            k_scale=k_scale, v_scale=v_scale)
 
     def mla_decode_attend(self, q_eff, q_rope, ckv_pages, krope_pages,
                           tables, pos, *, scale: float, ckv_scale=None,

@@ -12,9 +12,6 @@ _NOT_YET = (
      and c.family not in ("dense", "moe", "ssm", "hybrid", "vlm"),
      "only the dense, MoE, state-slot, vlm and enc-dec LM families are "
      "ported (ROADMAP queue 1)"),
-    (lambda c: bool(c.attn_logit_softcap),
-     "the attention logit softcap is not ported (no registered arch sets "
-     "it; ROADMAP queue 2, K1 modes)"),
 )
 
 

@@ -14,7 +14,9 @@ kernels compute, in their order, for every (request, KV head, row block):
   + x (ring), one more split than the table's groups in a ring;
 * scores are exact k16 sums of bf16 products, one fp32 rounding each
   step (the tensor cores' mma), the K scale (int8) and then the scale
-  applied to the fp32 dot, then the mask (causal or the ring rule);
+  applied to the fp32 dot, then the logit cap (``softcap > 0``: s =
+  softcap * tanh(s / softcap)), then the mask (causal or the ring rule),
+  which replaces the capped score;
 * each split's softmax at once with the TPU kernel's guards: m the max, p
   = exp(s - m) (0 where no slot is seen), l = sum p taken as the kernel's
   lanes take it (lane i sums slots i, i + 32, ... in order, then an xor
@@ -30,8 +32,8 @@ in its row, never below 2^-14 (the bound ``chip_smoke.py`` holds the
 kernels to on the card).  Bit for bit, in the model: K3 at one live query
 equals K1; a verify row j equals decode at pos + j; a ring of n pages and
 one of n + 1 holding the same window give the same rows; a request's rows
-alone equal its rows in the batch.  Inputs are drawn from a seed with
-numpy.
+alone equal its rows in the batch; with a cap too (queries scaled so
+the scores reach it).  Inputs are drawn from a seed with numpy.
 """
 import numpy as np
 import pytest
@@ -75,7 +77,7 @@ def _visible(idx, qp, window, ring):
 
 
 def paged_model(q, k_pages, v_pages, tables, pos, n_q, *, scale, window=0,
-                k_scale=None, v_scale=None, max_rows=48):
+                softcap=0.0, k_scale=None, v_scale=None, max_rows=48):
     """q [B, Q, H, D] -> [B, Q, H, D] bf16, as K3 (``max_rows=48``) or, at
     Q = 1 and ``max_rows=16``, K1 computes it."""
     B, Q, H, D = q.shape
@@ -115,7 +117,7 @@ def paged_model(q, k_pages, v_pages, tables, pos, n_q, *, scale, window=0,
                     ms, ls, accs = _split(
                         qr, live, qp, k_pages, v_pages, k_scale, v_scale,
                         tables[b], kh, group, first, final, ps, n_pages,
-                        window, ring, scale, int8)
+                        window, ring, scale, softcap, int8)
                     seen = ms > -INF
                     m_new = torch.maximum(m, ms)
                     f_old = torch.where(torch.isfinite(m),
@@ -133,7 +135,8 @@ def paged_model(q, k_pages, v_pages, tables, pos, n_q, *, scale, window=0,
 
 
 def _split(qr, live, qp, k_pages, v_pages, k_scale, v_scale, table, kh,
-           group, first, final, ps, n_pages, window, ring, scale, int8):
+           group, first, final, ps, n_pages, window, ring, scale, softcap,
+           int8):
     """One block's partial (m, l, acc) over absolute pages first..final of
     split ``group``."""
     rows, D = qr.shape
@@ -163,6 +166,8 @@ def _split(qr, live, qp, k_pages, v_pages, k_scale, v_scale, table, kh,
     if int8:
         s = s * ks
     s = s * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
     ok = live[:, None] & (idx[None, :] >= 0) \
         & _visible(idx[None, :], qp[:, None], window, ring)
     s = torch.where(ok, s, torch.full((), -INF))
@@ -227,11 +232,12 @@ def _int8(k, v, kw):
     return k8, v8
 
 
-def _case(seed, G, D, Q, int8, window):
+def _case(seed, G, D, Q, int8, window, softcap=0.0, gain=1.0):
     """B = 3 requests over K = 2 KV heads: causal at positions 255, 256
     (a split's last key and the next split's first) and 300 (two splits);
     ring (window 64 over 6 pages) at 37, 95 (the ring's last slot) and 330
-    (wrapped).  Live queries 1..Q."""
+    (wrapped).  Live queries 1..Q; ``softcap`` with queries times
+    ``gain``."""
     rng = np.random.RandomState(seed)
     ps, K = 16, 2
     if window:
@@ -241,9 +247,11 @@ def _case(seed, G, D, Q, int8, window):
         pos = [255, 256, 300]
         k, v, t = _pool(rng, [p + Q for p in pos], ps, K, D, 24)
     n_q = [min(Q, 2), 1, Q]
-    q = torch.from_numpy(rng.randn(3, Q, K * G, D).astype(np.float32)) \
-        .bfloat16()
+    q = torch.from_numpy(rng.randn(3, Q, K * G, D).astype(np.float32)
+                         * gain).bfloat16()
     kw = dict(scale=D ** -0.5, window=window)
+    if softcap:
+        kw["softcap"] = softcap
     if int8:
         k, v = _int8(k, v, kw)
     return q, k, v, t, torch.tensor(pos, dtype=torch.int32), \
@@ -369,3 +377,30 @@ def test_model_row_alone_equals_row_in_batch(G, D, Q, int8, window):
                                        n_q[one], **kw), full[one])
         assert torch.equal(decode_model(q[one, 0].contiguous(), k, v,
                                         t[one], pos[one], **kw), dec[one])
+
+
+# (G, D, Q, int8, window, query gain) at softcap 30: gain 16 takes the
+# largest scores to about the cap, 64 to several times it
+CAP_CASES = [(7, 64, 5, False, 0, 16.0), (7, 64, 5, True, 0, 64.0),
+             (9, 128, 3, False, 64, 64.0), (12, 32, 5, True, 64, 16.0)]
+
+
+@pytest.mark.parametrize("G,D,Q,int8,window,gain", CAP_CASES)
+def test_capped_model_matches_plain_and_decode(G, D, Q, int8, window, gain):
+    """The cap at the model's point of the kernels' order (after the
+    scale, before the mask): K3's and K1's model within a row ulp of the
+    capped plain versions and apart from the uncapped ones; K3 at one live
+    query equals K1 bit for bit."""
+    q, k, v, t, pos, n_q, kw = _case(G * D + Q + 1, G, D, Q, int8, window,
+                                     softcap=30.0, gain=gain)
+    got = paged_model(q, k, v, t, pos, n_q, **kw)
+    want = paged_verify_plain(q, k, v, t, pos, n_q, **kw)
+    assert _within_one_ulp(got, want) <= 1.0
+    free = {x: y for x, y in kw.items() if x != "softcap"}
+    assert _within_one_ulp(paged_verify_plain(q, k, v, t, pos, n_q, **free),
+                           want) > 1.0
+    dec = decode_model(q[:, 0].contiguous(), k, v, t, pos, **kw)
+    assert _within_one_ulp(dec, paged_decode_plain(q[:, 0].contiguous(), k,
+                                                   v, t, pos, **kw)) <= 1.0
+    one = paged_model(q, k, v, t, pos, torch.ones_like(pos), **kw)[:, 0]
+    assert torch.equal(one, dec)

@@ -34,7 +34,13 @@ hopper backend to the reference backend's within 1e-5 and 1e-4.  The hopper engi
 engine (``serving.parity``, max |dlogit| <= 0.25), with and without
 speculation and int8 pages, dense, sliding-window and MLA.  The state-slot
 engines (no kernel on their path) restore preempted requests into other
-slots bit for bit.
+slots bit for bit.  K1-K4 in their logit-softcap mode (cap 30, scores at
+and past the cap) are held to their capped plain versions by the same
+one-ulp rule and apart from the uncapped ones, K3 at one query equal to
+K1 bit for bit; a capped small qwen2-0.5b passes the dual gate (its
+speculative stream equal to the plain one), and its training forward on
+hopper launches K9 no time and equals the reference backend's bit for
+bit.
 """
 import numpy as np
 import pytest
@@ -1436,3 +1442,144 @@ def test_full_attend_forward_is_bit_equal_with_and_without_grad(cuda):
                                                scale=0.125))
     (g,) = torch.autograd.grad(trained.float().sum(), qg)
     assert bool(torch.isfinite(g).all())
+
+
+# ------------------------------------------------------ the logit softcap
+
+CAP = 30.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gain", [16.0, 64.0])
+@pytest.mark.parametrize("int8", [False, True])
+def test_capped_kernels_match_plain(cuda, int8, gain):
+    """K1, K2, K3 and K4 in their softcap mode (cap 30; queries times 16,
+    the largest scores about the cap, or 64, several times it), causal and
+    ring, against their capped plain versions within a row ulp and apart
+    from the uncapped ones; K3 at one live query equals K1 bit for bit."""
+    rng = np.random.RandomState(int(gain) + int8)
+    ps, K, G, D, Q = 16, 2, 7, 64, 5
+
+    def rand(*shape):
+        return (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                * gain).bfloat16().to(cuda)
+
+    def held(fn, plain, *args, **kw):
+        got = fn(*args, softcap=CAP, **kw)
+        want = plain(*args, softcap=CAP, **kw)
+        assert _within_one_ulp(got, want)
+        assert not _within_one_ulp(plain(*args, **kw), want)
+
+    for window in (0, 64):
+        if window:
+            k, v, t = _ring_inputs(rng, 4, 5, ps, K, D, cuda)
+            pos = [5, 79, 117, 340]
+        else:
+            k, v, t = _pool(rng, [300, 17, 1, 64], ps, K, D, 20, cuda)
+            pos = [299, 16, 0, 63]
+        kw = dict(scale=D ** -0.5, window=window)
+        if int8:
+            k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+        pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        held(paged_decode, paged_decode_plain, rand(4, K * G, D), k, v, t,
+             pos, **kw)
+        qv = rand(4, Q, K * G, D)
+        n_q = torch.tensor([1, 3, 5, 2], dtype=torch.int32, device=cuda)
+        held(paged_verify, paged_verify_plain, qv, k, v, t, pos, n_q, **kw)
+        one = paged_verify(qv, k, v, t, pos, torch.ones_like(n_q),
+                           softcap=CAP, **kw)
+        assert torch.equal(one[:, 0], paged_decode(
+            qv[:, 0].contiguous(), k, v, t, pos, softcap=CAP, **kw))
+    k, v, t = _pool(rng, [300, 17, 1, 64], ps, K, D, 20, cuda)
+    kw = dict(scale=D ** -0.5)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+    st = torch.tensor([270, 0, 0, 40], dtype=torch.int32, device=cuda)
+    held(ragged_prefill, ragged_prefill_plain, rand(4, 24, K * G, D), k, v,
+         t, st, **kw)
+    k, v, t = _ring_inputs(rng, 3, 6, ps, K, D, cuda)
+    kw = dict(scale=D ** -0.5, window=64)
+    if int8:
+        k, v, kw["k_scale"], kw["v_scale"] = _int8(k, v)
+    fresh = [torch.from_numpy(rng.randn(3, 48, K, D).astype(np.float32))
+             .bfloat16().to(cuda) for _ in range(2)]
+    held(windowed_prefill, windowed_prefill_plain, rand(3, 48, K * G, D),
+         *fresh, k, v, t,
+         torch.tensor([0, 208, 333], dtype=torch.int32, device=cuda),
+         torch.tensor([48, 21, 48], dtype=torch.int32, device=cuda), **kw)
+
+
+def _capped_qwen2(cuda, dtype=None):
+    """A small qwen2-0.5b with cap 5 and wq times the gain that gives
+    pre-cap scores of std 2: a score's std is d_model * std(wq) * std(wk)
+    for unit-RMS inputs, read from the drawn weights (the stacked init
+    counts the layer axis in the fan-in)."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        reduced(get_arch("qwen2-0.5b"), n_heads=14, n_kv_heads=2,
+                head_dim=64, d_model=896), attn_logit_softcap=5.0)
+    params = init_params(cfg, 0, cuda)
+    attn = params["blocks"]["attn"]
+    attn["wq"].mul_(2.0 / (cfg.d_model * attn["wq"].float().std().item()
+                           * attn["wk"].float().std().item()))
+    if dtype is not None:
+        from repro_torch.models.params import tree_map
+        params = tree_map(lambda x: x.to(dtype), params)
+    return cfg, params
+
+
+@pytest.mark.cuda
+def test_capped_hopper_engine_passes_the_dual_gate(cuda):
+    """The capped model served on hopper (K1, K2 and, with speculation,
+    K3 with the cap) against reference replays: the dual gate; the
+    speculative stream equal to the plain one; and the cap acting: the
+    uncapped model's hopper replay along the same tokens lies further
+    from the capped one than the gate's bound."""
+    import dataclasses
+    cfg, params = _capped_qwen2(cuda)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist()
+               for n in (8, 90, 40)]
+    kw = dict(page_size=16, max_slots=4, max_len=160,
+              prefill_chunk_tokens=48)
+    with torch.no_grad():
+        runs = [[r.tokens for r in Engine(cfg, ServeConfig(
+            attn_backend="hopper", speculate_tokens=s, **kw), params,
+            device=cuda).run_offline(prompts, 8)[0]] for s in (0, 4)]
+        tokens = runs[0]
+        ref = [replay_logits(cfg, ServeConfig(**kw), params, p, tk,
+                             attn_backend="reference")
+               for p, tk in zip(prompts, tokens)]
+        test, free = ([replay_logits(c, ServeConfig(**kw), params, p, tk,
+                                     attn_backend="hopper")
+                       for p, tk in zip(prompts, tokens)]
+                      for c in (cfg, dataclasses.replace(
+                          cfg, attn_logit_softcap=0.0)))
+    assert runs[1] == tokens
+    rep = dual_gate(ref, test, tokens, tol=0.25)
+    assert rep["ok"], {k: v for k, v in rep.items() if k != "per_request"}
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(test, free))
+    assert moved > 0.25, moved
+
+
+@pytest.mark.cuda
+def test_capped_training_takes_the_chunked_core(cuda):
+    """K9 has no softcap (nor has the TPU kernel): a capped model's
+    training forward on hopper runs the chunked core, launches K9 no time
+    and gives the reference backend's loss and gradients bit for bit."""
+    from repro_torch.core.mapreduce import value_and_grad
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.registry import build_model
+    cfg, params = _capped_qwen2(cuda, torch.float32)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (2, 64), device=cuda,
+        generator=torch.Generator(device="cuda").manual_seed(0))}
+    n0 = flash_attention.launches
+    (hl, _, hg), (rl, _, rg) = (
+        value_and_grad(build_model(cfg, b).loss, params, batch)
+        for b in ("hopper", "reference"))
+    assert flash_attention.launches == n0
+    assert torch.equal(hl, rl)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(hg),
+                                                           tree_leaves(rg)))

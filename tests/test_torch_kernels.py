@@ -23,9 +23,9 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.kernels.paged_attention.kernel import paged_decode_fwd  # noqa: E402
 from repro.kernels.ragged_prefill.kernel import ragged_prefill_fwd  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_decode, paged_decode_plain, paged_verify)
+    paged_decode, paged_decode_plain)
 from repro_torch.kernels.ragged_prefill import (  # noqa: E402
-    ragged_prefill, ragged_prefill_plain, windowed_prefill)
+    ragged_prefill, ragged_prefill_plain)
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.ragged_prefill import ops as ragged_ops  # noqa: E402
 
@@ -144,31 +144,6 @@ def test_wrappers_run_the_plain_version_on_cpu():
         ragged_prefill_plain(qp, kt, vt, t, st, scale=0.2), rtol=0, atol=0)
     # the counters count kernel launches only
     assert (paged_decode.launches, ragged_prefill.launches) == (n0, m0)
-
-
-@pytest.mark.parametrize("mode,item", [(dict(softcap=30.0), "softcap")])
-def test_unported_kernel_modes_refuse(mode, item):
-    rng = np.random.RandomState(8)
-    (_, kt), (_, vt), tables = _pool_and_tables(rng, [20], 8, 2, 32, 3)
-    t = torch.from_numpy(tables)
-    q = _bf16(rng.randn(1, 4, 32))[1]
-    pos = torch.tensor([19], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=item):
-        paged_decode(q, kt, vt, t, pos, scale=0.2, **mode)
-    with pytest.raises(NotImplementedError, match=item):
-        ragged_prefill(_bf16(rng.randn(1, 4, 4, 32))[1], kt, vt, t,
-                       torch.tensor([0], dtype=torch.int32), scale=0.2,
-                       **mode)
-    with pytest.raises(NotImplementedError, match=item):
-        paged_verify(_bf16(rng.randn(1, 3, 4, 32))[1], kt, vt, t, pos - 2,
-                     torch.tensor([3], dtype=torch.int32), scale=0.2,
-                     **mode)
-    kn = _bf16(rng.randn(1, 8, 2, 32))[1]
-    with pytest.raises(NotImplementedError, match=item):
-        windowed_prefill(_bf16(rng.randn(1, 8, 4, 32))[1], kn, kn, kt, vt, t,
-                         torch.tensor([0], dtype=torch.int32),
-                         torch.tensor([8], dtype=torch.int32), window=16,
-                         scale=0.2, **mode)
 
 
 @pytest.mark.parametrize("D,ok", [(32, True), (64, True), (128, True),

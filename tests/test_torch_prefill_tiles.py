@@ -10,7 +10,8 @@ kernel computes, in its order, for every (request, KV head):
   row's position score -1e30;
 * scores are fp32 dot products (exact products, one rounding) times the
   scale after the dot; int8 pages take the factored key scale, (q . k8) *
-  ks * scale;
+  ks * scale; then the logit cap (``softcap > 0``: s = softcap * tanh(s /
+  softcap)), before the mask, in the one score routine both sweeps run;
 * sweep 1 keeps the row max m and rescales only the normalizer, l * exp(m
   - m_new) + sum exp(s - m_new), each tile's sum taken as the kernel's
   threads take it (each of a row's 4 threads sums its 16 columns in order,
@@ -25,8 +26,8 @@ kernel computes, in its order, for every (request, KV head):
 Bounds: each output element within one bf16 ulp of the largest |plain|
 in its row (one head of one token), never below 2^-14 -- the bound
 ``chip_smoke.py`` holds the kernel to on the card; and a prompt's rows
-are equal bit for bit whether it is prefilled as one chunk or as two.
-Inputs are drawn from a seed with numpy.
+are equal bit for bit whether it is prefilled as one chunk or as two,
+with a cap too.  Inputs are drawn from a seed with numpy.
 """
 import numpy as np
 import pytest
@@ -65,8 +66,8 @@ def _pv(o, p, v):
     return o
 
 
-def k2_model(q, k_pages, v_pages, tables, start, *, scale, k_scale=None,
-             v_scale=None):
+def k2_model(q, k_pages, v_pages, tables, start, *, scale, softcap=0.0,
+             k_scale=None, v_scale=None):
     B, T, H, D = q.shape
     _, ps, K, _ = k_pages.shape
     G = H // K
@@ -109,6 +110,8 @@ def k2_model(q, k_pages, v_pages, tables, start, *, scale, k_scale=None,
                 if int8:
                     s = s * ks
                 s = s * scale
+                if softcap:
+                    s = softcap * torch.tanh(s / softcap)
                 ok = live[None, :] & (keys[None, :] <= qpos[:, None])
                 return torch.where(ok, s, torch.tensor(MASK))
 
@@ -143,7 +146,7 @@ def _within_one_ulp(got, want):
     return ((got.float() - want.float()).abs() / ulp).max().item()
 
 
-def _inputs(seed, B, T, K, G, D, ps, starts, int8):
+def _inputs(seed, B, T, K, G, D, ps, starts, int8, softcap=0.0, gain=1.0):
     rng = np.random.RandomState(seed)
     need = [-(-(s + T) // ps) for s in starts]
     width = max(need) + 1
@@ -157,8 +160,10 @@ def _inputs(seed, B, T, K, G, D, ps, starts, int8):
     k = torch.from_numpy(rng.randn(P, ps, K, D).astype(np.float32)).bfloat16()
     v = torch.from_numpy(rng.randn(P, ps, K, D).astype(np.float32)).bfloat16()
     q = torch.from_numpy(
-        rng.randn(B, T, K * G, D).astype(np.float32)).bfloat16()
+        rng.randn(B, T, K * G, D).astype(np.float32) * gain).bfloat16()
     kw = dict(scale=D ** -0.5)
+    if softcap:
+        kw["softcap"] = softcap
     if int8:
         (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize_int8(k), \
             quantize_int8(v)
@@ -196,3 +201,24 @@ def test_model_rows_equal_across_a_chunk_split(G, D, ps, int8):
     assert torch.equal(one, torch.cat([a, b], dim=1))
     assert _within_one_ulp(one, ragged_prefill_plain(
         q, k, v, t, torch.tensor([0], dtype=torch.int32), **kw)) <= 1.0
+
+
+@pytest.mark.parametrize("G,D,ps,int8,gain", [
+    (7, 64, 16, False, 16.0), (3, 128, 32, True, 64.0),
+    (12, 32, 8, True, 16.0), (2, 128, 16, False, 64.0)])
+def test_capped_model_matches_plain_and_chunk_split(G, D, ps, int8, gain):
+    """At softcap 30, queries scaled so the scores reach the cap (gain 16)
+    or several times it (64): the model within a row ulp of the capped
+    plain version and apart from the uncapped one, and a 100-token prompt
+    cut at token 52 equal to one chunk bit for bit."""
+    q, k, v, t, st, kw = _inputs(G * 7 + D + ps, 1, 100, 2, G, D, ps, [0],
+                                 int8, softcap=30.0, gain=gain)
+    one = k2_model(q, k, v, t, st, **kw)
+    want = ragged_prefill_plain(q, k, v, t, st, **kw)
+    assert _within_one_ulp(one, want) <= 1.0
+    free = {x: y for x, y in kw.items() if x != "softcap"}
+    assert _within_one_ulp(ragged_prefill_plain(q, k, v, t, st, **free),
+                           want) > 1.0
+    a = k2_model(q[:, :52], k, v, t, st, **kw)
+    b = k2_model(q[:, 52:], k, v, t, st + 52, **kw)
+    assert torch.equal(one, torch.cat([a, b], dim=1))

@@ -21,7 +21,9 @@ tile):
   is in (q_abs - window, q_abs]) only where it crosses an edge;
 * scores are fp32 dot products times the scale after the dot; int8 ring
   keys take the factored key scale, (q . k8) * ks * scale, fresh keys ks =
-  1;
+  1; then the logit cap (``softcap > 0``: s = softcap * tanh(s /
+  softcap)) on ring and fresh keys alike, before the mask, in the one
+  score routine both sweeps run;
 * sweep 1 keeps the row max m and rescales only the normalizer, l * exp(m
   - m_new) + sum exp(s - m_new), each tile's sum taken as the kernel's
   threads take it (each of a row's 4 threads sums its 16 columns in order,
@@ -38,7 +40,7 @@ Bounds: each output element within one bf16 ulp of the largest |plain|
 in its row (one head of one token), never below 2^-14 -- the bound
 ``chip_smoke.py`` holds the kernel to on the card; padding rows exact
 zeros; a window held in an n-page and an (n + 1)-page ring gives the same
-bits.  Inputs are drawn from a seed with numpy.  The sums of a row's quad
+bits, with a cap too.  Inputs are drawn from a seed with numpy.  The sums of a row's quad
 and of PV's k16 steps, and the row-ulp bound, are K2's model's
 (``test_torch_prefill_tiles.py``).
 """
@@ -62,7 +64,7 @@ from _torch_common import one_thread  # noqa: E402, F401
 
 
 def k4_model(q, k_new, v_new, k_pages, v_pages, tables, start, n_live, *,
-             window, scale, k_scale=None, v_scale=None,
+             window, scale, softcap=0.0, k_scale=None, v_scale=None,
              stage_below_lo=False):
     """K4 in the kernel's order.  ``stage_below_lo`` stages a ring tile's
     pages below a_lo too (a broken variant the tests show is wrong)."""
@@ -146,6 +148,8 @@ def k4_model(q, k_new, v_new, k_pages, v_pages, tables, start, n_live, *,
                     if int8:
                         s = s * ks
                     s = s * scale
+                    if softcap:
+                        s = softcap * torch.tanh(s / softcap)
                     if masked:
                         ok = (pos <= q_abs) & (pos > q_abs - window)
                         s = torch.where(ok, s, torch.tensor(MASK))
@@ -181,7 +185,8 @@ def _bf16(rng, *shape):
     return torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
 
 
-def _inputs(seed, T, K, G, D, ps, window, starts, n_live, int8):
+def _inputs(seed, T, K, G, D, ps, window, starts, n_live, int8, softcap=0.0,
+            gain=1.0):
     """Random ring pages (one slack page: the speculative pool's ring),
     chunk queries and fresh K/V."""
     rng = np.random.RandomState(seed)
@@ -191,9 +196,11 @@ def _inputs(seed, T, K, G, D, ps, window, starts, n_live, int8):
     tables = torch.from_numpy((rng.permutation(P - 1) + 1)
                               .reshape(B, n_ring).astype(np.int32))
     k, v = _bf16(rng, P, ps, K, D), _bf16(rng, P, ps, K, D)
-    q = _bf16(rng, B, T, K * G, D)
+    q = (_bf16(rng, B, T, K * G, D).float() * gain).bfloat16()
     kn, vn = _bf16(rng, B, T, K, D), _bf16(rng, B, T, K, D)
     kw = dict(scale=D ** -0.5, window=window)
+    if softcap:
+        kw["softcap"] = softcap
     if int8:
         (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize_int8(k), \
             quantize_int8(v)
@@ -272,3 +279,22 @@ def test_model_equal_across_ring_lengths(int8):
     assert _row_ulps(outs[0], plain[0]) <= 1.0
     assert _row_ulps(outs[1], plain[1]) <= 1.0
     assert _row_ulps(wrong, plain[0]) > 1.0
+
+
+@pytest.mark.parametrize("G,D,ps,window,T,int8,gain", [
+    (9, 128, 16, 64, 48, False, 16.0), (9, 128, 16, 64, 48, True, 64.0),
+    (12, 64, 16, 32, 48, True, 16.0), (3, 32, 8, 100, 40, False, 64.0)])
+def test_capped_model_matches_plain_within_a_row_ulp(G, D, ps, window, T,
+                                                     int8, gain):
+    """At softcap 30 (queries scaled so the scores reach the cap, gain 16,
+    or several times it, 64) on ring and fresh keys: the model within a row
+    ulp of the capped plain version and apart from the uncapped one."""
+    starts = [0, 40, 13 * ps, 333]
+    args, kw = _inputs(G * 10 + D + ps + window, T, 2, G, D, ps, window,
+                       starts, [T, T, 21, T], int8, softcap=30.0, gain=gain)
+    got = k4_model(*args, **kw)
+    want = windowed_prefill_plain(*args, **kw)
+    assert _row_ulps(got, want) <= 1.0
+    free = {x: y for x, y in kw.items() if x != "softcap"}
+    assert _row_ulps(windowed_prefill_plain(*args, **free), want) > 1.0
+    assert (got[2, 21:] == 0).all()
