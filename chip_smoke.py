@@ -300,6 +300,19 @@ Phases, each printing its own lines; any failed check exits non-zero:
    attention at full depth spreads bf16 runs beyond it, capped or not),
    and hopper's distance from a replay with fp32 parameters held within
    ``CAP_GAP_RATIO`` x the bf16 reference's.
+25. the dry run against the card (run last, no new step, seconds):
+   ``repro_torch.launch.dryrun.dryrun_cell`` plans qwen2-0.5b on ``meta``
+   at phase 18's training shape (B 8, S 1024, AdamW) and a static decode
+   step at phase 6's batch (8 rows over its 1056-token ``max_len``), on
+   the one-process mesh; each plan's live bytes beside the card's
+   ``max_memory_allocated`` (phase 18's steps; phase 6's hopper serve),
+   two step lower bounds beside the measured step p50 (the traced
+   reference path's under ``hlo_cost``'s byte rule, and the least: model
+   FLOPs and the bytes the step must move), and the model-FLOPs share of
+   the bf16 peak, with the card's name and power limit.  Fails if a
+   roofline share reads over 1.0 (a bound above the measured time is a
+   wrong count) or a planned live size lies outside 0.5-2x the measured
+   peak.
 
 In phases 7, 10, 13 and 16 a verify step's rows must equal decode steps
 at ``pos + j`` bit for bit, and in 10, 13 and 16 every speculative stream
@@ -319,7 +332,8 @@ by a ~0.1 ms device spin meanwhile, so that the host's enqueue of a call
 is not timed (without it, a call shorter on the device than its wrapper
 on the host reads as the host's time).  ``bound_ms`` is the
 larger of the bytes the function must move over 3.35 TB/s and its
-operations over 989 TFLOP/s (H100 SXM bf16 dense), counted for this run's
+operations over 989 TFLOP/s (H100 SXM bf16 dense; the rates are
+``repro_torch.launch.mesh``'s), counted for this run's
 inputs (K9 in fp32: over 67 TFLOP/s, the H100's fp32 rate without
 tensor cores; K8 in fp32: the lesser of that and its three TF32 terms
 over 495 TFLOP/s, the TF32 tensor cores' rate; K6's stage A with bf16
@@ -352,12 +366,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense, NVIDIA data sheet
+# the H100's rates: one definition, the port's launch/mesh.py (without the
+# repository beside the script this import fails, and so does the script)
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S,
+    PEAK_FLOPS_FP32 as FP32_FLOPS_PER_S,
+    PEAK_FLOPS_TF32 as TF32_FLOPS_PER_S)
 L2_FLUSH_BYTES = 64 << 20      # > the H100's 50 MB L2
-FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 without tensor cores
 CAP_OPS = 3                    # the softcap's fp32 ops a score: /, tanh, *
-TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 LOGIT_TOL = 0.25               # dual-gate bound on max |dlogit|
 LOGIT_ROW_ULPS = 2.0           # command-r's bound, in bf16 ulps of the row
 K8_TOL = 1e-5                  # K8 vs plain in fp32 (another sum order)
@@ -1557,7 +1573,10 @@ def phase_serve(torch, cfg, seed, profile=True, params=None, prompts=None):
     and hold them to each other (``profile``: with a profiled rerun of the
     hopper requests between); ``params`` and ``prompts`` are drawn from
     ``seed`` unless given.  Returns (launch counts of the hopper run,
-    dual-gate report, params, prompts, hopper tokens, replay cache)."""
+    dual-gate report, params, prompts, hopper tokens, replay cache); the
+    report's ``peak_memory_bytes`` is the hopper run's peak of what this
+    call holds (its parameters, pool and activations, nothing else on
+    the card)."""
     from repro_torch.configs import ServeConfig
     from repro_torch.kernels.paged_attention import paged_decode
     from repro_torch.kernels.ragged_prefill import ragged_prefill
@@ -1572,8 +1591,14 @@ def phase_serve(torch, cfg, seed, profile=True, params=None, prompts=None):
     device = "cuda"
     with torch.no_grad():
         t0 = time.perf_counter()
+        # what else is on the card, so that the hopper run's peak counts
+        # this call's parameters, pool and activations alone
+        base = torch.cuda.memory_allocated()
         if params is None:
             params = init_params(cfg, seed, device)
+        else:
+            base -= sum(leaf.numel() * leaf.element_size()
+                        for _, leaf in tree_leaves(params))
         torch.cuda.synchronize()
         n_params = sum(leaf.numel() for _, leaf in tree_leaves(params))
         print(f"[smoke] {cfg.name}: {n_params / 1e6:.1f} M parameters, "
@@ -1582,8 +1607,10 @@ def phase_serve(torch, cfg, seed, profile=True, params=None, prompts=None):
         eng = Engine(cfg, scfg, params, seed=seed, device=device)
         paged_decode.launches = 0
         ragged_prefill.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         results, m = eng.run_offline(prompts, GEN_TOKENS)
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
         counts = {"K1": paged_decode.launches, "K2": ragged_prefill.launches}
         tokens = [r.tokens for r in results]
         print(f"[smoke] hopper serve: {m['n_requests']} requests, "
@@ -1635,6 +1662,7 @@ def phase_serve(torch, cfg, seed, profile=True, params=None, prompts=None):
                       tokens_per_s=m["tokens_per_s"],
                       ttft_p50_ms=m["ttft_p50_s"] * 1e3,
                       decode_step_ms_p50=m["decode_step_ms_p50"],
+                      peak_memory_bytes=peak,
                       ref_tokens_per_s=rm["tokens_per_s"],
                       ref_decode_step_ms_p50=rm["decode_step_ms_p50"])
         print(f"[smoke] hopper vs reference engines: {same}/{total} "
@@ -4514,6 +4542,98 @@ def phase_train(torch, seed):
         "resume_equal": resume_equal}
 
 
+DRY_LIVE_RATIO = (0.5, 2.0)     # planned live bytes / the card's peak
+
+
+def phase_dryrun(torch, serve, train):
+    """Phase 25: the dry run's plan against what the card did, with no new
+    step.  ``launch.dryrun.dryrun_cell`` traces qwen2-0.5b on ``meta`` at
+    phase 18's training shape (B ``TR_B``, S ``TR_S``, AdamW) and a static
+    decode step at phase 6's batch (``N_REQUESTS`` rows over its
+    ``max_len``), both on the one-process mesh (data=1); each plan is
+    printed beside phase 18's or phase 6's readings: the planned live
+    bytes beside ``max_memory_allocated`` (phase 6: its hopper serve,
+    prefill included, the paged pool in place of the static cache), two
+    step lower bounds beside the step p50: ``roofline``, the traced
+    reference path's under ``hlo_cost``'s byte rule (not the hopper path
+    the card ran), and ``roofline_min``, the model FLOPs and the bytes the
+    step must move at least (no share may pass 1.0: a bound above the
+    measured time is a wrong count); and the model-FLOPs share of the bf16
+    peak.  Fails unless each planned live
+    size lies within ``DRY_LIVE_RATIO`` of the measured peak."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import dryrun_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    cells = {
+        "train": (ShapeConfig("smoke_train", "train", TR_S, TR_B),
+                  train["step_ms_p50"] / 1e3,
+                  train["peak_memory_gib"] * 2**30,
+                  f"phase 18 (hopper, {TR_STEPS} AdamW steps)"),
+        "decode": (ShapeConfig("smoke_decode", "decode",
+                               serve_kwargs()["max_len"], N_REQUESTS),
+                   serve["decode_step_ms_p50"] / 1e3,
+                   serve["peak_memory_bytes"],
+                   "phase 6 (hopper serve, paged decode)"),
+    }
+    out = {"card": CARD}
+    for kind, (shape, p50, peak, where) in cells.items():
+        t0 = time.perf_counter()
+        rec = dryrun_cell("qwen2-0.5b", shape, mesh=mesh, verbose=False)
+        roof = rec["roofline"]
+        bound = roof["step_lower_bound_s"]
+        flash = rec["roofline_flash"]["step_lower_bound_s"]
+        least = rec["roofline_min"]
+        live_ratio = rec["live_bytes_per_device"] / peak
+        share = {"roofline_share": bound / p50,
+                 "roofline_flash_share": flash / p50,
+                 "roofline_min_share": least["step_lower_bound_s"] / p50,
+                 "model_flops_share": rec["model_flops_global"]
+                 / (p50 * BF16_FLOPS_PER_S)}
+        ok = max(share["roofline_share"], share["roofline_min_share"]) \
+            <= 1.0 and DRY_LIVE_RATIO[0] <= live_ratio <= DRY_LIVE_RATIO[1]
+        print(f"[smoke] dry run vs the card, qwen2-0.5b {kind} (B "
+              f"{shape.global_batch}, S {shape.seq_len}; {CARD}): planned "
+              f"live {rec['live_bytes_per_device'] / 2**30:.3f} GiB vs "
+              f"measured peak {peak / 2**30:.3f} GiB in {where} "
+              f"(x{live_ratio:.3f}); the traced reference path's bound "
+              f"under hlo_cost's byte rule {bound * 1e3:.4f} ms "
+              f"({roof['dominant']}: compute {roof['compute_s'] * 1e3:.4f}, "
+              f"memory {roof['memory_s'] * 1e3:.4f} ms) vs step p50 "
+              f"{p50 * 1e3:.3f} ms = roofline share "
+              f"{share['roofline_share']:.4f} (without the score traffic "
+              f"the fused kernels keep on chip {flash * 1e3:.4f} ms = "
+              f"{share['roofline_flash_share']:.4f}); least bound "
+              f"{least['step_lower_bound_s'] * 1e3:.4f} ms ("
+              f"{least['dominant']}: model FLOPs "
+              f"{least['compute_s'] * 1e3:.4f} ms, "
+              f"{rec['min_bytes_per_device'] / 1e9:.4f} GB moved at least "
+              f"{least['memory_s'] * 1e3:.4f} ms) = share "
+              f"{share['roofline_min_share']:.4f}; model FLOPs "
+              f"{rec['model_flops_global']:.4e} (traced "
+              f"{rec['traced_flops_per_device']:.4e}, {rec['n_ops']} ops) = "
+              f"{share['model_flops_share']:.4f} of the bf16 peak; traced in "
+              f"{time.perf_counter() - t0:.1f} s -> {'OK' if ok else 'FAIL'}",
+              flush=True)
+        out[kind] = {
+            "batch": shape.global_batch, "seq_len": shape.seq_len,
+            "planned_live_bytes": rec["live_bytes_per_device"],
+            "measured_peak_bytes": peak, "live_ratio": live_ratio,
+            "step_lower_bound_s": bound, "dominant": roof["dominant"],
+            "flash_lower_bound_s": flash,
+            "min_lower_bound_s": least["step_lower_bound_s"],
+            "min_bytes": rec["min_bytes_per_device"],
+            "step_p50_s": p50, "model_flops": rec["model_flops_global"],
+            "traced_flops": rec["traced_flops_per_device"],
+            "bytes": rec["bytes"], "eager_bytes": rec["eager_bytes"],
+            "n_ops": rec["n_ops"], **share}
+        if not ok:
+            fail(f"dry run vs the card ({kind}): a roofline share above 1.0 "
+                 f"or planned live bytes outside {DRY_LIVE_RATIO} of the "
+                 "measured peak")
+    return out
+
+
 def profile_device(torch, fn, device_only=False):
     """Run ``fn`` under ``torch.profiler``; returns (wall us, kernel rows
     [(name, self device us, calls)] by time, device us over every event),
@@ -4820,6 +4940,10 @@ def main() -> None:
     counts.update(sc_counts)
     print(f"[smoke] softcap phase took {time.perf_counter() - t0:.1f} s "
           f"({CARD})", flush=True)
+    t0 = time.perf_counter()
+    dryrun = phase_dryrun(torch, report, train)
+    print(f"[smoke] dry-run phase took {time.perf_counter() - t0:.1f} s "
+          f"({CARD})", flush=True)
     for kid, c in counts.items():
         if c <= 0:
             fail(f"{kid} was never launched on its serving path")
@@ -4950,7 +5074,8 @@ def main() -> None:
         "command_r": command_r, "deepseek": deepseek, "paper": paper,
         "figures": figures, "train": train, "frontend": frontend,
         "state_slots": state_slots, "frontend_families": families,
-        "train_families": train_families, "softcap": softcap}),
+        "train_families": train_families, "softcap": softcap,
+        "dryrun": dryrun}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@ plus the paper's own MNIST deep-belief network (copies of
 ``repro.configs``)."""
 from __future__ import annotations
 
-from .base import ArchConfig, ServeConfig, reduced  # noqa: F401
+from .base import (ArchConfig, ServeConfig, ShapeConfig, SHAPES,  # noqa: F401
+                   supports, reduced)
 
 from . import (  # noqa: E402
     starcoder2_7b,
@@ -42,3 +43,9 @@ def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return SHAPES[name]

@@ -26,11 +26,16 @@ Where the JAX package maps over the data axes of a device mesh with
 the groups of ``DPGroups`` stand for the mesh's ``pod`` and ``data`` axes.
 ``group=None`` runs everything locally, as ``mesh=None`` does; a group of
 one process still runs its collectives, as a one-device mesh does.
+
+``reduce_plan`` lists, without a process group, the collectives one step
+issues in each process: what the dry run (``launch/dryrun.py``) costs in
+place of the collectives the JAX package parses from compiled HLO.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import math
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -129,6 +134,45 @@ def reduce_tree(grads, groups: Optional[DPGroups], mode: str, err=None):
                                                  tree_leaves(err))]
     return (tree_unflatten(local, [o[0] for o in outs]),
             tree_unflatten(local, [o[1] for o in outs]))
+
+
+# ------------------------------------------------------------- the plan
+
+def reduce_plan(grad_defs, n_pod: int, n_data: int,
+                reduce_mode: str = "allreduce") -> List[Dict]:
+    """The collectives one MapReduce train step (``engine="mapreduce"``
+    over ``dp_groups(n_pod)`` with ``n_pod * n_data`` processes) issues in
+    each process, in order: ``{"op", "bytes", "groups"}``.  ``grad_defs``
+    is the parameters' def tree (the gradients are reduced in fp32);
+    ``bytes`` is the result's size (an all-gather's gathered tensors) and
+    ``groups`` the ranks of every group that makes the call at once.
+    ``reduce_tree``'s order: each leaf's reduce, per mode, then the loss's
+    all-reduce.  What a call costs on the wire is the analysis's
+    (``launch.analysis.collective_summary``)."""
+    if reduce_mode not in REDUCE_MODES:
+        raise ValueError(f"reduce_mode {reduce_mode!r} not in {REDUCE_MODES}")
+    world = n_pod * n_data
+    everyone = [list(range(world))]
+    pods = [list(range(p * n_data, (p + 1) * n_data)) for p in range(n_pod)]
+    across = [list(range(d, world, n_data)) for d in range(n_data)]
+    numels = [math.prod(d.shape) for _, d in tree_leaves(grad_defs)]
+
+    def call(op, nbytes, groups):
+        return {"op": op, "bytes": nbytes, "groups": groups}
+
+    if reduce_mode == "allreduce" or n_pod == 1 or n_data == 1:
+        plan = [call("all_reduce", 4 * n, everyone) for n in numels]
+    else:
+        plan = [call("all_reduce", 4 * n, pods) for n in numels]
+        if reduce_mode == "hierarchical":
+            plan += [call("all_reduce", 4 * n, across) for n in numels]
+        else:                    # int8 blocks and fp32 scales, gathered
+            for n in numels:
+                blocks = -(-n // compression.BLOCK)
+                plan += [call("all_gather",
+                              n_pod * blocks * compression.BLOCK, across),
+                         call("all_gather", n_pod * blocks * 4, across)]
+    return plan + [call("all_reduce", 4, everyone)]
 
 
 # ----------------------------------------------------------- gradient mapper

@@ -4,8 +4,8 @@
   fig6  — unsupervised reconstruction error vs iteration   (paper Fig. 6)
   fig7  — supervised misclassification vs iteration        (paper Fig. 7)
   fig8  — MapReduce scaling: time vs #workers              (paper Fig. 8)
-  roofline — not ported: it sits on the mesh and dry-run tooling (ROADMAP
-             item 17)
+  roofline — the dry-run sweep's roofline table on H100 constants
+             (``launch/roofline.py``; a plan, nothing runs on a device)
 
 ``--quick`` (the default) shrinks sizes as ``benchmarks/run.py`` does;
 ``--full`` runs each script's own defaults.  Runs on ``cuda`` (every RBM
@@ -14,6 +14,9 @@ one NCCL process on the card and the worker sweep (1, 2, 4, 8 gloo
 processes) on the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.figures --only fig6 --device cpu
+
+``--only roofline`` reads the JSONs ``launch/sweep.py`` wrote under
+``--dryrun-dir`` and touches no device.
 """
 from __future__ import annotations
 
@@ -31,15 +34,20 @@ def main(argv=None) -> None:
     ap.add_argument("--full", dest="quick", action="store_false")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
+    ap.add_argument("--dryrun-dir", default=None,
+                    help="the sweep's JSONs (default experiments/dryrun_torch)")
     args = ap.parse_args(argv)
+    t0 = time.time()
     if args.only == "roofline":
-        raise NotImplementedError(
-            "roofline: benchmarks/roofline.py reads the dry-run sweep of "
-            "launch/dryrun.py, which the port does not have yet (ROADMAP "
-            "queue 1 item 17)")
+        from . import roofline
+        out = args.dryrun_dir or roofline.OUT
+        roofline.run(out)
+        print()
+        print(roofline.markdown(out))
+        print(f"benchmarks,total_s={time.time() - t0:.1f}")
+        return
     device = str(resolve_device(args.device))
 
-    t0 = time.time()
     if args.only in (None, "fig6"):
         from . import fig6_unsup_error
         if args.quick:
@@ -58,7 +66,8 @@ def main(argv=None) -> None:
         from . import fig8_scaling
         fig8_scaling.run(device=device)
     if args.only is None:
-        print("roofline: not ported (ROADMAP queue 1 item 17)")
+        from . import roofline
+        roofline.run(args.dryrun_dir or roofline.OUT)
     print(f"benchmarks,total_s={time.time() - t0:.1f}")
 
 

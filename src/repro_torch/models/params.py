@@ -4,7 +4,11 @@ Models declare their parameters as a nested dict of ``ParamDef`` leaves
 (shape, dtype, init rule) — the same trees ``repro.models.params`` builds,
 leaf for leaf, so a JAX parameter tree maps onto the port's by key path
 (``models.convert``).  ``init_tree`` turns a def tree into tensors on a
-given device.
+given device; ``abstract_tree`` into ``meta`` tensors (the dry run's
+stand-ins: no generator, no allocation, at each device's local shape
+under ``models.shardings.resolve`` when given a mesh), and
+``param_bytes`` / ``sharded_bytes`` / ``param_count`` size a tree as the
+JAX package's functions do.
 
 Initialization draws each leaf from its own ``torch.Generator`` seeded by
 ``(seed, crc32(key path))``: stable across processes (the JAX package's
@@ -20,6 +24,8 @@ import zlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from . import shardings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,3 +120,59 @@ def layer(tree, i: int):
     layer's cache leaves land in the stacked pool."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _local_shape(d: ParamDef, mesh) -> Tuple[int, ...]:
+    """``d``'s shape on one device of ``mesh``: each dim divided by the
+    mesh axes ``shardings.resolve`` assigns it."""
+    sizes = shardings.axis_sizes(mesh)
+    out = []
+    for dim, entry in zip(d.shape, shardings.resolve(d.logical, d.shape,
+                                                     mesh)):
+        for a in () if entry is None else (
+                entry if isinstance(entry, tuple) else (entry,)):
+            dim //= sizes[a]
+        out.append(dim)
+    return tuple(out)
+
+
+def abstract_tree(defs, mesh=None, device="meta") -> Dict[str, Any]:
+    """Stand-ins for a def tree, as JAX's ``ShapeDtypeStruct`` trees: empty
+    tensors on ``device`` (``meta``: no storage, no generator), at each
+    device's local shape under ``mesh`` (None: the whole shape)."""
+    def mk(_, d: ParamDef):
+        shape = d.shape if mesh is None else _local_shape(d, mesh)
+        return torch.empty(shape, dtype=d.dtype, device=device)
+    return tree_map_defs(mk, defs)
+
+
+def _def_leaves(defs):
+    return [d for _, d in tree_leaves(defs)]
+
+
+def param_bytes(defs) -> int:
+    return sum(math.prod(d.shape) * d.dtype.itemsize
+               for d in _def_leaves(defs))
+
+
+def sharded_bytes(defs, mesh) -> int:
+    """Per-device bytes of a defs tree under its resolved shardings (the
+    JAX package's arithmetic: each leaf's bytes floor-divided by the
+    product of the mesh axes its spec names)."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    total = 0
+    for d in _def_leaves(defs):
+        spec = shardings.resolve(d.logical, d.shape, mesh)
+        shards = 1
+        for entry in spec:
+            if entry is None:
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            for a in axes:
+                shards *= sizes[a]
+        total += math.prod(d.shape) * d.dtype.itemsize // shards
+    return total
+
+
+def param_count(defs) -> int:
+    return sum(math.prod(d.shape) for d in _def_leaves(defs))

@@ -24,8 +24,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.mapreduce import DPGroups, mapreduce_value_and_grad
-from ..optim import OptConfig, apply_updates
-from .registry import build_model
+from ..optim import OptConfig, apply_updates, opt_state_defs
+from .params import ParamDef, abstract_tree, tree_map_defs
+from .registry import build_model, cache_defs_with_pos, input_defs
+from .shardings import tree_specs
 
 
 # ------------------------------------------------------------- train steps
@@ -63,6 +65,34 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
             inner["comp_err"] = new_err
         return params, inner, {"loss": loss, **om}
     return step
+
+
+def whole_state(odefs):
+    """The optimizer state's defs as the port lays them out: the ``zero``
+    axis dropped (no ZeRO: each process holds the whole state)."""
+    return tree_map_defs(lambda _, d: ParamDef(
+        d.shape, tuple(None if a == "zero" else a for a in d.logical),
+        d.dtype, d.init), odefs)
+
+
+def _train_defs(cfg: ArchConfig, shape, opt_cfg: OptConfig):
+    pdefs = build_model(cfg).param_defs()
+    return (pdefs, whole_state(opt_state_defs(pdefs, opt_cfg)),
+            input_defs(cfg, shape))
+
+
+def train_shardings(cfg: ArchConfig, shape, mesh, opt_cfg: OptConfig):
+    """(params, opt_state, batch) spec trees of the train step's
+    arguments on ``mesh``."""
+    return tuple(tree_specs(d, mesh)
+                 for d in _train_defs(cfg, shape, opt_cfg))
+
+
+def abstract_train_args(cfg: ArchConfig, shape, mesh, opt_cfg: OptConfig):
+    """(params, opt_state, batch) as ``meta`` tensors at one device's
+    local shape on ``mesh``: no allocation."""
+    return tuple(abstract_tree(d, mesh)
+                 for d in _train_defs(cfg, shape, opt_cfg))
 
 
 # ------------------------------------------------------------- serve steps
@@ -138,3 +168,23 @@ def make_serve_step(cfg: ArchConfig, kind: str,
     def step(params, batch):
         return model.prefill(params, batch)
     return step
+
+
+def _serve_defs(cfg: ArchConfig, shape):
+    pdefs = build_model(cfg).param_defs()
+    bdefs = input_defs(cfg, shape)
+    if shape.kind == "decode":
+        return (pdefs, cache_defs_with_pos(cfg, shape.global_batch,
+                                           shape.seq_len), bdefs["tokens"])
+    return pdefs, bdefs
+
+
+def abstract_serve_args(cfg: ArchConfig, shape, mesh):
+    """The serve step's arguments as ``meta`` tensors at one device's
+    local shape: (params, cache with ``pos``, tokens) for decode, (params,
+    batch) for prefill."""
+    return tuple(abstract_tree(d, mesh) for d in _serve_defs(cfg, shape))
+
+
+def serve_shardings(cfg: ArchConfig, shape, mesh):
+    return tuple(tree_specs(d, mesh) for d in _serve_defs(cfg, shape))

@@ -13,10 +13,11 @@ unsup_error``, ``fig7_sup_error``, ``fig8_scaling``, ``figures`` and
 * Fig. 8 at 1 and 2 gloo processes: JAX's keys, its analytic columns by
   its formulas exactly, and both ranks' parameters equal bit for bit
   after the jobs (each worker prints a digest).
-* ``figures --only roofline`` raises, naming ROADMAP item 17; both demos
-  run to their last line on the CPU.
+* ``figures --only roofline`` prints the dry-run sweep's roofline table
+  (a row a cell); both demos run to their last line on the CPU.
 """
 import importlib.util
+import json
 import re
 from pathlib import Path
 
@@ -138,9 +139,23 @@ def test_fig8_refuses_two_workers_on_one_card(monkeypatch):
         fig8_scaling.run(worker_counts=(1, 2), device="cuda")
 
 
-def test_roofline_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 17"):
-        figures.main(["--only", "roofline", "--device", "cpu"])
+def test_roofline_is_not_ported(tmp_path, capsys):
+    """(Named while the figure refused.)  The roofline figure is ported
+    (``launch/roofline.py``): it prints a CSV line and a table row for
+    each traced cell of the sweep's directory, and a row with its reason
+    for a skipped one."""
+    from repro_torch.launch.dryrun import dryrun_cell
+    for name in ("decode_32k", "long_500k"):
+        rec = dryrun_cell("qwen2-0.5b", name, reduced=True, verbose=False)
+        (tmp_path / f"qwen2-0.5b__{name}__256.json").write_text(
+            json.dumps(rec))
+    figures.main(["--only", "roofline", "--device", "cpu",
+                  "--dryrun-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert out.count("roofline,qwen2-0.5b,decode_32k,256,") == 1
+    rows = [x for x in out.splitlines() if x.startswith("| qwen2-0.5b")]
+    assert len(rows) == 2
+    assert "| skip |" in rows[1] and "sub-quadratic" in rows[1]
 
 
 @pytest.mark.parametrize("demo,argv,last", [
